@@ -1,0 +1,82 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. On first use it is compiled
+with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/kernels/`` at the repository root (listed in ``.gitignore``) and
+loaded with ``ctypes``. The library's file name carries a digest of the
+source and the flags, so an edited source is rebuilt and a stale library is
+never loaded. Nothing is compiled when a module is imported: the CPU tests
+import every module on machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit, on the machine with the card")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
+    """Compile every kernel of ``names`` whose library is missing, one
+    ``nvcc`` per source, all started together. ``verbose`` adds
+    ``-Xptxas -v`` (registers, shared memory and spills per kernel).
+    Returns the compiler's output per kernel built; raises on a failure."""
+    procs = {}
+    try:
+        for name in names:
+            lib = library_path(name)
+            if lib.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+                   "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, lib)
+        logs = {}
+        for name, (proc, tmp, lib) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, lib)             # atomic: never a half-written .so
+            logs[name] = out
+        return logs
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built on first use and cached per process."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

@@ -1,0 +1,284 @@
+"""Attention, GQA half (qk-norm / softcap / sliding window). Port of
+``repro.models.attention``.
+
+One flat-head core serves every GQA variant: kv heads are never repeated up
+to H; queries are grouped (B,Q,K,G,D) against (B,S,K,D) keys.
+
+Caches are fixed-capacity ring buffers ``{k, v, pos}`` where ``pos`` holds
+the absolute position stored in each slot (-1 = empty). Softmax is
+permutation invariant, so ring order never matters; masks derive from
+``pos`` alone.
+
+Where the reference returns updated caches functionally, the port updates
+the cache tensors IN PLACE: at full width a copy of the pool per step would
+double its memory. Callers that need the old state clone it first.
+
+Not ported yet: MLA, the int8 KV cache, cross-attention, and the blocked
+online-softmax path ``_attn_blocked`` (reached only for Q > 1 over more than
+``BLOCKED_THRESHOLD`` keys); each raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models.layers import (apply_rope, fan_in_init, head_rmsnorm,
+                                       softcap)
+from repro_torch.models.spec import AttentionSpec, ModelConfig
+
+BLOCKED_THRESHOLD = 8192
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+# ---------------------------------------------------------------------------
+# Core (flat heads, asymmetric qk/v dims)
+# ---------------------------------------------------------------------------
+
+def _mask(q_pos, k_pos, causal, window):
+    """q_pos: (B,Q), k_pos: (B,S) -> bool (B,Q,S). Empty slots have pos=-1."""
+    valid = (k_pos >= 0)[:, None, :]
+    if causal:
+        valid = valid & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        valid = valid & ((q_pos[:, :, None] - k_pos[:, None, :]) < window)
+    return valid
+
+
+def attn_core(q, k, v, q_pos, k_pos, *, scale, causal, window, cap,
+              n_kv: int):
+    """Grouped GQA core — kv is NEVER repeated to H.
+
+    q: (B,Q,H,Dk) with H = n_kv*G;  k: (B,S,K,Dk);  v: (B,S,K,Dv).
+    Returns (B,Q,H,Dv)."""
+    B, Q, H, Dk = q.shape
+    G = H // n_kv
+    q5 = q.reshape(B, Q, n_kv, G, Dk)
+    if Q > 1 and k.shape[1] > BLOCKED_THRESHOLD:
+        raise NotImplementedError("blocked attention (Q > 1 over "
+                                  f"{k.shape[1]} keys) is not ported yet")
+    out = _attn_flat(q5, k, v, q_pos, k_pos, scale=scale, causal=causal,
+                     window=window, cap=cap)
+    return out.reshape(B, Q, H, v.shape[-1])
+
+
+def _attn_flat(q, k, v, q_pos, k_pos, *, scale, causal, window, cap):
+    """q: (B,Q,K,G,Dk), k: (B,S,K,Dk), v: (B,S,K,Dv) -> (B,Q,K,G,Dv).
+
+    Mirrors the reference exactly: the scale is folded into q in q's dtype
+    (the paged kernel instead scales f32 scores), scores accumulate in f32,
+    and p is cast to v's dtype before the value product."""
+    q = (q.float() * scale).to(q.dtype)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
+    if cap is not None:
+        s = softcap(s, cap)
+    m = _mask(q_pos, k_pos, causal, window)[:, None, None]   # (B,1,1,Q,S)
+    s = torch.where(m, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    # fully-masked rows (e.g. empty ring slots only) -> zeros, not NaN
+    p = torch.where(m.any(-1, keepdim=True), p, 0.0)
+    out = torch.einsum("bkgqs,bskv->bqkgv", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+def gqa_init(gen, d_model: int, spec: AttentionSpec, cfg: ModelConfig,
+             device) -> dict:
+    H, K, Dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    dt = torch.bfloat16
+    p = {
+        "wq": fan_in_init(gen, (d_model, H, Dh), d_model, dt, device),
+        "wk": fan_in_init(gen, (d_model, K, Dh), d_model, dt, device),
+        "wv": fan_in_init(gen, (d_model, K, Dh), d_model, dt, device),
+        "wo": fan_in_init(gen, (H, Dh, d_model), H * Dh, dt, device),
+    }
+    if cfg.use_bias:
+        p["bq"] = torch.zeros((H, Dh), dtype=dt, device=device)
+        p["bk"] = torch.zeros((K, Dh), dtype=dt, device=device)
+        p["bv"] = torch.zeros((K, Dh), dtype=dt, device=device)
+        p["bo"] = torch.zeros((d_model,), dtype=dt, device=device)
+    if spec.qk_norm:
+        p["q_norm"] = torch.ones((Dh,), dtype=dt, device=device)
+        p["k_norm"] = torch.ones((Dh,), dtype=dt, device=device)
+    return p
+
+
+def _ring_update(cache: dict, new: dict, positions: torch.Tensor) -> dict:
+    """Write new entries into ring slots pos % capacity, in place.
+
+    Handles: decode (one token), prefill shorter than capacity (contiguous
+    block starting at slot 0), and prefill LONGER than a windowed layer's
+    capacity (keep the trailing window; a full-coverage write realized as a
+    roll so every row lands on its pos%cap slot)."""
+    cap = cache["pos"].shape[1]
+    B, S = positions.shape
+    entries = dict(new)
+    entries["pos"] = positions
+    rows = torch.arange(B, device=positions.device)[:, None]
+    if S >= cap:
+        shift = positions[:, -cap] % cap                         # (B,)
+        cols = (torch.arange(cap, device=positions.device)[None]
+                + shift[:, None]) % cap                          # roll by shift
+        for k, v in entries.items():
+            cache[k][rows, cols] = v[:, -cap:].to(cache[k].dtype)
+        return cache
+    # dynamic_update_slice semantics: the start clamps so the block fits
+    start = (positions[:, 0] % cap).clamp(max=cap - S)           # (B,)
+    cols = start[:, None] + torch.arange(S, device=positions.device)[None]
+    for k in cache:
+        cache[k][rows, cols] = entries[k].to(cache[k].dtype)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Paged leaf path (pool-resident caches; serve engine)
+# ---------------------------------------------------------------------------
+#
+# A paged cache leaf is the POOL's leaf for one scan repeat plus the slots'
+# page table: {"k": (P, ps, K, D), "v": ..., "pos": (P, ps),
+# "table": (B, npps)}. Fresh rows are written straight into their pages (no
+# dense intermediate) and attention reads the pool THROUGH the table —
+# either by materializing this one leaf's dense view (cfg.paged_kernel ==
+# "gather") or by walking the table inside the paged-attention kernel
+# ("paged"). Row -> page mapping matches ``models.lm.paged_scatter``:
+# virtual row v = pos % vcap lives in page table[v // ps] at offset v % ps.
+# A -1 table entry (stalled/dead slot) or -1 position (pad row) drops the
+# write: such rows are filtered out before the indexed store (a clamped
+# page 0 is never written).
+
+def _paged_leaf_update(cache: dict, entries: dict,
+                       positions: torch.Tensor) -> dict:
+    """Scatter fresh (B,S) rows into the pool pages mapped by the table,
+    in place."""
+    table = cache["table"]                                    # (B, npps)
+    ps = cache["pos"].shape[1]
+    vcap = table.shape[1] * ps
+    valid = positions >= 0
+    v = torch.where(valid, positions % vcap, 0)
+    page = torch.gather(table, 1, (v // ps).long())           # (B, S)
+    keep = (valid & (page >= 0)).nonzero(as_tuple=True)       # one sync
+    pg, off = page[keep].long(), (v % ps)[keep].long()
+    for k, rows in entries.items():
+        cache[k][pg, off] = rows[keep].to(cache[k].dtype)
+    cache["pos"][pg, off] = positions[keep].to(cache["pos"].dtype)
+    return cache
+
+
+def _paged_leaf_gather(cache: dict):
+    """Dense per-slot view of ONE pool leaf: ({k: (B,vcap,...)}, kpos)."""
+    table = cache["table"]
+    ps = cache["pos"].shape[-1]
+    B, npps = table.shape
+    cl = table.clamp(min=0).long()
+
+    def g(leaf):
+        return leaf[cl].reshape(B, npps * ps, *leaf.shape[2:])
+
+    dense = {k: g(v) for k, v in cache.items() if k not in ("table", "pos")}
+    kpos = torch.where((table >= 0).repeat_interleave(ps, dim=1),
+                       g(cache["pos"]), -1)
+    return dense, kpos
+
+
+def _paged_gqa(cache: dict, q, k, v, spec: AttentionSpec, cfg: ModelConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    """GQA over a paged leaf: write fresh rows, attend through the table."""
+    if "k_scale" in cache:
+        raise NotImplementedError("int8 KV pool leaves are not ported yet")
+    cache = _paged_leaf_update(cache, {"k": k, "v": v}, positions)
+    scale = 1.0 / (spec.head_dim ** 0.5)
+    if cfg.paged_kernel == "paged":
+        return paged_attention(
+            q.contiguous(), cache["k"], cache["v"], cache["pos"],
+            cache["table"], positions, scale=scale, causal=spec.causal,
+            window=spec.window, softcap=spec.logit_softcap)
+    dense, kpos = _paged_leaf_gather(cache)
+    return attn_core(q, dense["k"], dense["v"], positions, kpos, scale=scale,
+                     causal=spec.causal, window=spec.window,
+                     cap=spec.logit_softcap, n_kv=dense["k"].shape[2])
+
+
+def gqa_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
+              cfg: ModelConfig, positions: torch.Tensor,
+              cache: Optional[dict] = None) -> torch.Tensor:
+    """x: (B,S,D) -> y (B,S,D); ``cache`` (ring or paged leaf) is updated
+    in place."""
+    Dh = spec.head_dim
+    S = x.shape[1]
+
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+    if "bk" in params:
+        k, v = k + params["bk"], v + params["bv"]
+    if spec.qk_norm:
+        q = head_rmsnorm(params["q_norm"], q)
+        k = head_rmsnorm(params["k_norm"], k)
+    if spec.rope_theta:
+        q = apply_rope(q, positions, spec.rope_theta, spec.rope_pct)
+        k = apply_rope(k, positions, spec.rope_theta, spec.rope_pct)
+
+    if cache is not None and "table" in cache:       # paged pool leaf
+        out = _paged_gqa(cache, q, k, v, spec, cfg, positions)
+    else:
+        k_pos = positions
+        if cache is not None:
+            if "k_scale" in cache:
+                raise NotImplementedError("int8 KV caches are not ported yet")
+            cache = _ring_update(cache, {"k": k, "v": v}, positions)
+            if S == 1:
+                # decode: attend the ring contents
+                k, v, k_pos = cache["k"], cache["v"], cache["pos"]
+            # prefill: attend the fresh full-sequence k/v — early queries
+            # need history a windowed ring no longer holds
+        out = attn_core(q, k, v, positions, k_pos, scale=1.0 / (Dh ** 0.5),
+                        causal=spec.causal, window=spec.window,
+                        cap=spec.logit_softcap, n_kv=k.shape[2])
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    if "bo" in params:
+        y = y + params["bo"]
+    return y
+
+
+def gqa_cache_init(batch: int, capacity: int, spec: AttentionSpec,
+                   device) -> dict:
+    if spec.kv_quant:
+        raise NotImplementedError("int8 KV caches are not ported yet")
+    K, Dh = spec.n_kv_heads, spec.head_dim
+    cap = capacity if spec.window is None else min(capacity, spec.window)
+    return {
+        "k": torch.zeros((batch, cap, K, Dh), dtype=torch.bfloat16,
+                         device=device),
+        "v": torch.zeros((batch, cap, K, Dh), dtype=torch.bfloat16,
+                         device=device),
+        "pos": torch.full((batch, cap), -1, dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+
+def _gqa_only(spec: AttentionSpec) -> None:
+    if spec.kind != "gqa":
+        raise NotImplementedError(f"{spec.kind} attention is not ported yet")
+
+
+def attn_init(gen, d_model, spec, cfg, device):
+    _gqa_only(spec)
+    return gqa_init(gen, d_model, spec, cfg, device)
+
+
+def attn_apply(params, x, spec, cfg, positions, cache=None):
+    _gqa_only(spec)
+    return gqa_apply(params, x, spec, cfg, positions, cache=cache)
+
+
+def attn_cache_init(batch, capacity, spec, device):
+    _gqa_only(spec)
+    return gqa_cache_init(batch, capacity, spec, device)

@@ -1,0 +1,157 @@
+"""Residual blocks and scan groups. Port of ``repro.models.blocks``.
+
+A group's repeated pattern keeps the reference's STACKED parameter layout
+(every leaf has a leading repeats axis), so converted reference params map
+1:1; ``group_apply`` walks the repeats in a Python loop and indexes the
+stacked leaves (PyTorch runs eagerly, so there is no scan to compile).
+Blocks marked ``shared`` keep one un-stacked parameter set reused by every
+repeat. Caches are updated in place (see ``models.attention``).
+
+Not ported yet: SSM, MoE and cross-attention blocks (they raise).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.attention import (attn_apply, attn_cache_init,
+                                          attn_init)
+from repro_torch.models.layers import norm_apply, norm_init
+from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.spec import BlockSpec, ModelConfig, ScanGroup
+
+
+def _ported(b: BlockSpec) -> None:
+    for name in ("ssm", "moe", "cross_attn"):
+        if getattr(b, name) is not None:
+            raise NotImplementedError(f"{name} blocks are not ported yet")
+
+
+def tree_map(fn, *trees):
+    """Map ``fn`` over the leaves of nested dicts/lists of tensors."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
+# Single block
+# ---------------------------------------------------------------------------
+
+def block_init(gen, cfg: ModelConfig, b: BlockSpec, device) -> dict:
+    _ported(b)
+    dt = torch.bfloat16
+    p: dict = {}
+    if b.attn is not None:
+        p["norm_attn"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dt,
+                                   device)
+        p["attn"] = attn_init(gen, cfg.d_model, b.attn, cfg, device)
+        if b.post_norms:
+            p["post_attn"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias,
+                                       dt, device)
+    if b.mlp is not None:
+        if not b.parallel_residual:
+            p["norm_mlp"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias,
+                                      dt, device)
+        p["mlp"] = mlp_init(gen, cfg.d_model, b.mlp, cfg, device)
+        if b.post_norms:
+            p["post_mlp"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias,
+                                      dt, device)
+    return p
+
+
+def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
+                positions: torch.Tensor,
+                cache: Optional[dict] = None) -> torch.Tensor:
+    """Returns the block's output; the cache is updated in place. (The
+    reference's aux loss comes from MoE blocks, which are not ported.)"""
+    _ported(b)
+    nk, ne = cfg.norm, cfg.norm_eps
+    c_attn = cache.get("attn") if cache else None
+
+    if b.parallel_residual:
+        h = norm_apply(p["norm_attn"], x, nk, ne)
+        a = attn_apply(p["attn"], h, b.attn, cfg, positions, cache=c_attn)
+        return x + a + mlp_apply(p["mlp"], h, b.mlp)
+
+    if b.attn is not None:
+        h = norm_apply(p["norm_attn"], x, nk, ne)
+        a = attn_apply(p["attn"], h, b.attn, cfg, positions, cache=c_attn)
+        if b.post_norms:
+            a = norm_apply(p["post_attn"], a, nk, ne)
+        x = x + a
+
+    if b.mlp is not None:
+        h = norm_apply(p["norm_mlp"], x, nk, ne)
+        m = mlp_apply(p["mlp"], h, b.mlp)
+        if b.post_norms:
+            m = norm_apply(p["post_mlp"], m, nk, ne)
+        x = x + m
+    return x
+
+
+def block_cache_init(cfg: ModelConfig, b: BlockSpec, batch: int,
+                     capacity: int, device) -> dict:
+    _ported(b)
+    c: dict = {}
+    if b.attn is not None:
+        c["attn"] = attn_cache_init(batch, capacity, b.attn, device)
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Scan group
+# ---------------------------------------------------------------------------
+
+def group_init(gen, cfg: ModelConfig, g: ScanGroup, device) -> dict:
+    """Stacked params: each repeat is drawn separately and copied into its
+    row of the stacked leaf, so no stacked f32 temporary is ever built."""
+    stacked, shared = {}, {}
+    for i, b in enumerate(g.pattern):
+        if b.shared:
+            shared[str(i)] = block_init(gen, cfg, b, device)
+            continue
+        first = block_init(gen, cfg, b, device)
+        st = tree_map(lambda a: a.new_empty((g.repeats,) + a.shape), first)
+        tree_map(lambda s, a: s[0].copy_(a), st, first)
+        del first
+        for r in range(1, g.repeats):
+            tree_map(lambda s, a: s[r].copy_(a), st,
+                     block_init(gen, cfg, b, device))
+        stacked[str(i)] = st
+    return {"stacked": stacked, "shared": shared}
+
+
+def group_cache_init(cfg: ModelConfig, g: ScanGroup, batch: int,
+                     capacity: int, device) -> dict:
+    per_block = {str(i): block_cache_init(cfg, b, batch, capacity, device)
+                 for i, b in enumerate(g.pattern)}
+    return tree_map(
+        lambda a: a[None].expand((g.repeats,) + a.shape).clone(), per_block)
+
+
+def _repeat(tree: dict, r: int) -> dict:
+    """Repeat ``r`` of a stacked tree: every leaf indexed at r (a view, so
+    in-place cache writes land in the stack), except a paged leaf's
+    ``table``, which one (B, npps) tensor serves for every repeat."""
+    return {k: (v if k == "table" else
+                _repeat(v, r) if isinstance(v, dict) else v[r])
+            for k, v in tree.items()}
+
+
+def group_apply(gp: dict, x: torch.Tensor, g: ScanGroup, cfg: ModelConfig,
+                positions: torch.Tensor,
+                caches: Optional[dict] = None) -> torch.Tensor:
+    """Walk the pattern over repeats; the caches are updated in place."""
+    shared = gp["shared"]
+    for r in range(g.repeats):
+        for i, b in enumerate(g.pattern):
+            pi = shared[str(i)] if b.shared else _repeat(gp["stacked"][str(i)],
+                                                          r)
+            ci = _repeat(caches[str(i)], r) if caches is not None else None
+            x = block_apply(pi, x, b, cfg, positions, cache=ci)
+    return x

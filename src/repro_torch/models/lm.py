@@ -1,0 +1,427 @@
+"""Decoder-only LM and its paged serving path. Port of ``repro.models.lm``.
+
+Public surface (plain functions on tensors; ``gen`` is a torch.Generator):
+  lm_init(gen, cfg, device)                          -> params
+  lm_hidden(params, inputs, cfg, caches=None)        -> hidden
+  lm_logits(params, hidden, cfg)                     -> logits
+  prefill_batched(params, inputs, cfg, lengths, ...) -> (last_logits, caches)
+  decode_step(params, caches, tokens, pos, cfg)      -> (logits, caches)
+  cache_init(cfg, batch, capacity, device)           -> caches
+
+Paged KV (the shared-pool serving path — ``repro_torch.serve``):
+  paged_cache_init(cfg, slots, n_pages, page_size, device) -> pool caches
+  paged_gather(pool, tables)                         -> dense per-slot caches
+  paged_scatter(pool, dense, tables, claim, ...)     -> pool caches
+  paged_clear(pool, page_ids)                        -> pool caches
+  paged_copy(pool, src, dst)                         -> pool caches
+  paged_prefill(params, pool, tables, tokens, ...)   -> (logits, pool)
+  paged_decode_step(params, pool, tables, t, p, cfg) -> (logits, pool)
+  count_params(cfg)                                  -> int
+
+Caches and the pool are updated IN PLACE; the functions return the same
+tree so call sites read like the reference's functional ones. At full width
+a copied pool per step would double its memory.
+
+Not ported yet: ``lm_loss``, ``prefill``, the encoder, learned positions,
+frontends, and SSM state (slot-dense SSM sub-caches raise).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.models.attention import attn_cache_init
+from repro_torch.models.blocks import (group_apply, group_cache_init,
+                                       group_init, tree_map)
+from repro_torch.models.layers import (embed_init, embed_logits, embed_lookup,
+                                       norm_apply, norm_init, normal_init,
+                                       softcap)
+from repro_torch.models.spec import ModelConfig
+
+
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.encoder is not None or cfg.learned_pos or cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: encoders, learned positions "
+                                  "and frontends are not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def lm_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+            device) -> dict:
+    _ported(cfg)
+    dt = torch.bfloat16
+    p: dict = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, device),
+        "final_norm": norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dt,
+                                device),
+        "groups": [group_init(gen, cfg, g, device) for g in cfg.groups],
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"lm_head": normal_init(
+            gen, (cfg.d_model, cfg.vocab), 0.02, dt, device)}
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params, inputs, cfg):
+    _ported(cfg)
+    tokens = inputs["tokens"]
+    x = embed_lookup(params["embed"], tokens)
+    if cfg.embed_scale:
+        x = x * math.sqrt(cfg.d_model)
+    positions = inputs.get("positions")
+    if positions is None:
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)[None].expand(x.shape[:2])
+    return x, positions
+
+
+def lm_hidden(params: dict, inputs: dict, cfg: ModelConfig,
+              caches: Optional[list] = None) -> torch.Tensor:
+    """Final hidden states; caches are updated in place. (The reference
+    also returns its caches and the MoE aux loss; MoE is not ported.)"""
+    x, positions = _embed_inputs(params, inputs, cfg)
+    for gi, g in enumerate(cfg.groups):
+        c = caches[gi] if caches is not None else None
+        x = group_apply(params["groups"][gi], x, g, cfg, positions, caches=c)
+    return norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+
+
+def lm_logits(params: dict, hidden: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = embed_logits(params["embed"], hidden)
+    else:
+        logits = hidden @ params["lm_head"]["lm_head"]
+    if cfg.final_logit_softcap:
+        logits = softcap(logits.float(), cfg.final_logit_softcap)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def cache_init(cfg: ModelConfig, batch: int, capacity: int, device) -> list:
+    return [group_cache_init(cfg, g, batch, capacity, device)
+            for g in cfg.groups]
+
+
+def decode_step(params: dict, caches: list, tokens: torch.Tensor,
+                pos: torch.Tensor, cfg: ModelConfig):
+    """tokens: (B,1) int32, pos: (B,1) absolute position. One new token."""
+    h = lm_hidden(params, {"tokens": tokens, "positions": pos}, cfg,
+                  caches=caches)
+    return lm_logits(params, h, cfg), caches
+
+
+def _map_attn_subs(caches: list, attn_fn) -> list:
+    """Walk a cache tree (list of group trees of block dicts) applying
+    ``attn_fn`` to every attention sub-cache. Preserves structure."""
+    out = []
+    for gtree in caches:
+        ng = {}
+        for bi, btree in gtree.items():
+            nb = {}
+            for kind, sub in btree.items():
+                if kind != "attn":
+                    raise NotImplementedError(f"{kind} caches are not "
+                                              "ported yet")
+                nb[kind] = attn_fn(sub)
+            ng[bi] = nb
+        out.append(ng)
+    return out
+
+
+def _zip_attn_subs(pool: list, dense: list, attn_fn) -> list:
+    """Two-tree variant of ``_map_attn_subs`` (pool and dense in lockstep)."""
+    out = []
+    for gpool, gdense in zip(pool, dense):
+        ng = {}
+        for bi in gpool:
+            nb = {}
+            for kind in gpool[bi]:
+                if kind != "attn":
+                    raise NotImplementedError(f"{kind} caches are not "
+                                              "ported yet")
+                nb[kind] = attn_fn(gpool[bi][kind], gdense[bi][kind])
+            ng[bi] = nb
+        out.append(ng)
+    return out
+
+
+def prefill_batched(params: dict, inputs: dict, cfg: ModelConfig,
+                    lengths: torch.Tensor, capacity: Optional[int] = None):
+    """Multi-slot prefill of right-padded prompts in ONE forward.
+
+    ``inputs["tokens"]`` is (B, S) with row b's real prompt in columns
+    ``[0, lengths[b])`` and arbitrary padding after. Causality means pad
+    columns never influence real tokens. Returns (per-row last-REAL-token
+    logits (B, 1, V), caches with every pad entry neutralized — ``pos``
+    forced to -1 — so a later decode can never attend padding)."""
+    x, positions = _embed_inputs(params, inputs, cfg)
+    B, S = x.shape[:2]
+    capacity = max(capacity or S, S)
+    caches = []
+    for gi, g in enumerate(cfg.groups):
+        c = group_cache_init(cfg, g, B, capacity, x.device)
+        x = group_apply(params["groups"][gi], x, g, cfg, positions, caches=c)
+        caches.append(c)
+    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    idx = (lengths.long() - 1).clamp(0, S - 1)
+    last = x[torch.arange(B, device=x.device), idx][:, None]      # (B,1,D)
+    logits = lm_logits(params, last, cfg)
+    lim = lengths.to(torch.int32)[None, :, None]                  # (1,B,1)
+
+    def neutralize(sub):
+        p = sub["pos"]
+        p.masked_fill_(~((p >= 0) & (p < lim)), -1)
+        return sub
+
+    return logits, _map_attn_subs(caches, neutralize)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV: one shared pool, per-slot page tables
+# ---------------------------------------------------------------------------
+#
+# Attention cache leaves carry a PAGE axis of ``n_pages`` fixed-size pages —
+# (repeats, n_pages, page_size, ...) — and each slot owns an ordered page
+# list (its page table). Slot b's virtual cache row v lives in page
+# ``tables[b, v // page_size]`` at offset ``v % page_size``; -1 table entries
+# read as empty (pos = -1). ``tables`` is a (slots, pages_per_slot) int32
+# tensor argument of every call, so page traffic changes data, never shapes.
+
+def paged_cache_init(cfg: ModelConfig, slots: int, n_pages: int,
+                     page_size: int, device) -> list:
+    """Pool caches: attention leaves paged over ``n_pages`` x ``page_size``
+    (windowed layers use full pages too — windows are enforced by the pos
+    mask, not by ring truncation)."""
+    caches = []
+    for g in cfg.groups:
+        per_block = {}
+        for i, b in enumerate(g.pattern):
+            if b.ssm is not None:
+                raise NotImplementedError("SSM state is not ported yet")
+            c: dict = {}
+            if b.attn is not None:
+                spec = (b.attn if b.attn.window is None
+                        else dataclasses.replace(b.attn, window=None))
+                c["attn"] = attn_cache_init(n_pages, page_size, spec, device)
+            per_block[str(i)] = c
+        caches.append(tree_map(
+            lambda a: a[None].expand((g.repeats,) + a.shape).clone(),
+            per_block))
+    return caches
+
+
+def pool_page_size(pool: list) -> Optional[int]:
+    """Page size of a paged cache tree (None when the model has no
+    attention caches to page)."""
+    for gtree in pool:
+        for btree in gtree.values():
+            sub = btree.get("attn")
+            if sub:
+                return sub["pos"].shape[-1]
+    return None
+
+
+def _rows_at(leaf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """leaf: (R, B, C, ...), idx: (B, W) -> rows (R, B, W, ...)."""
+    b = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return leaf[:, b, idx.long()]
+
+
+def paged_gather(pool: list, tables: torch.Tensor) -> list:
+    """Materialize the dense per-slot view of a paged pool (a copy).
+
+    tables: (B, pages_per_slot) int32 page ids, -1 = unallocated. Returns
+    caches shaped exactly like ``cache_init(cfg, B, vcap)`` output with
+    ``vcap = pages_per_slot * page_size``: ``decode_step`` runs on it
+    unchanged."""
+    clamped = tables.clamp(min=0).long()
+    B, n_per = tables.shape
+
+    def attn_fn(sub):
+        ps = sub["pos"].shape[-1]
+        valid = (tables >= 0).repeat_interleave(ps, dim=1)       # (B, vcap)
+        out = {}
+        for k, leaf in sub.items():
+            g = leaf[:, clamped]                       # (R, B, n_per, ps, …)
+            g = g.reshape(g.shape[0], B, n_per * ps, *g.shape[4:])
+            if k == "pos":
+                g = torch.where(valid[None], g, -1)
+            out[k] = g
+        return out
+
+    return _map_attn_subs(pool, attn_fn)
+
+
+def paged_scatter(pool: list, dense: list, tables: torch.Tensor,
+                  claim: torch.Tensor) -> list:
+    """Commit dense cache rows holding absolute positions ``claim`` (B, W)
+    back into the pool pages mapped by ``tables`` (B, pages_per_slot), in
+    place.
+
+    A row is written only when the dense cache actually HOLDS its claimed
+    position (``dense pos == claim`` — ring wrap and pad neutralization
+    both make this false) and the target page is allocated; every other
+    row is filtered out before the store."""
+
+    def attn_fn(pool_sub, dense_sub):
+        ps = pool_sub["pos"].shape[-1]
+        vcap = tables.shape[1] * ps
+        v = torch.where(claim >= 0, claim % vcap, 0)
+        page = torch.gather(tables, 1, (v // ps).long())         # (B, W)
+        off = v % ps
+        cap_leaf = dense_sub["pos"].shape[2]
+        j = torch.where(claim >= 0, claim % cap_leaf, 0)
+        held = _rows_at(dense_sub["pos"], j)[0]                   # (B, W)
+        ok = ((claim >= 0) & (held == claim) & (page >= 0)).nonzero(
+            as_tuple=True)
+        pg, of = page[ok].long(), off[ok].long()
+        for k, leaf in pool_sub.items():
+            rows = _rows_at(dense_sub[k], j)                      # (R,B,W,…)
+            leaf[:, pg, of] = rows[:, ok[0], ok[1]].to(leaf.dtype)
+        return pool_sub
+
+    return _zip_attn_subs(pool, dense, attn_fn)
+
+
+def _page_ids(ids, n_pages: int, device) -> torch.Tensor:
+    """Page ids as a tensor, out-of-range ids dropped."""
+    t = torch.as_tensor(ids, dtype=torch.long).reshape(-1)
+    return t[(t >= 0) & (t < n_pages)].to(device)
+
+
+def paged_clear(pool: list, page_ids) -> list:
+    """Mark the given pages empty (pos = -1), in place, so a later owner
+    never sees a previous request's keys. k/v payloads are left in place —
+    pos = -1 masks them everywhere."""
+
+    def attn_fn(sub):
+        pos = sub["pos"]
+        pos[:, _page_ids(page_ids, pos.shape[1], pos.device)] = -1
+        return sub
+
+    return _map_attn_subs(pool, attn_fn)
+
+
+def paged_copy(pool: list, src, dst) -> list:
+    """Copy page payloads ``src`` -> ``dst`` on every attention leaf, in
+    place (the copy-on-write break: a shared page is duplicated into a
+    private page before its first divergent write). src/dst: page ids,
+    scalar or (n,); pairs with an out-of-range dst are dropped."""
+
+    def attn_fn(sub):
+        n_pages = sub["pos"].shape[1]
+        s = torch.as_tensor(src, dtype=torch.long).reshape(-1)
+        d = torch.as_tensor(dst, dtype=torch.long).reshape(-1)
+        keep = (d >= 0) & (d < n_pages)
+        s, d = s[keep], d[keep]
+        for leaf in sub.values():
+            leaf[:, d.to(leaf.device)] = leaf[:, s.to(leaf.device)]
+        return sub
+
+    return _map_attn_subs(pool, attn_fn)
+
+
+def _paged_view(pool: list, tables: torch.Tensor) -> list:
+    """Cache tree for the leaf-level paged path: every attention leaf
+    carries the pool pages plus ``table`` — one (B, npps) tensor that every
+    repeat reads (``blocks.group_apply`` does not index it by repeat)."""
+    return _map_attn_subs(pool, lambda sub: {**sub, "table": tables})
+
+
+def paged_prefill(params: dict, pool: list, tables: torch.Tensor,
+                  tokens: torch.Tensor, lengths: torch.Tensor,
+                  cfg: ModelConfig, *,
+                  starts: Optional[torch.Tensor] = None,
+                  kernel: str = "gather"):
+    """Batched multi-slot prefill straight into the page pool (in place).
+
+    tokens: (B, S) right-padded prompts; lengths: (B,) real lengths;
+    tables: (B, pages_per_slot) page tables of the destination slots.
+    Returns (last-real-token logits (B,1,V), pool). (The reference's
+    ``slot_ids`` place slot-dense SSM state, which this port does not hold
+    yet.)
+
+    ``kernel="gather"`` with no ``starts`` keeps the dense path
+    (``prefill_batched`` + ``paged_scatter``). ``kernel="paged"`` — or any
+    call with ``starts`` — runs the leaf-level paged path: fresh rows are
+    written page by page inside each layer and queries attend the pool
+    THROUGH the page table (with the kernel for "paged", a per-leaf dense
+    gather for "gather"), so row b may continue from absolute position
+    ``starts[b]`` with its earlier pages (a shared prefix) already
+    resident. tokens then holds only the suffix and lengths its length."""
+    if kernel == "gather" and starts is None:
+        ps = pool_page_size(pool)
+        vcap = tables.shape[1] * ps if ps else None
+        logits, dense = prefill_batched(params, {"tokens": tokens}, cfg,
+                                        lengths, capacity=vcap)
+        claim = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)[None].expand(tokens.shape)
+        return logits, paged_scatter(pool, dense, tables, claim)
+
+    B, S = tokens.shape
+    dev = tokens.device
+    st = (torch.zeros((B,), dtype=torch.int32, device=dev) if starts is None
+          else starts.to(torch.int32))
+    cols = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    positions = torch.where(cols < lengths.to(torch.int32)[:, None],
+                            st[:, None] + cols, -1)     # pad rows never write
+    h = lm_hidden(params, {"tokens": tokens, "positions": positions},
+                  cfg.replace(paged_kernel=kernel),
+                  caches=_paged_view(pool, tables))
+    idx = (lengths.long() - 1).clamp(0, S - 1)
+    last = h[torch.arange(B, device=dev), idx][:, None]
+    return lm_logits(params, last, cfg), pool
+
+
+def paged_decode_step(params: dict, pool: list, tables: torch.Tensor,
+                      tokens: torch.Tensor, pos: torch.Tensor,
+                      cfg: ModelConfig, *, kernel: str = "gather"):
+    """One batched decode step over the paged pool (in place).
+    tokens/pos: (B, 1).
+
+    kernel="gather": materialize each slot's dense view (``paged_gather``),
+    run the ordinary ``decode_step``, scatter the one new row per slot back
+    to its page — the dense baseline. kernel="paged": no dense view is ever
+    built — each attention leaf writes its one fresh row into the pool and
+    the kernel walks the page table (``kernels.paged_attention``).
+
+    A stalled slot's write drops on its missing (or blanked, -1) page. (The
+    reference's ``live`` gates slot-dense SSM state, which this port does
+    not hold yet.)"""
+    if kernel == "gather":
+        dense = paged_gather(pool, tables)
+        logits, dense = decode_step(params, dense, tokens, pos, cfg)
+        return logits, paged_scatter(pool, dense, tables, pos)
+    h = lm_hidden(params, {"tokens": tokens, "positions": pos},
+                  cfg.replace(paged_kernel=kernel),
+                  caches=_paged_view(pool, tables))
+    return lm_logits(params, h, cfg), pool
+
+
+# ---------------------------------------------------------------------------
+# Parameter counting (init on the meta device — no allocation, no formulas)
+# ---------------------------------------------------------------------------
+
+def count_params(cfg: ModelConfig) -> int:
+    total = 0
+
+    def add(a):
+        nonlocal total
+        total += a.numel()
+
+    tree_map(add, lm_init(None, cfg, "meta"))
+    return total

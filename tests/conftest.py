@@ -26,3 +26,9 @@ except ImportError:
     _hyp = build_module()
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _hyp.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one; run "
+        "them on the card with `python -m pytest -m cuda tests/`)")

@@ -1,0 +1,144 @@
+"""Package-level contracts of the port (``src/repro_torch``).
+
+* Its config copies equal the reference's, field for field, for all ten
+  architectures, full and smoke (``paged_kernel`` exempt: the port names its
+  own kernels), and its parameter count equals the reference's for every
+  architecture it can build.
+* It imports with JAX blocked, and no file of it — nor ``chip_smoke.py`` —
+  imports ``jax`` or the reference package ``repro``.
+* Its entry points run on the card unless asked for the CPU, and raise
+  without one; ``launch.serve.serve`` drives the paged engine end to end.
+* bf16 crosses ``convert`` bit for bit.
+"""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+import repro_torch.configs as tconfigs
+from repro.models.lm import count_params as j_count_params
+from repro_torch.convert import tensor_from_numpy
+from repro_torch.models.lm import count_params as t_count_params
+
+# one intra-op thread: the suite runs many test processes side by side
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+BUILDABLE = ("qwen3-14b", "gemma2-27b", "gemma3-12b", "stablelm-12b")
+
+
+def _fields(cfg):
+    d = dataclasses.asdict(cfg)
+    d.pop("paged_kernel")
+    return d
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_config_copies_match_reference(arch, smoke):
+    assert tconfigs.ARCHS == jconfigs.ARCHS
+    assert (_fields(tconfigs.get_config(arch, smoke))
+            == _fields(jconfigs.get_config(arch, smoke)))
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", BUILDABLE)
+def test_param_count_matches_reference(arch, smoke):
+    jcfg, tcfg = (m.get_config(arch, smoke) for m in (jconfigs, tconfigs))
+    assert t_count_params(tcfg) == j_count_params(jcfg)
+    assert tcfg.param_count() == t_count_params(tcfg)
+
+
+def _modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        yield ".".join(parts)
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"for m in {list(_modules())!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert not any(k == 'repro' or k.startswith('repro.')\n"
+            "               for k in sys.modules), 'imported repro'\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    for mod in _imported(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
+    from repro_torch.kernels.ops import resolve_device
+    from repro_torch.launch.serve import init_params
+    from repro_torch.serve.engine import PagedServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.get_config("qwen3-14b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, None)
+    params = init_params(cfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedServeEngine(cfg, params, slots=2)
+    assert PagedServeEngine(cfg, params, slots=2,
+                            device="cpu").device.type == "cpu"
+
+
+def test_serve_entry_point_waves_share_prefixes(capsys):
+    """``launch.serve.serve`` as ``chip_smoke.py`` calls it, at smoke width
+    on the CPU: a first wave registers a system prompt, the second wave's
+    sharers admit warm."""
+    from repro_torch.launch.serve import init_params, serve
+    from repro_torch.serve.engine import Request
+    cfg = tconfigs.get_config("qwen3-14b", smoke=True)
+    params = init_params(cfg, "cpu")
+    r = np.random.default_rng(0)
+    system = r.integers(1, cfg.vocab, 16)
+    wave = [Request(rid=1 + i, prompt=np.concatenate(
+        [system, r.integers(1, cfg.vocab, 16)]) if i < 2
+        else r.integers(1, cfg.vocab, 32), max_new=4) for i in range(4)]
+    eng = serve(cfg, params, [[Request(rid=0, prompt=system, max_new=4)],
+                              wave], device="cpu", slots=2, capacity=64,
+                kernel="paged", prefix_sharing=True)
+    assert all(q.done and len(q.out) == 4 for q in wave)
+    assert eng.stats["prefix_hits"] == 2
+    eng.pool.check()
+    assert "prefix_hits=2" in capsys.readouterr().out
+
+
+def test_convert_keeps_bf16_bits():
+    x = jax.random.normal(jax.random.PRNGKey(0), (7, 5), jax.numpy.bfloat16)
+    t = tensor_from_numpy(np.asarray(x))
+    assert t.dtype == torch.bfloat16
+    assert np.array_equal(t.view(torch.int16).numpy(),
+                          np.asarray(x).view(np.int16))
