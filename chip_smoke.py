@@ -8,18 +8,25 @@ non-zero and prints no result. It imports only ``repro_torch``, torch and
 numpy. Phases, each printing its own lines; any failure raises and exits
 non-zero:
 
-1. card     name and power limit; TF32 off for float32 products.
-2. build    every CUDA kernel of the port, compiled from the sources here.
-3. kernels  each kernel against its plain PyTorch version on the card: the
-            reference test grid (page sizes 2/4/8/16, MHA/GQA/MQA, window +
-            softcap, the MLA q2/k2 form, ragged padded prefill, fragmented
-            tables with dead pages, a full pool) in f32 (atol 2e-5) and
-            bf16 (atol 2e-2, rtol 1e-2), then the serving path's own bf16
-            shapes, timed with CUDA events (median of 30 launches, L2
-            flushed between launches) beside the plain version and, as a
-            yardstick, scaled_dot_product_attention on the already-gathered
-            dense view (no single PyTorch call computes the paged function,
-            so ``library_ms`` is null).
+1. card     name and power limit; TF32 off for float32 products, f32
+            reductions for bf16 products.
+2. build    every CUDA kernel of the port (paged_attention.cu, ssd_scan.cu),
+            compiled from the sources here, one nvcc each, all at once;
+            registers, shared memory and spills of each kernel.
+3. kernels  each kernel against its plain PyTorch version on the card.
+            paged_attention: the reference test grid (page sizes 2/4/8/16,
+            MHA/GQA/MQA, window + softcap, the MLA q2/k2 form, ragged padded
+            prefill, fragmented tables with dead pages, a full pool) in f32
+            (atol 2e-5) and bf16 (atol 2e-2, rtol 1e-2), then the serving
+            path's own bf16 shapes. ssd_scan: the reference sweep
+            (tests/test_kernels.py) in f32 (relative error 3e-4) and bf16
+            (6e-2), y and the final state, then mamba2-1.3b's own scan
+            (bf16 x/B/C, f32 dt, y f32; B=4, H=64, P=64, N=128, chunk 256,
+            S=512 and S=192). Times are CUDA-event medians of 30 launches,
+            L2 flushed between launches, beside the plain version and the
+            bound. paged_attention gets scaled_dot_product_attention on the
+            already-gathered dense view as a yardstick; no single PyTorch
+            call computes either function, so ``library_ms`` is null.
 4. serve    ``repro_torch.launch.serve.serve`` with qwen3-14b at its full
             published width (40 layers, d_model 5120, 40/8 heads, head_dim
             128, d_ff 17408, vocab 151936), random bf16 weights drawn on the
@@ -35,12 +42,31 @@ non-zero:
             fresh pool: greedy tokens agree up to the first near-tie.
 6. profile  torch.profiler over full-width decode steps: host wall time,
             device busy share, the kernels that take the time.
+7. serve-ssm  ``serve`` with mamba2-1.3b at its published width (48 layers,
+            d_model 2048, d_inner 4096, 64 heads of 64, d_state 128, vocab
+            50280, tied embeddings; 1.34 B parameters, 2.7 GB of bf16): 4
+            slots, capacity 1024, 8 requests of 16 generated tokens, four
+            with 512-token prompts (two chunks: the state carries) and four
+            with 192-token prompts (Q = S). Prefill groups have one exact
+            length; every SSD-scan launch is counted: 48 per prefill
+            dispatch (decode runs the recurrence, not the scan).
+8. lockstep-ssm  4 prompts of 512 tokens prefilled through the SSD kernel
+            and decoded 4 steps, against the same prompts fed one token at
+            a time through paged_decode_step (the decode recurrence, an
+            independent path) and the same 4 tokens. In float32 (weights,
+            activations, SSM caches) the paths compute one function: logits
+            within 1e-3 of their scale and greedy tokens equal up to the
+            first near-tie. In bf16, the served model, the paths round at
+            different points (as the reference's do): the state's and the
+            logits' relative errors and the token agreement are printed.
+9. profile-ssm  as 6, for a mamba2-1.3b decode step.
 
 The last three lines: the card's name and power limit (nvidia-smi), the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import statistics
@@ -55,6 +81,7 @@ import torch
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+F32_FLOPS = 67e12                  # float32 outside the tensor cores
 ULP_TIE = 0.05                     # tests/test_paged_attention.py:_ULP_TIE
 
 
@@ -228,28 +255,158 @@ def measure(paged_attention, paged_attention_ref, a):
         bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+SSD_SWEEP = [(1, 128, 2, 64, 32, 64),       # tests/test_kernels.py:60-64
+             (2, 256, 4, 64, 64, 128),
+             (1, 192, 2, 32, 16, 64)]
+SSD_MODEL = [(4, 512, 64, 64, 128, 256),    # mamba2-1.3b: two chunks
+             (4, 192, 64, 64, 128, 256)]    # Q = S = 192
+
+
+def ssd_problem(seed, Bz, S, H, P, N, dtype, dt_dtype):
+    """The reference sweep's inputs (tests/test_kernels.py), from numpy."""
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((Bz, S, H, P), np.float32)
+    dt = np.logaddexp(r.standard_normal((Bz, S, H), np.float32), 0)
+    A = -np.exp(0.3 * r.standard_normal((H,), np.float32))
+    B = r.standard_normal((Bz, S, N), np.float32)
+    C = r.standard_normal((Bz, S, N), np.float32)
+    return (torch.from_numpy(x).to(DEV, dtype),
+            torch.from_numpy(dt).to(DEV, dt_dtype),
+            torch.from_numpy(A).to(DEV),
+            torch.from_numpy(B).to(DEV, dtype),
+            torch.from_numpy(C).to(DEV, dtype))
+
+
+def rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / (b.abs().max() + 1e-9)).item()
+
+
+def ssd_bound(args, y, h, chunk):
+    """Least time for the scan: each input read once and y and the final
+    state written once over the memory rate, against the reference's four
+    products per (b, h, chunk) — C.B^T, scores @ x, the state read and the
+    state update — over the peak rate of the inputs' type."""
+    x, B = args[0], args[3]
+    Bz, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S)
+    n_bytes = sum(t.numel() * t.element_size() for t in (*args, y, h))
+    flops = Bz * H * (S // Q) * (2 * Q * Q * N + 2 * Q * Q * P
+                                 + 4 * Q * N * P)
+    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                mbytes=n_bytes / 1e6, gflop=flops / 1e9)
+
+
+def phase_ssd(ssd_scan, ssd_chunked_ref, card):
+    print("[kernels] ssd_scan against ssd_chunked_ref on the card")
+    cases = [(dtype, dtype, None, tol, shape)
+             for dtype, tol in ((torch.float32, 3e-4), (torch.bfloat16, 6e-2))
+             for shape in SSD_SWEEP]
+    cases += [(torch.bfloat16, torch.float32, torch.float32, 3e-4, shape)
+              for shape in SSD_MODEL]
+    rec = {}
+    for dtype, dt_dtype, out_dtype, tol, shape in cases:
+        Bz, S, H, P, N, chunk = shape
+        args = ssd_problem(S, Bz, S, H, P, N, dtype, dt_dtype)
+        y, h = ssd_scan(*args, chunk=chunk, out_dtype=out_dtype,
+                        return_state=True)
+        torch.cuda.synchronize()
+        ry, rh = ssd_chunked_ref(*args, chunk)
+        ey, eh = rel_err(y, ry.to(y.dtype)), rel_err(h, rh)
+        check(ey < tol and eh < tol,
+              f"ssd_scan {shape} {dtype}: rel err y {ey:.3e} h {eh:.3e}")
+        b = ssd_bound(args, y, h, chunk)
+        ms = time_ms(lambda: ssd_scan(*args, chunk=chunk, out_dtype=out_dtype,
+                                      return_state=True))
+        plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk))
+        model = out_dtype is not None
+        print(f"[kernels]   {'model ' if model else ''}{str(dtype)[6:]:8s} "
+              f"Bz={Bz} S={S} H={H} P={P} N={N} chunk={chunk}: rel_err y "
+              f"{ey:.3e} h {eh:.3e} (tol {tol:g}) kernel={ms:.4f}ms "
+              f"plain={plain_ms:.4f}ms bound={b['bound_ms']:.4f}ms "
+              f"({b['bound_by']}: {b['mbytes']:.1f} MB, {b['gflop']:.2f} "
+              f"GFLOP) ok")
+        if model:
+            rec[f"S{S}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], rel_err_y=ey, rel_err_h=eh,
+                max_abs_err=(y.float() - ry).abs().max().item())
+    print(f"[kernels] ssd_scan times on {card}")
+    return rec
+
+
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: serve at full width, then the lockstep check
+# Phases 4, 5, 7 and 8: serve at full width, then the lockstep checks
 # ---------------------------------------------------------------------------
 
-def phase_serve(cfg, params, paged_attention, card):
-    from repro_torch.core.telemetry import class_summary
+def run_serve(cfg, params, waves, kernel_fn, **kw):
+    """The main path: ``serve`` over ``waves`` with ``kernel_fn``'s launch
+    count set to 0 just before and read just after; every prefill and
+    decode call of the engine is watched for non-finite logits."""
     from repro_torch.launch.serve import serve
     from repro_torch.serve import engine as engine_mod
-    from repro_torch.serve.engine import Request
-
     finite = []
+    saved = engine_mod.paged_prefill, engine_mod.paged_decode_step
 
-    def watched(fn):                   # record that every logit is finite
+    def watched(fn):
         def wrapper(*args, **kw):
             logits, pool = fn(*args, **kw)
             finite.append(bool(torch.isfinite(logits).all()))
             return logits, pool
         return wrapper
 
-    engine_mod.paged_prefill = watched(engine_mod.paged_prefill)
-    engine_mod.paged_decode_step = watched(engine_mod.paged_decode_step)
+    engine_mod.paged_prefill, engine_mod.paged_decode_step = map(watched,
+                                                                 saved)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        kernel_fn.launches = 0
+        eng = serve(cfg, params, waves, device=DEV, **kw)
+        torch.cuda.synchronize()
+        launches = kernel_fn.launches
+    finally:
+        engine_mod.paged_prefill, engine_mod.paged_decode_step = saved
+    check(all(r.done and len(r.out) == r.max_new for w in waves for r in w),
+          "a request did not finish")
+    eng.pool.check()
+    check(finite and all(finite), "non-finite logits")
+    return eng, launches
 
+
+def serve_numbers(eng, wave, launches):
+    from repro_torch.core.telemetry import class_summary
+    st = eng.stats
+    summ = class_summary(eng.records[-len(wave):])["interactive"]
+    n_tok = sum(len(r.out) for r in wave)
+    return dict(launches=launches, ttft_p50_s=summ["p50_ttft_s"],
+                tpot_p50_s=summ["p50_tpot_s"], wall_s=st["wall_s"],
+                tokens=n_tok, tokens_per_s=n_tok / st["wall_s"],
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                prefix_hits=st["prefix_hits"], steps=st["steps"],
+                prefill_dispatches=st["prefill_dispatches"])
+
+
+def print_serve(tag, wave, out, card):
+    print(f"[{tag}] {len(wave)} requests, {out['tokens']} tokens in "
+          f"{out['wall_s']:.3f}s: TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms, "
+          f"TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} ms, "
+          f"{out['tokens_per_s']:.1f} tokens/s; peak memory "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB; pool check clean; "
+          f"all logits finite; on {card}")
+
+
+def greedy(logits):
+    """(steps, B, V) logits -> greedy tokens and top-2 gaps, on the host."""
+    top2 = torch.topk(logits, 2, dim=-1)[0]
+    return (logits.argmax(-1).cpu().numpy(),
+            (top2[..., 0] - top2[..., 1]).cpu().numpy())
+
+def phase_serve(cfg, params, paged_attention, card):
+    from repro_torch.serve.engine import Request
     rng = np.random.default_rng(0)
     system = rng.integers(1, cfg.vocab, 64)
     first = [Request(rid=0, prompt=system.copy(), max_new=16)]
@@ -258,42 +415,20 @@ def phase_serve(cfg, params, paged_attention, card):
         for i in range(4)]
         + [Request(rid=5 + i, prompt=rng.integers(1, cfg.vocab, 128),
                    max_new=16) for i in range(4)])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    paged_attention.launches = 0                 # count the main path only
-    eng = serve(cfg, params, [first, wave], device=DEV, slots=4,
-                capacity=512, page_size=16, kernel="paged",
-                prefix_sharing=True)
-    torch.cuda.synchronize()
-    launches = paged_attention.launches
+    eng, launches = run_serve(cfg, params, [first, wave], paged_attention,
+                              slots=4, capacity=512, page_size=16,
+                              kernel="paged", prefix_sharing=True)
     st = eng.stats
     dispatches = st["prefill_dispatches"] + st["steps"]
     layers = cfg.n_layers
     print(f"[serve] paged_attention launches={launches} = {layers} layers x "
           f"({st['prefill_dispatches']} prefill dispatches "
           f"[{st['prefix_hits']} warm] + {st['steps']} decode steps)")
-    check(all(r.done and len(r.out) == 16 for r in first + wave),
-          "a request did not finish")
     check(launches == layers * dispatches,
           f"launches {launches} != {layers} x {dispatches}")
     check(st["prefix_hits"] > 0, "no prefix hit")
-    eng.pool.check()
-    check(finite and all(finite), "non-finite logits")
-    recs = eng.records[-len(wave):]
-    summ = class_summary(recs)["interactive"]
-    n_tok = sum(len(r.out) for r in wave)
-    out = dict(launches=launches, ttft_p50_s=summ["p50_ttft_s"],
-               tpot_p50_s=summ["p50_tpot_s"], wall_s=st["wall_s"],
-               tokens=n_tok, tokens_per_s=n_tok / st["wall_s"],
-               peak_bytes=torch.cuda.max_memory_allocated(),
-               prefix_hits=st["prefix_hits"], steps=st["steps"],
-               prefill_dispatches=st["prefill_dispatches"])
-    print(f"[serve] second wave: {len(wave)} requests, {n_tok} tokens in "
-          f"{st['wall_s']:.3f}s: TTFT p50 {summ['p50_ttft_s'] * 1e3:.1f} ms, "
-          f"TPOT p50 {summ['p50_tpot_s'] * 1e3:.2f} ms, "
-          f"{out['tokens_per_s']:.1f} tokens/s; peak memory "
-          f"{out['peak_bytes'] / 2**30:.2f} GiB; pool check clean; "
-          f"all logits finite; on {card}")
+    out = serve_numbers(eng, wave, launches)
+    print_serve("serve", wave, out, card)
     return out
 
 
@@ -325,9 +460,7 @@ def phase_lockstep(cfg, params):
             pos = pos + 1
         lg = torch.stack(logits)                            # (steps+1, B, V)
         check(bool(torch.isfinite(lg).all()), f"{kernel}: non-finite logits")
-        top2 = torch.topk(lg, 2, dim=-1)[0]
-        runs[kernel] = (lg.argmax(-1).cpu().numpy(),
-                        (top2[..., 0] - top2[..., 1]).cpu().numpy())
+        runs[kernel] = greedy(lg)
         del pool
     (a, gaps), (b, _) = runs["gather"], runs["paged"]
     for s in range(B):
@@ -341,14 +474,156 @@ def phase_lockstep(cfg, params):
           "positions (first divergence only at a near-tie); ok")
 
 
-def phase_profile(cfg, params, steps=3):
+def phase_serve_ssm(cfg, params, ssd_scan, card):
+    """mamba2 at full width: 4 prompts of 512 and 4 of 192 tokens,
+    interleaved in the queue; exact-length groups put each length in one
+    prefill dispatch of 4 slots."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(3)
+    wave = [Request(rid=i, prompt=rng.integers(1, cfg.vocab,
+                                               512 if i % 2 == 0 else 192),
+                    max_new=16) for i in range(8)]
+    eng, launches = run_serve(cfg, params, [wave], ssd_scan, slots=4,
+                              capacity=1024, page_size=16, kernel="auto")
+    st = eng.stats
+    layers = cfg.n_layers
+    print(f"[serve-ssm] ssd_scan launches={launches} = {layers} layers x "
+          f"{st['prefill_dispatches']} prefill dispatches ({st['steps']} "
+          f"decode steps run the recurrence); kernel={eng.kernel}")
+    check(launches > 0 and launches == layers * st["prefill_dispatches"],
+          f"ssd_scan launches {launches} != {layers} x "
+          f"{st['prefill_dispatches']}")
+    check(st["prefix_hits"] == 0, "an SSM config shared a prefix")
+    out = serve_numbers(eng, wave, launches)
+    print_serve("serve-ssm", wave, out, card)
+    return out
+
+
+def _ssm_state(pool):
+    """Every SSM layer's state, (slots, H, P, N) each, copied."""
+    return [st.clone() for gtree in pool for btree in gtree.values()
+            if "ssm" in btree for st in btree["ssm"]["state"]]
+
+
+def _lockstep_ssm_run(cfg, params, toks, steps, dtype):
+    """Scan path (prefill through the SSD kernel, then ``steps`` greedy
+    decode steps) and recurrence path (the prompt fed one token at a time,
+    then the scan path's tokens), with weights and SSM caches in
+    ``dtype``. Returns both paths' logits and states, and the recurrence
+    wall time."""
+    from repro_torch.models.blocks import tree_map
+    from repro_torch.models.lm import (paged_cache_init, paged_decode_step,
+                                       paged_prefill)
+    B, S = toks.shape
+    tables = torch.full((B, 1), -1, dtype=torch.int32, device=DEV)
+    params = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a,
+                      params) if dtype != torch.bfloat16 else params
+
+    def fresh_pool():
+        pool = paged_cache_init(cfg, B, 1, 16, DEV)
+        return tree_map(lambda a: a.to(torch.promote_types(a.dtype, dtype))
+                        if a.is_floating_point() else a, pool)
+
+    def decode(pool, lg, feed):
+        logits = [lg[:, 0].float()]
+        for k in range(steps):
+            t = (torch.argmax(logits[-1], -1) if feed is None
+                 else feed[k])[:, None].to(torch.int32)
+            pos = torch.full((B, 1), S + k, dtype=torch.int32, device=DEV)
+            lg, pool = paged_decode_step(params, pool, tables, t, pos, cfg,
+                                         kernel="paged")
+            logits.append(lg[:, 0].float())
+        return torch.stack(logits)                       # (steps + 1, B, V)
+
+    pool = fresh_pool()
+    lg, pool = paged_prefill(params, pool, tables, toks,
+                             torch.full((B,), S, dtype=torch.int32,
+                                        device=DEV), cfg,
+                             slot_ids=list(range(B)), kernel="paged")
+    scan_state = _ssm_state(pool)
+    scan = decode(pool, lg, None)
+    del pool
+    t0 = time.perf_counter()
+    pool = fresh_pool()
+    for i in range(S):
+        lg, pool = paged_decode_step(
+            params, pool, tables, toks[:, i:i + 1],
+            torch.full((B, 1), i, dtype=torch.int32, device=DEV), cfg,
+            kernel="paged")
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t0
+    rec_state = _ssm_state(pool)
+    rec = decode(pool, lg, scan.argmax(-1)[:steps])
+    for name, lgs in (("scan", scan), ("recurrence", rec)):
+        check(bool(torch.isfinite(lgs).all()), f"{name}: non-finite logits")
+    return scan, rec, scan_state, rec_state, t_rec
+
+
+def phase_lockstep_ssm(cfg, params, B=4, S=512, steps=4):
+    """The chunked scan (prefill, through the kernel) against the decode
+    recurrence fed the same prompt one token at a time: an independent path
+    to the same state and the same logits; after the prompt both paths are
+    fed the scan path's greedy tokens for ``steps`` decode steps.
+
+    In float32 (weights, activations and SSM caches) the two paths compute
+    one function, so they are held tight: logits within 1e-3 of their
+    scale, and greedy tokens equal up to the first near-tie (``ULP_TIE``).
+    In bf16, the served model, they round at different points — the
+    prefill's causal conv adds its taps in bf16, the decode conv sums its
+    window in f32, the products run at other shapes — as the reference's
+    two paths do, and 48 layers amplify that: the bf16 gap is printed."""
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab, (B, S)).astype(np.int32)).to(DEV)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        scan, rec, s_state, r_state, t_rec = _lockstep_ssm_run(
+            cfg, params, toks, steps, dtype)
+        errs = [rel_err(a, b) for a, b in zip(s_state, r_state)]
+        step_err = [rel_err(r, c) for r, c in zip(rec, scan)]
+        logit_err = rel_err(rec, scan)
+        (a, gaps), (b, _) = greedy(scan), greedy(rec)
+        first = [(s, k) for s in range(B)
+                 for k in np.nonzero(a[:, s] != b[:, s])[0][:1]]
+        tag = str(dtype)[6:]
+        print(f"[lockstep-ssm] {tag}: {B} prompts of {S} tokens, chunked "
+              f"scan (SSD kernel) vs {S} recurrent decode steps "
+              f"({t_rec:.1f}s). SSM state after the prompt: rel err layer 0 "
+              f"{errs[0]:.3e}, last layer {errs[-1]:.3e}, max "
+              f"{max(errs):.3e} over {len(errs)} layers. Logits, last prompt "
+              f"token + {steps} steps fed the same tokens: rel err "
+              f"{' '.join(f'{e:.2e}' for e in step_err)}, max |diff| "
+              f"{(rec - scan).abs().max().item():.3e} on a scale of "
+              f"{scan.abs().max().item():.3f}. Greedy picks equal at "
+              f"{int((a == b).sum())}/{a.size}; first split: "
+              + (", ".join(f"slot {s} step {k} (top-2 gap {gaps[k, s]:.4f})"
+                           for s, k in first) or "none"))
+        out[tag] = dict(state_rel_err=max(errs), state_rel_err_layer0=errs[0],
+                        logit_rel_err=logit_err, step_rel_err=step_err,
+                        tokens_equal=int((a == b).sum()), tokens=int(a.size),
+                        splits=[[int(s), int(k), float(gaps[k, s])]
+                                for s, k in first])
+        if dtype == torch.float32:
+            check(logit_err < 1e-3,
+                  f"lockstep-ssm f32: logits rel err {logit_err:.3e} >= 1e-3")
+            for s, k in first:
+                check(gaps[k, s] < ULP_TIE,
+                      f"lockstep-ssm f32: slot {s} splits at step {k} with "
+                      f"top-2 gap {gaps[k, s]:.4f} >= {ULP_TIE}")
+            print(f"[lockstep-ssm] float32: logits within 1e-3 (rel err "
+                  f"{logit_err:.3e}), tokens equal up to the first near-tie: "
+                  "ok")
+    return out
+
+
+def phase_profile(cfg, params, steps=3, S=128, tag="profile"):
     """Where a full-width decode step's time goes: ``torch.profiler`` over
-    ``steps`` steps of 4 slots at 144 rows of context, after a warm-up
-    step; device busy share = summed kernel time / host wall time."""
+    ``steps`` steps of 4 slots after an S-token prefill and a warm-up step
+    (attention: 9 live pages a slot); device busy share = summed kernel
+    time / host wall time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.lm import (paged_cache_init, paged_decode_step,
                                        paged_prefill)
-    B, ps, npps, P, S = 4, 16, 32, 128, 128
+    B, ps, npps, P = 4, 16, 32, 128
     tables = torch.arange(B * npps, dtype=torch.int32,
                           device=DEV).reshape(B, npps)
     tables[:, 9:] = -1
@@ -386,12 +661,12 @@ def phase_profile(cfg, params, steps=3):
             kern[e.key] = (dev_us / steps / 1e3, e.count / steps)
     busy = sum(ms for ms, _ in kern.values())
     n_kernels = sum(n for _, n in kern.values())
-    print(f"[profile] decode step at full width (4 slots, 144-row context, "
-          f"kernel paged): host wall {wall * 1e3:.2f} ms, device busy "
-          f"{busy:.2f} ms ({busy / (wall * 1e3):.1%}), "
-          f"{n_kernels:.0f} kernels a step")
+    print(f"[{tag}] {cfg.name} decode step at full width ({B} slots after "
+          f"a {S}-token prefill, kernel paged): host wall "
+          f"{wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
+          f"({busy / (wall * 1e3):.1%}), {n_kernels:.0f} kernels a step")
     for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"[profile]   {ms:8.3f} ms {n:6.0f}x  {name[:90]}")
+        print(f"[{tag}]   {ms:8.3f} ms {n:6.0f}x  {name[:90]}")
     check(busy > 0, "the profiler saw no device time")
     return dict(wall_ms=wall * 1e3, busy_ms=busy, kernels=n_kernels)
 
@@ -405,25 +680,36 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
+    from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_scan
     from repro_torch.launch.serve import init_params
 
     name = torch.cuda.get_device_name(0)
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products reduce in f32, as the reference's do (no bf16 split-K)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"[card] {name} | nvidia-smi: {card} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda} | tf32 off")
+          f"cuda {torch.version.cuda} | tf32 off | bf16 reductions in f32")
 
     t0 = time.perf_counter()
-    logs = _build.build(["paged_attention"], verbose=True)
-    for line in "".join(logs.values()).splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
-    _build.load("paged_attention")
-    print(f"[build] paged_attention.cu built and loaded in "
-          f"{time.perf_counter() - t0:.1f}s (set-up)")
+    names = ["paged_attention", "ssd_scan"]
+    logs = _build.build(names, verbose=True)
+    for kname, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"[build]   {kname}: {line.strip()}")
+    libs = {kname: _build.load(kname) for kname in names}
+    print(f"[build] {', '.join(n + '.cu' for n in names)} built and loaded "
+          f"in {time.perf_counter() - t0:.1f}s (set-up)")
+    smem = libs["ssd_scan"].ssd_scan_smem_bytes
+    smem.restype = ctypes.c_longlong
+    print(f"[build]   ssd_scan: dynamic shared memory {smem(128, 256):,} "
+          f"bytes a block at N=128, chunk 256 (of 232,448); paged_attention "
+          f"sizes its own per launch from the page size and head dims")
 
     rec = phase_kernels(paged_attention, paged_attention_ref)
+    rec_ssd = phase_ssd(ssd_scan, ssd_chunked_ref, card)
 
     cfg = get_config("qwen3-14b")
     g = cfg.groups[0].pattern[0]
@@ -439,6 +725,23 @@ def main() -> int:
     srv = phase_serve(cfg, params, paged_attention, card)
     phase_lockstep(cfg, params)
     srv["profile"] = phase_profile(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-1.3b")
+    s = cfg.groups[0].pattern[0].ssm
+    t0 = time.perf_counter()
+    params = init_params(cfg, DEV, seed=0)
+    torch.cuda.synchronize()
+    print(f"[serve-ssm] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_inner {s.expand * cfg.d_model}, "
+          f"{s.expand * cfg.d_model // s.head_dim} heads of {s.head_dim}, "
+          f"d_state {s.d_state}, chunk {s.chunk}, vocab {cfg.vocab}, tied "
+          f"embeddings; {cfg.param_count() / 1e9:.2f} B params drawn on the "
+          f"card in {time.perf_counter() - t0:.1f}s")
+    ssm = phase_serve_ssm(cfg, params, ssd_scan, card)
+    ssm["lockstep"] = phase_lockstep_ssm(cfg, params)
+    ssm["profile"] = phase_profile(cfg, params, S=512, tag="profile-ssm")
 
     dec, pre = rec["decode"], rec["prefill"]
     kernels = [{
@@ -456,8 +759,20 @@ def main() -> int:
         "prefill": {k: pre[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "sdpa_ms",
                                         "max_abs_err")},
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:63",
+        "launches": ssm["launches"],
+        **{k: rec_ssd["S512"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": "Bz=4 S=512 H=64 P=64 N=128 chunk 256, bf16 x/B/C, f32 "
+                 "dt, y f32 + final state",
+        "S192": rec_ssd["S192"],
     }]
     print(f"[serve] summary {json.dumps(srv)}")
+    print(f"[serve-ssm] summary {json.dumps(ssm)}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,20 @@
-"""Device queries for the kernel dispatch (port of ``repro.kernels.ops``).
+"""Kernel dispatch and device queries (port of ``repro.kernels.ops``).
 
 ``on_cuda()`` takes the place of the reference's ``on_tpu()``.
 ``resolve_device`` is the one rule every entry point follows: the card
 unless the caller asks for the CPU, and never a quiet fall back to the CPU
 (an engine on the card then picks the paged kernel for ``kernel="auto"``).
-The flash-attention and SSD dispatch of the reference wait for their kernels.
+``ssd`` dispatches the SSD scan: the CUDA kernel for CUDA tensors, its plain
+version for CPU tensors, or the sequential oracle. The reference's
+``attention`` (flash attention) waits for its kernel.
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def on_cuda() -> bool:
@@ -24,3 +28,16 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
                            "CPU")
     return dev
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128, impl: str = "auto"):
+    """x: (Bz,S,H,P), dt: (Bz,S,H), A: (H,), B/C: (Bz,S,N) -> y (Bz,S,H,P).
+
+    ``impl="auto"``: ``ssd_scan`` (the kernel on CUDA tensors, its plain
+    version on CPU tensors), y in x.dtype; ``"ref"``: the sequential
+    recurrence ``ssd_ref``, y in float32."""
+    if impl == "auto":
+        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    if impl == "ref":
+        return _ssd.ssd_ref(x, dt, A, B, C)[0]
+    raise ValueError(f"impl must be auto|ref: {impl!r}")

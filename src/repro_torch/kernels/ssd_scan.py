@@ -1,0 +1,178 @@
+"""Mamba2 SSD (state-space duality) chunked scan.
+
+``ssd_scan`` computes the chunked SSD scan inside a hand-written CUDA kernel
+(``csrc/ssd_scan.cu``, the Hopper port of the reference's Pallas ``ssd_scan``
+kernel): one thread block per (batch row, head) walks the chunks in order
+and carries the (P x N) f32 state in shared memory, so the state never
+travels through device memory between chunks.
+
+``ssd_chunked_ref`` is the plain PyTorch version of the same function, line
+for line the reference's XLA path (``repro.models.ssm.ssd_chunked``); the
+wrapper takes it only for tensors on the CPU, and on a CUDA tensor launches
+the kernel or raises. ``ssd_ref`` is the sequential recurrence, the semantic
+ground truth (``repro.kernels.ref.ssd_ref``). ``ssd_scan.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+_FLOATS = (torch.float32, torch.bfloat16)
+MAX_P, MAX_N, MAX_Q = 64, 128, 1024        # what the kernel's tiles hold
+
+
+def ssd_chunked_ref(xh, dt, A, Bm, Cm, chunk: int):
+    """Chunked SSD scan, plain PyTorch.
+
+    xh: (B,S,H,P)  dt: (B,S,H)  A: (H,)  Bm/Cm: (B,S,N) (n_groups=1).
+    Returns y: (B,S,H,P) f32, final_state: (B,H,P,N) f32.
+    """
+    Bsz, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    assert S % Q == 0
+    nc = S // Q
+
+    xc = xh.reshape(Bsz, nc, Q, H, P).float()
+    dtc = dt.reshape(Bsz, nc, Q, H)
+    Bc = Bm.reshape(Bsz, nc, Q, N).float()
+    Cc = Cm.reshape(Bsz, nc, Q, N).float()
+
+    dA = dtc * A                                               # (B,nc,Q,H)
+    cum = torch.cumsum(dA, dim=2)                              # decay to chunk start
+    # intra-chunk dual: scores[q,p] = C_q.B_p * exp(cum_q - cum_p) * dt_p, q>=p
+    CB = torch.einsum("bcqn,bcpn->bcqp", Cc, Bc)               # (B,nc,Q,Q)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,nc,Q,Q,H)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=xh.device))
+    L = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    scores = CB[..., None] * L * dtc[:, :, None, :, :]         # (B,nc,Qq,Qp,H)
+    y_diag = torch.einsum("bcqph,bcphv->bcqhv", scores, xc)
+
+    # chunk-boundary states
+    decay_out = torch.exp(cum[:, :, -1:, :] - cum)             # (B,nc,Q,H)
+    states = torch.einsum("bcqn,bcqh,bcqhv->bchvn",
+                          Bc, decay_out * dtc, xc)             # (B,nc,H,P,N)
+    chunk_decay = torch.exp(torch.sum(dA, dim=2))              # (B,nc,H)
+
+    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
+    starts = []
+    for c in range(nc):                                        # emit state at chunk START
+        starts.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_starts = torch.stack(starts, dim=1)                      # (B,nc,H,P,N)
+
+    y_off = torch.einsum("bcqn,bcqh,bchvn->bcqhv",
+                         Cc, torch.exp(cum), h_starts)
+    y = (y_diag + y_off).reshape(Bsz, S, H, P)
+    return y, h
+
+
+def ssd_ref(x, dt, A, B, C):
+    """Sequential SSM recurrence (the semantic ground truth for SSD).
+
+    x: (Bz,S,H,P), dt: (Bz,S,H), A: (H,), B/C: (Bz,S,N).
+    Returns y: (Bz,S,H,P) f32, final state (Bz,H,P,N) f32.
+    """
+    Bz, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    h = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A)                       # (Bz,H)
+        h = h * decay[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1), h
+
+
+def _check(x, dt, A, B, C, chunk):
+    """Raise where the reference asserts, and on anything the kernel does
+    not take."""
+    if x.ndim != 4:
+        raise ValueError("ssd_scan: x is (Bz,S,H,P)")
+    Bz, S, H, P = x.shape
+    if (tuple(dt.shape) != (Bz, S, H) or tuple(A.shape) != (H,)
+            or B.ndim != 3 or B.shape[:2] != (Bz, S) or C.shape != B.shape):
+        raise ValueError(f"ssd_scan: n_groups must be 1 and shapes agree: "
+                         f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B {tuple(B.shape)}, "
+                         f"C {tuple(C.shape)}")
+    q = min(chunk, S)
+    if q < 1 or S % q:
+        raise ValueError(f"ssd_scan: S={S} is not a multiple of the chunk "
+                         f"{q}")
+    for t in (x, dt, A, B, C):
+        if t.device != x.device:
+            raise ValueError(f"ssd_scan: tensors on {t.device} and "
+                             f"{x.device}")
+    if x.dtype not in _FLOATS or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError("ssd_scan: x, B and C share one dtype of "
+                        f"{_FLOATS}, got {x.dtype}, {B.dtype}, {C.dtype}")
+    if dt.dtype not in _FLOATS or A.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: dt in {_FLOATS} and A in float32, got "
+                        f"{dt.dtype}, {A.dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = _build.load("ssd_scan").ssd_scan_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 7 + [i] * 6 + [i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, out_dtype=None,
+             return_state: bool = False):
+    """Mamba2 SSD chunked scan.
+
+    x: (Bz,S,H,P), dt: (Bz,S,H), A: (H,) float32, B/C: (Bz,S,N) with
+    n_groups = 1; x, B and C share one dtype (float32 or bfloat16); dt is
+    float32 or bfloat16. Chunks are Q = min(chunk, S) long and S % Q == 0.
+
+    Returns y (Bz,S,H,P) in ``out_dtype`` (default x.dtype) and, with
+    ``return_state``, also the final state (Bz,H,P,N) in float32. CPU
+    tensors take ``ssd_chunked_ref``; CUDA tensors launch the kernel.
+    """
+    _check(x, dt, A, B, C, chunk)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.device.type == "cpu":
+        y, h = ssd_chunked_ref(x, dt, A, B, C, chunk)
+        y = y.to(out_dtype)
+        return (y, h) if return_state else y
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    if out_dtype not in _FLOATS:
+        raise TypeError(f"ssd_scan: out_dtype must be one of {_FLOATS}")
+    Bz, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S)
+    if P > MAX_P or N > MAX_N or Q > MAX_Q:
+        raise ValueError(f"ssd_scan kernel takes P <= {MAX_P}, N <= {MAX_N} "
+                         f"and chunks <= {MAX_Q}: P={P}, N={N}, Q={Q}")
+    x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
+    dt = dt.float().contiguous()
+    A = A.contiguous()
+    y = torch.empty((Bz, S, H, P), dtype=out_dtype, device=x.device)
+    h = (torch.empty((Bz, H, P, N), dtype=torch.float32, device=x.device)
+         if return_state else None)
+    err = _launcher()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), h.data_ptr() if h is not None else None,
+        Bz, S, H, P, N, Q, int(x.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    ssd_scan.launches += 1
+    return (y, h) if return_state else y
+
+
+ssd_scan.launches = 0

@@ -5,9 +5,10 @@ A group's repeated pattern keeps the reference's STACKED parameter layout
 1:1; ``group_apply`` walks the repeats in a Python loop and indexes the
 stacked leaves (PyTorch runs eagerly, so there is no scan to compile).
 Blocks marked ``shared`` keep one un-stacked parameter set reused by every
-repeat. Caches are updated in place (see ``models.attention``).
+repeat. Caches are updated in place (see ``models.attention`` and
+``models.ssm``).
 
-Not ported yet: SSM, MoE and cross-attention blocks (they raise).
+Not ported yet: MoE and cross-attention blocks (they raise).
 """
 from __future__ import annotations
 
@@ -20,10 +21,15 @@ from repro_torch.models.attention import (attn_apply, attn_cache_init,
 from repro_torch.models.layers import norm_apply, norm_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.models.spec import BlockSpec, ModelConfig, ScanGroup
+from repro_torch.models.ssm import ssm_apply, ssm_cache_init, ssm_init
+
+# cache entries one tensor serves for every repeat of a group (a paged
+# leaf's page table, an SSM cache's stall mask): never indexed by repeat
+_PER_CALL = ("table", "live")
 
 
 def _ported(b: BlockSpec) -> None:
-    for name in ("ssm", "moe", "cross_attn"):
+    for name in ("moe", "cross_attn"):
         if getattr(b, name) is not None:
             raise NotImplementedError(f"{name} blocks are not ported yet")
 
@@ -53,6 +59,10 @@ def block_init(gen, cfg: ModelConfig, b: BlockSpec, device) -> dict:
         if b.post_norms:
             p["post_attn"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias,
                                        dt, device)
+    if b.ssm is not None:
+        p["norm_ssm"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dt,
+                                  device)
+        p["ssm"] = ssm_init(gen, cfg.d_model, b.ssm, cfg, device)
     if b.mlp is not None:
         if not b.parallel_residual:
             p["norm_mlp"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias,
@@ -72,6 +82,7 @@ def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
     _ported(b)
     nk, ne = cfg.norm, cfg.norm_eps
     c_attn = cache.get("attn") if cache else None
+    c_ssm = cache.get("ssm") if cache else None
 
     if b.parallel_residual:
         h = norm_apply(p["norm_attn"], x, nk, ne)
@@ -84,6 +95,10 @@ def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
         if b.post_norms:
             a = norm_apply(p["post_attn"], a, nk, ne)
         x = x + a
+
+    if b.ssm is not None:
+        h = norm_apply(p["norm_ssm"], x, nk, ne)
+        x = x + ssm_apply(p["ssm"], h, b.ssm, cfg, positions, cache=c_ssm)
 
     if b.mlp is not None:
         h = norm_apply(p["norm_mlp"], x, nk, ne)
@@ -100,6 +115,8 @@ def block_cache_init(cfg: ModelConfig, b: BlockSpec, batch: int,
     c: dict = {}
     if b.attn is not None:
         c["attn"] = attn_cache_init(batch, capacity, b.attn, device)
+    if b.ssm is not None:
+        c["ssm"] = ssm_cache_init(batch, cfg.d_model, b.ssm, device)
     return c
 
 
@@ -136,9 +153,9 @@ def group_cache_init(cfg: ModelConfig, g: ScanGroup, batch: int,
 
 def _repeat(tree: dict, r: int) -> dict:
     """Repeat ``r`` of a stacked tree: every leaf indexed at r (a view, so
-    in-place cache writes land in the stack), except a paged leaf's
-    ``table``, which one (B, npps) tensor serves for every repeat."""
-    return {k: (v if k == "table" else
+    in-place cache writes land in the stack), except the per-call entries
+    (``_PER_CALL``), which one tensor serves for every repeat."""
+    return {k: (v if k in _PER_CALL else
                 _repeat(v, r) if isinstance(v, dict) else v[r])
             for k, v in tree.items()}
 

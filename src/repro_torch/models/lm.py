@@ -22,14 +22,19 @@ Caches and the pool are updated IN PLACE; the functions return the same
 tree so call sites read like the reference's functional ones. At full width
 a copied pool per step would double its memory.
 
+SSM state (conv windows and the recurrent state) is O(1) per slot and stays
+slot-dense in the pool: leaves of shape (repeats, slots, ...). A prefill
+writes it at ``slot_ids``; a decode step advances every slot but the
+stalled ones (``live`` False).
+
 Not ported yet: ``lm_loss``, ``prefill``, the encoder, learned positions,
-frontends, and SSM state (slot-dense SSM sub-caches raise).
+frontends.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -40,6 +45,9 @@ from repro_torch.models.layers import (embed_init, embed_logits, embed_lookup,
                                        norm_apply, norm_init, normal_init,
                                        softcap)
 from repro_torch.models.spec import ModelConfig
+from repro_torch.models.ssm import ssm_cache_init
+
+SlotIds = Union[Sequence[int], torch.Tensor]
 
 
 def _ported(cfg: ModelConfig) -> None:
@@ -124,25 +132,26 @@ def decode_step(params: dict, caches: list, tokens: torch.Tensor,
     return lm_logits(params, h, cfg), caches
 
 
-def _map_attn_subs(caches: list, attn_fn) -> list:
+def _map_attn_subs(caches: list, attn_fn, ssm_fn=None) -> list:
     """Walk a cache tree (list of group trees of block dicts) applying
-    ``attn_fn`` to every attention sub-cache. Preserves structure."""
+    ``attn_fn`` to every attention sub-cache and ``ssm_fn`` (identity when
+    None) to every SSM sub-cache. Preserves structure."""
     out = []
     for gtree in caches:
         ng = {}
         for bi, btree in gtree.items():
             nb = {}
             for kind, sub in btree.items():
-                if kind != "attn":
-                    raise NotImplementedError(f"{kind} caches are not "
-                                              "ported yet")
-                nb[kind] = attn_fn(sub)
+                if kind == "attn":
+                    nb[kind] = attn_fn(sub)
+                else:
+                    nb[kind] = ssm_fn(sub) if ssm_fn is not None else sub
             ng[bi] = nb
         out.append(ng)
     return out
 
 
-def _zip_attn_subs(pool: list, dense: list, attn_fn) -> list:
+def _zip_attn_subs(pool: list, dense: list, attn_fn, ssm_fn) -> list:
     """Two-tree variant of ``_map_attn_subs`` (pool and dense in lockstep)."""
     out = []
     for gpool, gdense in zip(pool, dense):
@@ -150,10 +159,8 @@ def _zip_attn_subs(pool: list, dense: list, attn_fn) -> list:
         for bi in gpool:
             nb = {}
             for kind in gpool[bi]:
-                if kind != "attn":
-                    raise NotImplementedError(f"{kind} caches are not "
-                                              "ported yet")
-                nb[kind] = attn_fn(gpool[bi][kind], gdense[bi][kind])
+                fn = attn_fn if kind == "attn" else ssm_fn
+                nb[kind] = fn(gpool[bi][kind], gdense[bi][kind])
             ng[bi] = nb
         out.append(ng)
     return out
@@ -167,7 +174,12 @@ def prefill_batched(params: dict, inputs: dict, cfg: ModelConfig,
     ``[0, lengths[b])`` and arbitrary padding after. Causality means pad
     columns never influence real tokens. Returns (per-row last-REAL-token
     logits (B, 1, V), caches with every pad entry neutralized — ``pos``
-    forced to -1 — so a later decode can never attend padding)."""
+    forced to -1 — so a later decode can never attend padding). Every row
+    starts from fresh zero SSM state.
+
+    Only valid for attention-cached models: SSM/conv state is a recurrence
+    over ALL processed tokens, pads included, so callers batching prompts
+    for an SSM-bearing config group them by exact length (no pads)."""
     x, positions = _embed_inputs(params, inputs, cfg)
     B, S = x.shape[:2]
     capacity = max(capacity or S, S)
@@ -205,18 +217,18 @@ def paged_cache_init(cfg: ModelConfig, slots: int, n_pages: int,
                      page_size: int, device) -> list:
     """Pool caches: attention leaves paged over ``n_pages`` x ``page_size``
     (windowed layers use full pages too — windows are enforced by the pos
-    mask, not by ring truncation)."""
+    mask, not by ring truncation); SSM state stays per-slot dense."""
     caches = []
     for g in cfg.groups:
         per_block = {}
         for i, b in enumerate(g.pattern):
-            if b.ssm is not None:
-                raise NotImplementedError("SSM state is not ported yet")
             c: dict = {}
             if b.attn is not None:
                 spec = (b.attn if b.attn.window is None
                         else dataclasses.replace(b.attn, window=None))
                 c["attn"] = attn_cache_init(n_pages, page_size, spec, device)
+            if b.ssm is not None:
+                c["ssm"] = ssm_cache_init(slots, cfg.d_model, b.ssm, device)
             per_block[str(i)] = c
         caches.append(tree_map(
             lambda a: a[None].expand((g.repeats,) + a.shape).clone(),
@@ -226,7 +238,7 @@ def paged_cache_init(cfg: ModelConfig, slots: int, n_pages: int,
 
 def pool_page_size(pool: list) -> Optional[int]:
     """Page size of a paged cache tree (None when the model has no
-    attention caches to page)."""
+    attention caches to page — pure-SSM state is slot-dense)."""
     for gtree in pool:
         for btree in gtree.values():
             sub = btree.get("attn")
@@ -247,7 +259,8 @@ def paged_gather(pool: list, tables: torch.Tensor) -> list:
     tables: (B, pages_per_slot) int32 page ids, -1 = unallocated. Returns
     caches shaped exactly like ``cache_init(cfg, B, vcap)`` output with
     ``vcap = pages_per_slot * page_size``: ``decode_step`` runs on it
-    unchanged."""
+    unchanged. SSM leaves are copied as they are (the dense batch is the
+    slot axis)."""
     clamped = tables.clamp(min=0).long()
     B, n_per = tables.shape
 
@@ -263,11 +276,27 @@ def paged_gather(pool: list, tables: torch.Tensor) -> list:
             out[k] = g
         return out
 
-    return _map_attn_subs(pool, attn_fn)
+    return _map_attn_subs(pool, attn_fn,
+                          lambda sub: {k: v.clone() for k, v in sub.items()})
+
+
+def _ssm_store(pool_sub: dict, new_sub: dict, slot_ids: SlotIds) -> dict:
+    """Write a batch's SSM leaves into the pool's slot rows, in place.
+    Out-of-range slot ids (dummy batch rows) are dropped on the host, so
+    the write needs no device sync."""
+    leaf = next(iter(pool_sub.values()))
+    ids = torch.as_tensor(slot_ids).reshape(-1).long().cpu()
+    rows = ((ids >= 0) & (ids < leaf.shape[1])).nonzero().reshape(-1)
+    rows, slots = rows.to(leaf.device), ids[rows].to(leaf.device)
+    for k, pl in pool_sub.items():
+        pl[:, slots] = new_sub[k][:, rows].to(pl.dtype)
+    return pool_sub
 
 
 def paged_scatter(pool: list, dense: list, tables: torch.Tensor,
-                  claim: torch.Tensor) -> list:
+                  claim: torch.Tensor, *,
+                  slot_ids: Optional[SlotIds] = None,
+                  live: Optional[torch.Tensor] = None) -> list:
     """Commit dense cache rows holding absolute positions ``claim`` (B, W)
     back into the pool pages mapped by ``tables`` (B, pages_per_slot), in
     place.
@@ -275,7 +304,12 @@ def paged_scatter(pool: list, dense: list, tables: torch.Tensor,
     A row is written only when the dense cache actually HOLDS its claimed
     position (``dense pos == claim`` — ring wrap and pad neutralization
     both make this false) and the target page is allocated; every other
-    row is filtered out before the store."""
+    row is filtered out before the store. SSM state is slot-dense, not
+    paged: it is written at the ``slot_ids`` (B,) rows of the pool's slot
+    axis (host ids; out-of-range ids drop, which is how dummy batch rows
+    are discarded), or, when ``slot_ids`` is None (the decode path, where
+    the dense batch IS the slot axis), replaces the pool's state gated per
+    slot by ``live`` (B,) bool: a stalled slot keeps its OLD state."""
 
     def attn_fn(pool_sub, dense_sub):
         ps = pool_sub["pos"].shape[-1]
@@ -294,7 +328,18 @@ def paged_scatter(pool: list, dense: list, tables: torch.Tensor,
             leaf[:, pg, of] = rows[:, ok[0], ok[1]].to(leaf.dtype)
         return pool_sub
 
-    return _zip_attn_subs(pool, dense, attn_fn)
+    def ssm_fn(pool_sub, dense_sub):
+        if slot_ids is not None:
+            return _ssm_store(pool_sub, dense_sub, slot_ids)
+        for k, pl in pool_sub.items():
+            new = dense_sub[k].to(pl.dtype)
+            if live is not None:
+                new = torch.where(
+                    live.reshape((1, -1) + (1,) * (pl.ndim - 2)), new, pl)
+            pl.copy_(new)
+        return pool_sub
+
+    return _zip_attn_subs(pool, dense, attn_fn, ssm_fn)
 
 
 def _page_ids(ids, n_pages: int, device) -> torch.Tensor:
@@ -335,25 +380,37 @@ def paged_copy(pool: list, src, dst) -> list:
     return _map_attn_subs(pool, attn_fn)
 
 
-def _paged_view(pool: list, tables: torch.Tensor) -> list:
+def _paged_view(pool: list, tables: torch.Tensor,
+                fresh_ssm: Optional[int] = None,
+                live: Optional[torch.Tensor] = None) -> list:
     """Cache tree for the leaf-level paged path: every attention leaf
     carries the pool pages plus ``table`` — one (B, npps) tensor that every
-    repeat reads (``blocks.group_apply`` does not index it by repeat)."""
-    return _map_attn_subs(pool, lambda sub: {**sub, "table": tables})
+    repeat reads (``blocks.group_apply`` does not index it by repeat). SSM
+    leaves pass through slot-dense (decode; with ``live``, stalled slots
+    keep their state) or are replaced with fresh zero state for a
+    ``fresh_ssm``-row prefill batch (stored to slots by the caller)."""
+    def ssm_fn(sub):
+        if fresh_ssm is not None:
+            return {k: v.new_zeros((v.shape[0], fresh_ssm) + v.shape[2:])
+                    for k, v in sub.items()}
+        return sub if live is None else {**sub, "live": live}
+
+    return _map_attn_subs(pool, lambda sub: {**sub, "table": tables}, ssm_fn)
 
 
 def paged_prefill(params: dict, pool: list, tables: torch.Tensor,
                   tokens: torch.Tensor, lengths: torch.Tensor,
                   cfg: ModelConfig, *,
+                  slot_ids: Optional[SlotIds] = None,
                   starts: Optional[torch.Tensor] = None,
                   kernel: str = "gather"):
     """Batched multi-slot prefill straight into the page pool (in place).
 
     tokens: (B, S) right-padded prompts; lengths: (B,) real lengths;
-    tables: (B, pages_per_slot) page tables of the destination slots.
-    Returns (last-real-token logits (B,1,V), pool). (The reference's
-    ``slot_ids`` place slot-dense SSM state, which this port does not hold
-    yet.)
+    tables: (B, pages_per_slot) page tables of the destination slots;
+    slot_ids: (B,) destination slots for the SSM state, a host sequence or
+    CPU tensor (out-of-range = dummy row, dropped; None = slots 0..B-1).
+    Returns (last-real-token logits (B,1,V), pool).
 
     ``kernel="gather"`` with no ``starts`` keeps the dense path
     (``prefill_batched`` + ``paged_scatter``). ``kernel="paged"`` — or any
@@ -363,6 +420,8 @@ def paged_prefill(params: dict, pool: list, tables: torch.Tensor,
     gather for "gather"), so row b may continue from absolute position
     ``starts[b]`` with its earlier pages (a shared prefix) already
     resident. tokens then holds only the suffix and lengths its length."""
+    if slot_ids is None:
+        slot_ids = list(range(tokens.shape[0]))
     if kernel == "gather" and starts is None:
         ps = pool_page_size(pool)
         vcap = tables.shape[1] * ps if ps else None
@@ -370,7 +429,8 @@ def paged_prefill(params: dict, pool: list, tables: torch.Tensor,
                                         lengths, capacity=vcap)
         claim = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)[None].expand(tokens.shape)
-        return logits, paged_scatter(pool, dense, tables, claim)
+        return logits, paged_scatter(pool, dense, tables, claim,
+                                     slot_ids=slot_ids)
 
     B, S = tokens.shape
     dev = tokens.device
@@ -379,17 +439,21 @@ def paged_prefill(params: dict, pool: list, tables: torch.Tensor,
     cols = torch.arange(S, dtype=torch.int32, device=dev)[None]
     positions = torch.where(cols < lengths.to(torch.int32)[:, None],
                             st[:, None] + cols, -1)     # pad rows never write
+    view = _paged_view(pool, tables, fresh_ssm=B)
     h = lm_hidden(params, {"tokens": tokens, "positions": positions},
-                  cfg.replace(paged_kernel=kernel),
-                  caches=_paged_view(pool, tables))
+                  cfg.replace(paged_kernel=kernel), caches=view)
     idx = (lengths.long() - 1).clamp(0, S - 1)
     last = h[torch.arange(B, device=dev), idx][:, None]
+    _zip_attn_subs(pool, view, lambda p, v: p,
+                   lambda p, v: _ssm_store(p, v, slot_ids))
     return lm_logits(params, last, cfg), pool
 
 
 def paged_decode_step(params: dict, pool: list, tables: torch.Tensor,
                       tokens: torch.Tensor, pos: torch.Tensor,
-                      cfg: ModelConfig, *, kernel: str = "gather"):
+                      cfg: ModelConfig, *,
+                      live: Optional[torch.Tensor] = None,
+                      kernel: str = "gather"):
     """One batched decode step over the paged pool (in place).
     tokens/pos: (B, 1).
 
@@ -399,16 +463,17 @@ def paged_decode_step(params: dict, pool: list, tables: torch.Tensor,
     built — each attention leaf writes its one fresh row into the pool and
     the kernel walks the page table (``kernels.paged_attention``).
 
-    A stalled slot's write drops on its missing (or blanked, -1) page. (The
-    reference's ``live`` gates slot-dense SSM state, which this port does
-    not hold yet.)"""
+    ``live`` (B,) bool marks slots whose state may advance; a stalled
+    slot's attention write already drops on its missing (or blanked, -1)
+    page, and ``live=False`` keeps its SSM state too, so the step can be
+    retried identically once a page frees. None means every slot."""
     if kernel == "gather":
         dense = paged_gather(pool, tables)
         logits, dense = decode_step(params, dense, tokens, pos, cfg)
-        return logits, paged_scatter(pool, dense, tables, pos)
+        return logits, paged_scatter(pool, dense, tables, pos, live=live)
     h = lm_hidden(params, {"tokens": tokens, "positions": pos},
                   cfg.replace(paged_kernel=kernel),
-                  caches=_paged_view(pool, tables))
+                  caches=_paged_view(pool, tables, live=live))
     return lm_logits(params, h, cfg), pool
 
 

@@ -21,6 +21,11 @@ request requeued) when interactive work needs the pool or the slots.
   table (refcount++, zero KV written) and prefills only its suffix. Shared
   pages are immutable: any write landing in one first breaks the page out
   via ``PagePool.cow_page`` + ``models.lm.paged_copy``.
+* SSM configs (mamba2, zamba2) keep their recurrent state slot-dense in the
+  pool. Right-padded batched prefill would feed pad tokens into the
+  recurrence, so their prefill groups have one exact length; a prefix's
+  state at the divergence point is not in the pool, so prefix sharing is
+  off for them; a stalled slot's state does not advance (``live``).
 
 PyTorch runs eagerly: the engine calls ``paged_prefill`` and
 ``paged_decode_step`` directly, with the page tables as device tensors, and
@@ -254,7 +259,14 @@ class PagedServeEngine(_EngineBase):
         if kernel not in ("gather", "paged"):
             raise ValueError(f"kernel must be gather|paged|auto: {kernel!r}")
         self.kernel = kernel
-        self._prefix_ok = prefix_sharing
+        # right-padded batched prefill is unsound for SSM state (the
+        # recurrence would absorb pad tokens): group by exact length then
+        self._pad_safe = not any(b.ssm is not None
+                                 for g in cfg.groups for b in g.pattern)
+        # prefix sharing caches attention pages only; an SSM config's
+        # recurrent state at the divergence point is NOT in the pool, so a
+        # warm continuation would decode from a wrong (zero) state
+        self._prefix_ok = prefix_sharing and self._pad_safe
         self.prefix_min_tokens = (page_size if prefix_min_tokens is None
                                   else prefix_min_tokens)
         self._admit_order = 0                  # preemption recency clock
@@ -382,6 +394,8 @@ class PagedServeEngine(_EngineBase):
 
     # -- admission ---------------------------------------------------------
     def _bucket(self, n: int) -> int:
+        if not self._pad_safe:
+            return n                          # exact-length groups (SSM)
         return min(bucket_len(n), self.pool.vcap)
 
     def _admit(self) -> int:
@@ -485,6 +499,7 @@ class PagedServeEngine(_EngineBase):
             self._table_tensor(self.pool.table_array()[slot][None]),
             torch.as_tensor(toks, dtype=torch.int32).to(dev),
             torch.tensor([S_suf], dtype=torch.int32, device=dev), self.cfg,
+            slot_ids=[slot],
             starts=torch.tensor([suffix_start], dtype=torch.int32,
                                 device=dev),
             kernel=self.kernel)
@@ -510,7 +525,8 @@ class PagedServeEngine(_EngineBase):
     def _prefill_commit(self, placed: List[Tuple[int, Request]]) -> None:
         """One prefill call for the whole group. In batched mode the batch
         has a fixed ``slots`` rows — absent slots ride as dummy rows whose
-        table is -1, so every one of their writes is dropped."""
+        table is -1 and slot id out of range, so every one of their writes
+        (KV rows and SSM state) is dropped."""
         if self.batched_prefill:
             S = max(self._bucket(len(r.prompt)) for _, r in placed)
             B = self.slots
@@ -520,18 +536,20 @@ class PagedServeEngine(_EngineBase):
         toks = np.zeros((B, S), np.int64)
         lens = np.zeros((B,), np.int64)
         trows = np.full((B, self.pool.pages_per_slot), -1, np.int32)
+        sids = np.full((B,), self.slots, np.int64)      # OOB = dummy row
         table = self.pool.table_array()
         for r, (slot, req) in enumerate(placed):
             n = len(req.prompt)
             toks[r, :n] = req.prompt
             lens[r] = n
             trows[r] = table[slot]
+            sids[r] = slot
         dev = self.device
         logits, self.kv = paged_prefill(
             self.params, self.kv, self._table_tensor(trows),
             torch.as_tensor(toks, dtype=torch.int32).to(dev),
             torch.as_tensor(lens, dtype=torch.int32).to(dev), self.cfg,
-            kernel=self.kernel)
+            slot_ids=sids, kernel=self.kernel)
         self.stats["compile_sources"].setdefault(f"prefill_b{B}_s{S}",
                                                  "eager")
         self.stats["prefill_dispatches"] += 1
@@ -612,23 +630,27 @@ class PagedServeEngine(_EngineBase):
             self._tables_dirty = False
         tbl = self.tables
         keep = np.ones((self.slots,), bool)
+        live = None
         if self._stalled:
             keep[list(self._stalled)] = False
             # a stalled slot must not write: a page-less stall drops its
             # KV write anyway, but a COW-stall's write would land in a
             # SHARED page — blank the whole row (its output is discarded
-            # and the identical step is retried with the real table)
+            # and the identical step is retried with the real table) —
+            # and its SSM state must not absorb the retried token (live)
             masked = self.pool.table_array()
             masked[list(self._stalled)] = -1
             tbl = self._table_tensor(masked)
+            live = torch.as_tensor(keep).to(self.device)
         logits, self.kv = paged_decode_step(self.params, self.kv, tbl,
                                             self.tokens, self.pos, self.cfg,
-                                            kernel=self.kernel)
+                                            live=live, kernel=self.kernel)
         nxt = torch.argmax(logits[:, 0], -1).to(torch.int32)
         if self._stalled:
             # stalled slots hold position: same token, same pos, identical
-            # retry next step (their page-less KV write was dropped)
-            k = torch.as_tensor(keep).to(self.device)[:, None]
+            # retry next step (their page-less KV write was dropped and
+            # `live` kept their SSM state)
+            k = live[:, None]
             self.tokens = torch.where(k, nxt[:, None], self.tokens)
             self.pos = self.pos + k.to(torch.int32)
         else:

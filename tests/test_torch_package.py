@@ -33,7 +33,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-BUILDABLE = ("qwen3-14b", "gemma2-27b", "gemma3-12b", "stablelm-12b")
+BUILDABLE = ("qwen3-14b", "gemma2-27b", "gemma3-12b", "stablelm-12b",
+             "mamba2-1.3b", "zamba2-7b")
 
 
 def _fields(cfg):
@@ -112,6 +113,27 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
         PagedServeEngine(cfg, params, slots=2)
     assert PagedServeEngine(cfg, params, slots=2,
                             device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
+def test_ssm_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch,
+                                                             arch):
+    """The SSM family's entry points follow the same rule, and its engine
+    runs on the CPU when asked (smoke width)."""
+    from repro_torch.launch.serve import init_params, serve
+    from repro_torch.serve.engine import PagedServeEngine, Request
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.get_config(arch, smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, None)
+    params = init_params(cfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedServeEngine(cfg, params, slots=2)
+    reqs = [Request(rid=i, prompt=np.arange(1, 9 + i), max_new=3)
+            for i in range(3)]
+    eng = serve(cfg, params, [reqs], device="cpu", slots=2, capacity=32)
+    assert eng.device.type == "cpu" and not eng._prefix_ok
+    assert all(r.done and len(r.out) == 3 for r in reqs)
 
 
 def test_serve_entry_point_waves_share_prefixes(capsys):
