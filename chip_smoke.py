@@ -10,9 +10,10 @@ non-zero:
 
 1. card     name and power limit; TF32 off for float32 products, f32
             reductions for bf16 products.
-2. build    every CUDA kernel of the port (paged_attention.cu, ssd_scan.cu),
-            compiled from the sources here, one nvcc each, all at once;
-            registers, shared memory and spills of each kernel.
+2. build    every CUDA kernel of the port (paged_attention.cu, ssd_scan.cu,
+            flash_attention.cu), compiled from the sources here, one nvcc
+            each, all at once; registers, shared memory and spills of each
+            kernel.
 3. kernels  each kernel against its plain PyTorch version on the card.
             paged_attention: the reference test grid (page sizes 2/4/8/16,
             MHA/GQA/MQA, window + softcap, the MLA q2/k2 form, ragged padded
@@ -27,7 +28,24 @@ non-zero:
             bound. paged_attention gets scaled_dot_product_attention on the
             already-gathered dense view as a yardstick; no single PyTorch
             call computes either function, so ``library_ms`` is null.
-4. serve    ``repro_torch.launch.serve.serve`` with qwen3-14b at its full
+4. flash    flash_attention against attention_ref on the card, before any
+            weights are loaded: the reference test grid (tests/test_kernels.py
+            sweep, window/softcap/non-causal variants, Dv = 32) and the edges
+            (Sq > Sk with a window: rows that see no key are exact zeros;
+            Sq < Sk; B > 1; MQA; every supported head dim) in f32 (atol =
+            rtol = 2e-5) and bf16 (2e-2). Then the main path: ``ops.attention``
+            once at each full-width prefill shape of the supported configs
+            (qwen3-14b, the local layers of gemma2-27b and gemma3-12b,
+            stablelm-12b, zamba2-7b's shared block, deepseek-v2's MLA prefill,
+            whisper-base's encoder; bf16), every count set to 0 before and
+            read after: one launch each. Each output is held on every head
+            against attention_ref's f32 answer for the same bf16 inputs
+            within one bf16 rounding (rtol 2^-8, atol 1e-5), and a control
+            (the window edge one 64-key tile off) must fail that limit. Each
+            is timed beside its bound, the plain version and one library
+            call: ``scaled_dot_product_attention``, or where it cannot apply
+            a softcap, ``flex_attention`` compiled.
+5. serve    ``repro_torch.launch.serve.serve`` with qwen3-14b at its full
             published width (40 layers, d_model 5120, 40/8 heads, head_dim
             128, d_ff 17408, vocab 151936), random bf16 weights drawn on the
             card from a seeded generator: 4 slots, 16-row pages, capacity
@@ -36,13 +54,22 @@ non-zero:
             requests of 128 prompt tokens and 16 generated tokens, half of
             them extending the system prompt. Every paged-attention launch
             of both waves is counted: 40 per prefill dispatch and per
-            decode step.
-5. lockstep from one set of params, paged_prefill + 4 paged_decode_step
+            decode step; the other kernels' counts stay 0.
+6. lockstep from one set of params, paged_prefill + 4 paged_decode_step
             with kernel "paged" and with kernel "gather" on two copies of a
             fresh pool: greedy tokens agree up to the first near-tie.
-6. profile  torch.profiler over full-width decode steps: host wall time,
+7. profile  torch.profiler over full-width decode steps: host wall time,
             device busy share, the kernels that take the time.
-7. serve-ssm  ``serve`` with mamba2-1.3b at its published width (48 layers,
+8. blocked  the model's blocked attention path at qwen3-14b's width: (a)
+            ``attn_core`` at one layer's shape (Q = S = 8,448: past the
+            8,192 threshold, the last 1,024-block padded) against the flat
+            path on 2 kv heads (bf16 2e-2); (b) one 8,448-token prompt
+            prefilled cold through ``paged_prefill(kernel="gather")`` (the
+            blocked path in all 40 layers) against 8,192 gathered tokens
+            (flat) plus a 256-token suffix through the paged kernel, then 4
+            greedy decode steps each: tokens equal up to the first near-tie;
+            wall time and peak memory printed.
+9. serve-ssm  ``serve`` with mamba2-1.3b at its published width (48 layers,
             d_model 2048, d_inner 4096, 64 heads of 64, d_state 128, vocab
             50280, tied embeddings; 1.34 B parameters, 2.7 GB of bf16): 4
             slots, capacity 1024, 8 requests of 16 generated tokens, four
@@ -50,7 +77,7 @@ non-zero:
             with 192-token prompts (Q = S). Prefill groups have one exact
             length; every SSD-scan launch is counted: 48 per prefill
             dispatch (decode runs the recurrence, not the scan).
-8. lockstep-ssm  4 prompts of 512 tokens prefilled through the SSD kernel
+10. lockstep-ssm  4 prompts of 512 tokens prefilled through the SSD kernel
             and decoded 4 steps, against the same prompts fed one token at
             a time through paged_decode_step (the decode recurrence, an
             independent path) and the same 4 tokens. In float32 (weights,
@@ -59,7 +86,7 @@ non-zero:
             first near-tie. In bf16, the served model, the paths round at
             different points (as the reference's do): the state's and the
             logits' relative errors and the token agreement are printed.
-9. profile-ssm  as 6, for a mamba2-1.3b decode step.
+11. profile-ssm  as 7, for a mamba2-1.3b decode step.
 
 The last three lines: the card's name and power limit (nvidia-smi), the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``.
@@ -69,6 +96,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -340,15 +368,222 @@ def phase_ssd(ssd_scan, ssd_chunked_ref, card):
 
 
 # ---------------------------------------------------------------------------
-# Phases 4, 5, 7 and 8: serve at full width, then the lockstep checks
+# Phase 4: flash attention against its plain version, through ops.attention
+# ---------------------------------------------------------------------------
+
+# (name, (B, H, K, Sq, Sk, D, Dv), keyword arguments): the reference test
+# grid of tests/test_kernels.py (sweep, variants, Dv = 32), then the edges
+# the kernel masks itself and every head dim of the supported configs
+FLASH_GRID = (
+    [(f"sweep{i}", shape, {}) for i, shape in enumerate([
+        (1, 4, 4, 128, 128, 64, 64), (2, 8, 2, 256, 256, 64, 64),
+        (1, 4, 1, 128, 384, 128, 128), (1, 2, 2, 96, 160, 64, 64)])]
+    + [(f"variant{i}", (1, 4, 2, 128, 128, 64, 64), kw) for i, kw in
+       enumerate([dict(window=32), dict(softcap=25.0),
+                  dict(window=64, softcap=50.0), dict(causal=False)])]
+    + [("dv32", (1, 4, 4, 128, 128, 64, 32), {}),
+       ("sq_gt_sk_window", (1, 2, 1, 96, 40, 64, 64), dict(window=8)),
+       ("sq_lt_sk_causal", (1, 2, 2, 40, 96, 64, 64), {}),
+       ("batch3", (3, 4, 2, 64, 80, 32, 32), {}),
+       ("mqa", (2, 6, 1, 72, 72, 64, 64), {})]
+    + [(f"D{D}", (1, 2, 1, 72, 72, D, 128 if D == 192 else D),
+        dict(scale=1.0 / math.sqrt(D)) if D == 192 else {})
+       for D in (64, 112, 128, 160, 192, 256)])
+# full-width prefill shapes of the supported configs, bf16
+FLASH_MODEL = [
+    ("qwen3-14b", (1, 40, 8, 4096, 4096, 128, 128), {}),
+    ("gemma2-27b-local", (1, 32, 16, 8192, 8192, 128, 128),
+     dict(window=4096, softcap=50.0)),
+    ("gemma3-12b-local", (1, 16, 8, 4096, 4096, 256, 256), dict(window=1024)),
+    ("stablelm-12b", (1, 32, 8, 4096, 4096, 160, 160), {}),
+    ("zamba2-7b-shared", (1, 32, 32, 4096, 4096, 112, 112), {}),
+    ("deepseek-v2-mla-prefill", (1, 128, 128, 4096, 4096, 192, 128),
+     dict(scale=1.0 / math.sqrt(192))),
+    ("whisper-base-encoder", (1, 8, 8, 1500, 1500, 64, 64),
+     dict(causal=False)),
+]
+# full width, bf16 out against the f32 answer: one round-to-nearest bf16
+# rounding (half an ulp, 2^-9 relative) with 2x room, and f32 summation noise
+FLASH_RTOL, FLASH_ATOL = 2.0 ** -8, 1e-5
+
+
+def visible(Sq, Sk, causal=True, window=None, **_):
+    """Per query row, the keys it sees: (Sq, Sk) bool on the card."""
+    qp = torch.arange(Sq, device=DEV)[:, None]
+    kp = torch.arange(Sk, device=DEV)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=DEV)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= (qp - kp) < window
+    return mask
+
+
+def flash_inputs(shape, dtype, seed):
+    """q, k, v drawn on the card from a seeded generator."""
+    B, H, K, Sq, Sk, D, Dv = shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=DEV).to(dtype)
+            for s in ((B, H, Sq, D), (B, K, Sk, D), (B, K, Sk, Dv))]
+
+
+def flash_bound(shape, kw, item):
+    """Least time: q, k, v and out once over the memory rate, against
+    2 * H * (D + Dv) flops per visible (query, key) pair over 989 TFLOP/s
+    (bf16; 67 for f32)."""
+    B, H, K, Sq, Sk, D, Dv = shape
+    pairs = int(visible(Sq, Sk, **kw).sum())
+    n_bytes = B * (H * Sq * (D + Dv) + K * Sk * (D + Dv)) * item
+    flops = 2 * B * H * (D + Dv) * pairs
+    peak = BF16_FLOPS if item == 2 else F32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                gflop=flops / 1e9, mbytes=n_bytes / 1e6)
+
+
+def flex_ms(q, k, v, out, kw):
+    """The library yardstick where SDPA cannot apply the function (the
+    softcap): ``flex_attention``, compiled, with cap * tanh(s / cap) as its
+    score_mod and the causal mask and window as its block mask. Returns its
+    time, its max |diff| to the kernel's ``out`` and its name."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    Sq, Sk = q.shape[2], k.shape[2]
+    cap, window = kw["softcap"], kw["window"]      # the one such shape: causal
+
+    def score_mod(s, b, h, qi, ki):
+        return cap * torch.tanh(s / cap)
+
+    def mask_mod(b, h, qi, ki):
+        return (ki <= qi) & (qi - ki < window)
+
+    mask = create_block_mask(mask_mod, None, None, Sq, Sk, device=DEV)
+    fn = torch.compile(flex_attention)
+
+    def run():
+        return fn(q, k, v, score_mod=score_mod, block_mask=mask,
+                  scale=kw.get("scale"), enable_gqa=True)
+
+    diff = (run().float() - out.float()).abs().max().item()
+    return time_ms(run), diff, "flex_attention (compiled)"
+
+
+def phase_flash(flash_attention, attention_ref, attention, counters, card):
+    print("[flash] flash_attention against attention_ref on the card")
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for name, shape, kw in FLASH_GRID:
+            q, k, v = flash_inputs(shape, dtype, 0)
+            out = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            ref = attention_ref(q, k, v, **kw)
+            err = (out.float() - ref.float()).abs().max().item()
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                       rtol=tol, msg=lambda m: f"{name}: {m}")
+            dead = ~visible(shape[3], shape[4], **kw).any(-1)
+            check(bool((out[:, :, dead] == 0).all()),
+                  f"{name}: rows that see no key are not zero")
+            print(f"[flash]   {str(dtype)[6:]:8s} {name:16s} "
+                  f"max_abs_err={err:.3e}" + (f" ({int(dead.sum())} rows "
+                                              "see no key: exact zeros)"
+                                              if dead.any() else "") + " ok")
+
+    # the main path: ops.attention at every full-width shape, counts from 0
+    inputs = [flash_inputs(shape, torch.bfloat16, i)
+              for i, (_, shape, _) in enumerate(FLASH_MODEL)]
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    outs = [attention(*x, **kw) for x, (_, _, kw) in zip(inputs, FLASH_MODEL)]
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    check(launches == len(FLASH_MODEL) and all(
+        fn.launches == 0 for fn in counters if fn is not flash_attention),
+        f"ops.attention launched flash_attention {launches} times for "
+        f"{len(FLASH_MODEL)} calls")
+    print(f"[flash] ops.attention (impl auto) at {len(FLASH_MODEL)} "
+          f"full-width shapes: flash_attention launches={launches}")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = {}
+    for (name, shape, kw), (q, k, v), out in zip(FLASH_MODEL, inputs, outs):
+        B, H, K, Sq, Sk, D, Dv = shape
+        # the exact answer for these bf16 inputs: attention_ref in f32
+        # (attention_ref on the bf16 tensors is this, rounded to bf16)
+        f32 = [t.float() for t in (q, k, v)]
+        exact = attention_ref(*f32, **kw)
+        err = (out.float() - exact.to(out.dtype).float()).abs().max().item()
+        err_exact = (out.float() - exact).abs().max().item()
+        torch.testing.assert_close(out.float(), exact, atol=FLASH_ATOL,
+                                   rtol=FLASH_RTOL,
+                                   msg=lambda m: f"{name}: {m}")
+        # control: the same limit must fail against the window edge moved
+        # one 64-key tile nearer (the last rows lose up to 64 keys)
+        ctl = attention_ref(*f32, **{**kw, "window": (kw.get("window")
+                                                      or Sk) - 64})
+        off = ~torch.isclose(out.float(), ctl, atol=FLASH_ATOL,
+                             rtol=FLASH_RTOL)
+        n_off, ctl_err = int(off.sum()), (out.float() - ctl).abs().max().item()
+        check(n_off > 0, f"{name}: the tight limit passes a window edge one "
+                         "tile off")
+        del exact, ctl, off, f32
+        ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), reps=10)
+        torch.cuda.empty_cache()
+        if kw.get("softcap") is not None:
+            lib_ms, lib_diff, lib_name = flex_ms(q, k, v, out, kw)
+        else:
+            if kw.get("window") is not None:
+                lib = dict(attn_mask=visible(Sq, Sk, **kw))
+            elif kw.get("causal", True):
+                lib = dict(is_causal=True)        # Sq == Sk: top-left aligned
+            else:
+                lib = {}
+            lib.update(scale=kw.get("scale"), enable_gqa=True)
+            lib_diff = (sdpa(q, k, v, **lib).float()
+                        - out.float()).abs().max().item()
+            lib_ms = time_ms(lambda: sdpa(q, k, v, **lib))
+            lib_name = "scaled_dot_product_attention"
+        b = flash_bound(shape, kw, q.element_size())
+        rec[name] = dict(shape=f"B={B} H={H} K={K} Sq={Sq} Sk={Sk} D={D} "
+                               f"Dv={Dv} {kw or 'causal'} bf16",
+                         max_abs_err=err, max_abs_err_f32=err_exact, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                         bound_by=b["bound_by"], library_ms=lib_ms,
+                         library=lib_name, gflop=b["gflop"])
+        print(f"[flash] {name}: {rec[name]['shape']}: max_abs_err="
+              f"{err:.3e} against attention_ref, {err_exact:.3e} against its "
+              f"f32 answer (limit {FLASH_ATOL:g} + {FLASH_RTOL:g}|ref|: "
+              f"one bf16 rounding); control (window edge one tile off) "
+              f"max_abs_err={ctl_err:.3e}, {n_off} elements over the limit: "
+              f"fails as it must; kernel={ms:.4f}ms "
+              f"bound={b['bound_ms']:.4f}ms ({b['bound_by']}: "
+              f"{b['gflop']:.1f} GFLOP, {b['mbytes']:.1f} MB) "
+              f"plain={plain_ms:.4f}ms library={lib_ms:.4f}ms ({lib_name}; "
+              f"max |diff| to the kernel {lib_diff:.3e})")
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    del inputs, outs
+    torch.cuda.empty_cache()
+    print(f"[flash] flash_attention times on {card}")
+    return launches, rec
+
+
+# ---------------------------------------------------------------------------
+# Phases 5, 6, 9 and 10: serve at full width, then the lockstep checks
 # ---------------------------------------------------------------------------
 
 def run_serve(cfg, params, waves, kernel_fn, **kw):
-    """The main path: ``serve`` over ``waves`` with ``kernel_fn``'s launch
-    count set to 0 just before and read just after; every prefill and
-    decode call of the engine is watched for non-finite logits."""
+    """The main path: ``serve`` over ``waves`` with every kernel's launch
+    count set to 0 just before and read just after (``kernel_fn``'s is
+    returned; the others must stay 0); every prefill and decode call of the
+    engine is watched for non-finite logits."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.serve import serve
     from repro_torch.serve import engine as engine_mod
+    counters = (paged_attention, ssd_scan, flash_attention)
     finite = []
     saved = engine_mod.paged_prefill, engine_mod.paged_decode_step
 
@@ -364,12 +599,18 @@ def run_serve(cfg, params, waves, kernel_fn, **kw):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
-        kernel_fn.launches = 0
+        for fn in counters:
+            fn.launches = 0
         eng = serve(cfg, params, waves, device=DEV, **kw)
         torch.cuda.synchronize()
         launches = kernel_fn.launches
+        others = {fn.__name__: fn.launches for fn in counters
+                  if fn is not kernel_fn}
     finally:
         engine_mod.paged_prefill, engine_mod.paged_decode_step = saved
+    print(f"[serve] {cfg.name}: launches of the other kernels "
+          f"{json.dumps(others)}")
+    check(not any(others.values()), f"other kernels launched: {others}")
     check(all(r.done and len(r.out) == r.max_new for w in waves for r in w),
           "a request did not finish")
     eng.pool.check()
@@ -472,6 +713,155 @@ def phase_lockstep(cfg, params):
     print(f"[lockstep] paged vs gather, prefill + {steps} decode steps over "
           f"{B} slots: tokens equal at {int((a == b).sum())}/{a.size} "
           "positions (first divergence only at a near-tie); ok")
+
+
+def count_calls(module, name, calls):
+    """Wrap ``module.name`` to append to ``calls``; returns the original."""
+    fn = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        calls.append(1)
+        return fn(*a, **kw)
+
+    setattr(module, name, wrapper)
+    return fn
+
+
+def phase_blocked(cfg, params, card, S=8448, steps=4):
+    """The model's blocked attention path at qwen3-14b's full width.
+
+    (a) ``attn_core`` at one layer's shape (B=1, Q=S=8,448 > 8,192 and not a
+    multiple of 1,024, so the last block is padded), held against the flat
+    path on the kv heads whose logits fit. (b) One 8,448-token prompt
+    prefilled cold through ``paged_prefill(kernel="gather")`` — the blocked
+    path in every layer — against the same prompt prefilled as 8,192
+    gathered tokens (the flat path) plus a 256-token suffix through the
+    paged kernel; then ``steps`` greedy decode steps each (kernel "paged").
+    Greedy tokens agree up to the first near-tie; the last-position
+    logits' difference is printed."""
+    from repro_torch.models import attention as att
+    from repro_torch.models.lm import (paged_cache_init, paged_decode_step,
+                                       paged_prefill)
+    a = cfg.groups[0].pattern[0].attn
+    H, K, D = a.n_heads, a.n_kv_heads, a.head_dim
+    G = H // K
+    calls = []
+    saved = count_calls(att, "_attn_blocked", calls)
+    try:
+        g = torch.Generator(device=DEV).manual_seed(5)
+        q, k, v = (torch.randn(shape, generator=g, device=DEV).to(
+            torch.bfloat16) for shape in ((1, S, H, D), (1, S, K, D),
+                                          (1, S, K, D)))
+        pos = torch.arange(S, dtype=torch.int32, device=DEV)[None]
+        kw = dict(scale=1.0 / math.sqrt(D), causal=True, window=None,
+                  cap=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = att.attn_core(q, k, v, pos, pos, n_kv=K, **kw)
+        torch.cuda.synchronize()
+        t_blocked = time.perf_counter() - t0
+        check(len(calls) == 1, "attn_core did not take the blocked path")
+        kh = 2                                  # 2 x 5 heads: 2.9 GB logits
+        t0 = time.perf_counter()
+        flat = att._attn_flat(q.reshape(1, S, K, G, D)[:, :, :kh],
+                              k[:, :, :kh], v[:, :, :kh], pos, pos, **kw)
+        torch.cuda.synchronize()
+        t_flat = time.perf_counter() - t0
+        got = out.reshape(1, S, K, G, D)[:, :, :kh].float()
+        err = (got - flat.float()).abs().max().item()
+        torch.testing.assert_close(got, flat.float(), atol=2e-2, rtol=2e-2)
+        print(f"[blocked] (a) attn_core B=1 Q=S={S} {H}/{K} heads D={D} bf16: "
+              f"blocked path ({-(-S // att.KV_BLOCK)} blocks of "
+              f"{att.KV_BLOCK}, the last padded) {t_blocked * 1e3:.1f} ms for "
+              f"{H} heads; against the flat path on {kh * G} heads "
+              f"({t_flat * 1e3:.1f} ms): max_abs_err={err:.3e} (atol/rtol "
+              "2e-2) ok")
+        del q, k, v, out, flat, got
+        torch.cuda.empty_cache()
+
+        # (b) the 8,448-token prompt both ways
+        ps, split = 16, att.BLOCKED_THRESHOLD     # the flat path's most
+        npps = -(-(S + steps) // ps)
+        r = np.random.default_rng(6)
+        tables = torch.from_numpy(r.permutation(npps)[None].astype(
+            np.int32)).to(DEV)
+        toks = torch.from_numpy(r.integers(1, cfg.vocab, (1, S)).astype(
+            np.int32)).to(DEV)
+
+        def lens(n):
+            return torch.full((1,), n, dtype=torch.int32, device=DEV)
+
+        def decode(pool, lg):
+            logits = [lg[:, 0].float()]
+            for i in range(steps):
+                t = torch.argmax(logits[-1], -1)[:, None].to(torch.int32)
+                p = torch.full((1, 1), S + i, dtype=torch.int32, device=DEV)
+                lg, pool = paged_decode_step(params, pool, tables, t, p, cfg,
+                                             kernel="paged")
+                logits.append(lg[:, 0].float())
+            return torch.stack(logits)                    # (steps + 1, 1, V)
+
+        calls.clear()
+        pool = paged_cache_init(cfg, 1, npps, ps, DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lg, pool = paged_prefill(params, pool, tables, toks, lens(S), cfg,
+                                 kernel="gather")
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_blocked = len(calls)
+        check(n_blocked == cfg.n_layers,
+              f"blocked path taken in {n_blocked} of {cfg.n_layers} layers")
+        one = decode(pool, lg)
+        del pool, lg
+        torch.cuda.empty_cache()
+
+        pool = paged_cache_init(cfg, 1, npps, ps, DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, pool = paged_prefill(params, pool, tables[:, :split // ps],
+                                toks[:, :split], lens(split), cfg,
+                                kernel="gather")
+        lg, pool = paged_prefill(params, pool, tables, toks[:, split:],
+                                 lens(S - split), cfg, starts=lens(split),
+                                 kernel="paged")
+        torch.cuda.synchronize()
+        t_split = time.perf_counter() - t0
+        peak_split = torch.cuda.max_memory_allocated()
+        check(len(calls) == n_blocked, "the split prefill took the blocked "
+              "path")
+        two = decode(pool, lg)
+        del pool, lg
+        torch.cuda.empty_cache()
+    finally:
+        att._attn_blocked = saved
+    for name, lgs in (("blocked", one), ("split", two)):
+        check(bool(torch.isfinite(lgs).all()), f"{name}: non-finite logits")
+    (ta, gaps), (tb, _) = greedy(one), greedy(two)
+    diff = np.nonzero(ta[:, 0] != tb[:, 0])[0]
+    if diff.size:
+        check(gaps[diff[0], 0] < ULP_TIE,
+              f"tokens diverge at step {diff[0]} with top-2 gap "
+              f"{gaps[diff[0], 0]:.4f} >= {ULP_TIE}")
+    d0 = (one[0] - two[0]).abs().max().item()
+    print(f"[blocked] (b) {cfg.name}, one {S}-token prompt: cold "
+          f"paged_prefill(kernel=gather) through the blocked path in "
+          f"{n_blocked}/{cfg.n_layers} layers: {t_cold:.2f}s, peak memory "
+          f"{peak / 2**30:.2f} GiB; against {split} gathered tokens (flat "
+          f"path) + a {S - split}-token suffix through the paged kernel: "
+          f"{t_split:.2f}s, peak {peak_split / 2**30:.2f} GiB. Last-position "
+          f"logits max |diff| {d0:.3e} on a scale of "
+          f"{one[0].abs().max().item():.3f}; greedy tokens equal at "
+          f"{int((ta == tb).sum())}/{ta.size} (first divergence only at a "
+          f"near-tie); ok, on {card}")
+    return dict(attn_core_ms=t_blocked * 1e3, attn_core_max_abs_err=err,
+                prefill_blocked_s=t_cold, prefill_blocked_peak_bytes=peak,
+                prefill_split_s=t_split, prefill_split_peak_bytes=peak_split,
+                last_logits_max_abs_diff=d0,
+                tokens_equal=int((ta == tb).sum()), tokens=int(ta.size))
 
 
 def phase_serve_ssm(cfg, params, ssd_scan, card):
@@ -675,9 +1065,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    # flex_attention's compiled kernels (the softcap yardstick) stay in build/
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(root / "build" /
+                                                         "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(root / "build" / "triton"))
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
     from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_scan
@@ -693,7 +1090,7 @@ def main() -> int:
           f"cuda {torch.version.cuda} | tf32 off | bf16 reductions in f32")
 
     t0 = time.perf_counter()
-    names = ["paged_attention", "ssd_scan"]
+    names = ["paged_attention", "ssd_scan", "flash_attention"]
     logs = _build.build(names, verbose=True)
     for kname, log in logs.items():
         for line in log.splitlines():
@@ -707,9 +1104,19 @@ def main() -> int:
     print(f"[build]   ssd_scan: dynamic shared memory {smem(128, 256):,} "
           f"bytes a block at N=128, chunk 256 (of 232,448); paged_attention "
           f"sizes its own per launch from the page size and head dims")
+    smem = libs["flash_attention"].flash_attention_smem_bytes
+    smem.restype = ctypes.c_longlong
+    print(f"[build]   flash_attention: dynamic shared memory "
+          f"{smem(128, 128, 1):,} bytes a block at D=Dv=128 bf16, "
+          f"{smem(256, 256, 0):,} at D=Dv=256 f32 (of 232,448)")
 
     rec = phase_kernels(paged_attention, paged_attention_ref)
     rec_ssd = phase_ssd(ssd_scan, ssd_chunked_ref, card)
+    # before any weights are on the card: the plain version's score tensors
+    # take up to ~26 GB at the largest shapes
+    flash_launches, rec_flash = phase_flash(
+        flash_attention, attention_ref, ops.attention,
+        (paged_attention, ssd_scan, flash_attention), card)
 
     cfg = get_config("qwen3-14b")
     g = cfg.groups[0].pattern[0]
@@ -725,6 +1132,7 @@ def main() -> int:
     srv = phase_serve(cfg, params, paged_attention, card)
     phase_lockstep(cfg, params)
     srv["profile"] = phase_profile(cfg, params)
+    blocked = phase_blocked(cfg, params, card)
     del params
     torch.cuda.empty_cache()
 
@@ -770,9 +1178,19 @@ def main() -> int:
         "shape": "Bz=4 S=512 H=64 P=64 N=128 chunk 256, bf16 x/B/C, f32 "
                  "dt, y f32 + final state",
         "S192": rec_ssd["S192"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:84",
+        "launches": flash_launches,
+        **{k: rec_flash["qwen3-14b"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")},
+        "shapes": {n: r for n, r in rec_flash.items() if n != "qwen3-14b"},
     }]
     print(f"[serve] summary {json.dumps(srv)}")
     print(f"[serve-ssm] summary {json.dumps(ssm)}")
+    print(f"[blocked] summary {json.dumps(blocked)}")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,15 @@ Where the reference returns updated caches functionally, the port updates
 the cache tensors IN PLACE: at full width a copy of the pool per step would
 double its memory. Callers that need the old state clone it first.
 
-Not ported yet: MLA, the int8 KV cache, cross-attention, and the blocked
-online-softmax path ``_attn_blocked`` (reached only for Q > 1 over more than
-``BLOCKED_THRESHOLD`` keys); each raises ``NotImplementedError``.
+Two execution paths, chosen by shape as in the reference: ``_attn_flat``
+materializes the (B,K,G,Q,S) logits; ``_attn_blocked`` walks 1,024-key
+blocks with an online softmax (Q > 1 over more than ``BLOCKED_THRESHOLD``
+keys, or ``KV_BLOCK`` with ``prefer_blocked``). The hand-written kernel of
+the same algorithm is ``kernels.flash_attention``; as in the reference, no
+model calls it.
+
+Not ported yet: MLA, the int8 KV cache and cross-attention; each raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch.models.layers import (apply_rope, fan_in_init, head_rmsnorm,
 from repro_torch.models.spec import AttentionSpec, ModelConfig
 
 BLOCKED_THRESHOLD = 8192
+KV_BLOCK = 1024            # key-block width for the blocked path
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -48,19 +55,19 @@ def _mask(q_pos, k_pos, causal, window):
 
 
 def attn_core(q, k, v, q_pos, k_pos, *, scale, causal, window, cap,
-              n_kv: int):
+              n_kv: int, prefer_blocked: bool = False):
     """Grouped GQA core — kv is NEVER repeated to H.
 
     q: (B,Q,H,Dk) with H = n_kv*G;  k: (B,S,K,Dk);  v: (B,S,K,Dv).
-    Returns (B,Q,H,Dv)."""
+    Returns (B,Q,H,Dv). Decode (Q == 1) always takes the flat path."""
     B, Q, H, Dk = q.shape
     G = H // n_kv
     q5 = q.reshape(B, Q, n_kv, G, Dk)
-    if Q > 1 and k.shape[1] > BLOCKED_THRESHOLD:
-        raise NotImplementedError("blocked attention (Q > 1 over "
-                                  f"{k.shape[1]} keys) is not ported yet")
-    out = _attn_flat(q5, k, v, q_pos, k_pos, scale=scale, causal=causal,
-                     window=window, cap=cap)
+    limit = KV_BLOCK if prefer_blocked else BLOCKED_THRESHOLD
+    blocked = Q > 1 and k.shape[1] > limit
+    path = _attn_blocked if blocked else _attn_flat
+    out = path(q5, k, v, q_pos, k_pos, scale=scale, causal=causal,
+               window=window, cap=cap)
     return out.reshape(B, Q, H, v.shape[-1])
 
 
@@ -81,6 +88,51 @@ def _attn_flat(q, k, v, q_pos, k_pos, *, scale, causal, window, cap):
     p = torch.where(m.any(-1, keepdim=True), p, 0.0)
     out = torch.einsum("bkgqs,bskv->bqkgv", p.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
+
+
+def _attn_blocked(q, k, v, q_pos, k_pos, *, scale, causal, window, cap):
+    """Online softmax over KV_BLOCK-key blocks; O(Q x block) logits.
+
+    q: (B,Q,K,G,Dk); k/v stay at K kv-heads throughout -> (B,Q,K,G,Dv).
+    Mirrors the reference exactly: keys padded to whole blocks (k_pos = -1),
+    the scale folded into q in q's dtype, scores in f32, m from NEG_INF, no
+    second mask after the exp (a row with no valid key thus sums v over the
+    keys and divides by the padded length, as the reference's does), p cast
+    to v's dtype before the value product, and the output in v's dtype.
+    The blocks are views of k and v; only the last one, if short, is padded
+    (a copy of one block, not of the cache)."""
+    B, Q, K, G, Dk = q.shape
+    S = k.shape[1]
+    q = (q.float() * scale).to(q.dtype).float()
+    m_run = torch.full((B, K, G, Q), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros((B, K, G, Q, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    for lo in range(0, S, KV_BLOCK):
+        kc, vc = k[:, lo:lo + KV_BLOCK], v[:, lo:lo + KV_BLOCK]
+        pc = k_pos[:, lo:lo + KV_BLOCK]
+        pad = KV_BLOCK - kc.shape[1]
+        if pad:
+            kc = torch.nn.functional.pad(kc, (0, 0, 0, 0, 0, pad))
+            vc = torch.nn.functional.pad(vc, (0, 0, 0, 0, 0, pad))
+            pc = torch.nn.functional.pad(pc, (0, pad), value=-1)
+        s = torch.einsum("bqkgd,bskd->bkgqs", q, kc.float())
+        if cap is not None:
+            s = softcap(s, cap)
+        msk = _mask(q_pos, pc, causal, window)[:, None, None]
+        s = s.masked_fill_(~msk, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        alpha = torch.exp(m_run - m_new)
+        # exp(NEG_INF - m_new) is exactly 0 for any real m_new
+        p = s.sub_(m_new[..., None]).exp_()
+        l_run = l_run * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskv->bkgqv", p.to(v.dtype).float(), vc.float())
+        m_run = m_new
+    l_safe = torch.where(l_run > 0, l_run, 1.0)
+    out = acc / l_safe[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
