@@ -13,7 +13,9 @@ non-zero:
 2. build    every CUDA kernel of the port (paged_attention.cu, ssd_scan.cu,
             flash_attention.cu), compiled from the sources here, one nvcc
             each, all at once; registers, shared memory and spills of each
-            kernel.
+            kernel function (fails if flash attention's bf16 kernel
+            spills), and, where cuobjdump is on the machine, the HGMMA
+            (wgmma) instructions of that kernel (fails if there are none).
 3. kernels  each kernel against its plain PyTorch version on the card.
             paged_attention: the reference test grid (page sizes 2/4/8/16,
             MHA/GQA/MQA, window + softcap, the MLA q2/k2 form, ragged padded
@@ -44,7 +46,10 @@ non-zero:
             (the window edge one 64-key tile off) must fail that limit. Each
             is timed beside its bound, the plain version and one library
             call: ``scaled_dot_product_attention``, or where it cannot apply
-            a softcap, ``flex_attention`` compiled.
+            a softcap, ``flex_attention`` compiled; printed with its
+            TFLOP/s on the function's flops and its ratios to the library's
+            time and (in the printed line only) to the CUDA-core design's
+            (``FLASH_EARLIER_MS``).
 5. serve    ``repro_torch.launch.serve.serve`` with qwen3-14b at its full
             published width (40 layers, d_model 5120, 40/8 heads, head_dim
             128, d_ff 17408, vocab 151936), random bf16 weights drawn on the
@@ -97,6 +102,8 @@ import ctypes
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -142,6 +149,65 @@ def time_ms(fn, reps=30, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _cuda_tool(name):
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    return path if os.path.exists(path) else None
+
+
+def ptxas_report(kname, log):
+    """Print, one line per kernel function, ptxas's registers, static shared
+    memory and spills (``-Xptxas -v``), then its numbered notes (such as
+    wgmma serialization) with their count; return {function: spill bytes}."""
+    fn, used, smem, spills, notes = None, {}, {}, {}, {}
+    for line in log.splitlines():
+        note = re.search(r"\((C\d+)\) (.*?) (?:in|of) (?:the )?function "
+                         r"'([\w$]+)'", line)
+        if note:
+            key = (note.group(3), note.group(1),
+                   re.sub(r" (?:in )?around line \d+", "", note.group(2)))
+            notes[key] = notes.get(key, 0) + 1
+            continue
+        m = re.search(r"(?:entry function|Function properties for) '?"
+                      r"([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+        if "spill" in line:
+            spills[fn] = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                                        line))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            used[fn] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            smem[fn] = int(m.group(1)) if m else 0
+    for f in used:
+        print(f"[build]   {kname}: {f}: {used[f]} registers, {smem[f]} bytes "
+              f"smem, {spills.get(f, 0)} bytes spilled")
+    for (f, code, text), n in notes.items():
+        print(f"[build]   {kname}: {f}: ptxas ({code}) x{n}: {text[:160]}")
+    return spills
+
+
+def sass_count(lib, op, name_part):
+    """Per kernel function whose name holds ``name_part``: how many SASS
+    instructions of the built library are ``op`` (cuobjdump), or None where
+    the tool is missing."""
+    tool = _cuda_tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if name_part in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(rf"\b{op}\b", line):
+            counts[fn] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +468,14 @@ FLASH_MODEL = [
     ("whisper-base-encoder", (1, 8, 8, 1500, 1500, 64, 64),
      dict(causal=False)),
 ]
+# the CUDA-core design's bf16 kernel times at these shapes, before the
+# products moved to the tensor cores (PERF.md §6; H100 80GB HBM3, 700 W):
+# a yardstick for the printed line only, never part of the kernels record
+FLASH_EARLIER_MS = {
+    "qwen3-14b": 7.0892, "gemma2-27b-local": 17.0524,
+    "gemma3-12b-local": 2.8347, "stablelm-12b": 7.0689,
+    "zamba2-7b-shared": 5.5720, "deepseek-v2-mla-prefill": 26.4188,
+    "whisper-base-encoder": 0.3485}
 # full width, bf16 out against the f32 answer: one round-to-nearest bf16
 # rounding (half an ulp, 2^-9 relative) with 2x room, and f32 summation noise
 FLASH_RTOL, FLASH_ATOL = 2.0 ** -8, 1e-5
@@ -550,7 +624,9 @@ def phase_flash(flash_attention, attention_ref, attention, counters, card):
                          max_abs_err=err, max_abs_err_f32=err_exact, ms=ms,
                          plain_ms=plain_ms, bound_ms=b["bound_ms"],
                          bound_by=b["bound_by"], library_ms=lib_ms,
-                         library=lib_name, gflop=b["gflop"])
+                         library=lib_name, gflop=b["gflop"],
+                         tflops=b["gflop"] / ms,
+                         x_library=ms / lib_ms)
         print(f"[flash] {name}: {rec[name]['shape']}: max_abs_err="
               f"{err:.3e} against attention_ref, {err_exact:.3e} against its "
               f"f32 answer (limit {FLASH_ATOL:g} + {FLASH_RTOL:g}|ref|: "
@@ -560,7 +636,11 @@ def phase_flash(flash_attention, attention_ref, attention, counters, card):
               f"bound={b['bound_ms']:.4f}ms ({b['bound_by']}: "
               f"{b['gflop']:.1f} GFLOP, {b['mbytes']:.1f} MB) "
               f"plain={plain_ms:.4f}ms library={lib_ms:.4f}ms ({lib_name}; "
-              f"max |diff| to the kernel {lib_diff:.3e})")
+              f"max |diff| to the kernel {lib_diff:.3e}); "
+              f"{rec[name]['tflops']:.1f} TFLOP/s of the function's flops, "
+              f"{rec[name]['x_library']:.2f}x the library's time, "
+              f"{FLASH_EARLIER_MS[name] / ms:.2f}x faster than the CUDA-core "
+              f"design's {FLASH_EARLIER_MS[name]}ms")
         del q, k, v, out
         torch.cuda.empty_cache()
     del inputs, outs
@@ -1092,13 +1172,24 @@ def main() -> int:
     t0 = time.perf_counter()
     names = ["paged_attention", "ssd_scan", "flash_attention"]
     logs = _build.build(names, verbose=True)
-    for kname, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"[build]   {kname}: {line.strip()}")
+    spills = {kname: ptxas_report(kname, log) for kname, log in logs.items()}
     libs = {kname: _build.load(kname) for kname in names}
     print(f"[build] {', '.join(n + '.cu' for n in names)} built and loaded "
           f"in {time.perf_counter() - t0:.1f}s (set-up)")
+    bf16_spills = {f: n for f, n in spills.get("flash_attention", {}).items()
+                   if "bf16" in f}
+    check(all(n == 0 for n in bf16_spills.values()),
+          f"flash_attention's bf16 kernel spills: {bf16_spills}")
+    hgmma = sass_count(_build.library_path("flash_attention"), "HGMMA",
+                       "flash_attention_bf16")
+    if hgmma is None:
+        print("[build]   flash_attention: no cuobjdump on this machine: "
+              "HGMMA not counted")
+    else:
+        check(hgmma and all(hgmma.values()),
+              f"flash_attention's bf16 kernel has no HGMMA: {hgmma}")
+        print(f"[build]   flash_attention: HGMMA (wgmma) instructions in "
+              f"each bf16 kernel: {json.dumps(hgmma)}")
     smem = libs["ssd_scan"].ssd_scan_smem_bytes
     smem.restype = ctypes.c_longlong
     print(f"[build]   ssd_scan: dynamic shared memory {smem(128, 256):,} "
@@ -1107,8 +1198,9 @@ def main() -> int:
     smem = libs["flash_attention"].flash_attention_smem_bytes
     smem.restype = ctypes.c_longlong
     print(f"[build]   flash_attention: dynamic shared memory "
-          f"{smem(128, 128, 1):,} bytes a block at D=Dv=128 bf16, "
-          f"{smem(256, 256, 0):,} at D=Dv=256 f32 (of 232,448)")
+          f"{smem(128, 128, 1):,} / {smem(256, 256, 1):,} bytes a block at "
+          f"D=Dv=128 / 256 bf16, {smem(256, 256, 0):,} at D=Dv=256 f32 (of "
+          f"232,448)")
 
     rec = phase_kernels(paged_attention, paged_attention_ref)
     rec_ssd = phase_ssd(ssd_scan, ssd_chunked_ref, card)

@@ -12,58 +12,86 @@
 // re-masked to 0 after the exp, and the output is acc / l with l == 0 read
 // as 1, so a row that sees no key comes out as exact zeros. Out in q's type.
 //
-// What bounds it on this card: operations. A (q, k) pair costs 2*(D+Dv)
-// flops for 2*(D+Dv)/S bytes of its k and v rows, so at prefill lengths the
-// work is hundreds of flops per byte, above the ~295 flop/byte where an
-// H100's bf16 tensor cores and its memory take the same time (qwen3-14b at
-// 4,096 tokens: 1.7e11 flops against 0.1 GB). This first design does the
-// two products in f32 on the CUDA cores (67 TFLOP/s, not the tensor cores'
-// 989), so it is compute-bound on them. It keeps what it can on chip so the
-// bytes stay far below that: each k and v tile is loaded once per query
-// tile and used by all its 64 rows; the running max m, sum l and the output
-// accumulator live in registers for the whole key walk; the score tile
-// never leaves shared memory.
+// What bounds it on this card: operations. The function costs 2*(D+Dv)
+// flops per visible (q, k) pair and head for 2*(D+Dv)/S bytes of its k and v
+// rows, hundreds of flops per byte at prefill lengths, above the ~295
+// flop/byte where an H100's bf16 tensor cores and its memory take the same
+// time (qwen3-14b at 4,096 tokens: 1.72e11 flops against 0.1 GB). So the
+// bf16 kernel runs both products on the tensor cores (wgmma, bf16 in, f32
+// out) and keeps m, l, the scores and the output accumulator in registers.
 //
-// One block of 256 threads per (query tile of 64 rows, head h, batch row b);
-// the TPU grid's sequential key axis becomes the loop over 64-key tiles
-// inside the block. Per key tile:
-//   1. stage k (and v) in their own type (bf16 stays bf16; widened to f32 in
-//      registers); q was staged once, widened to f32, since every key tile
-//      reads it again; rows past Sq or Sk are zero-filled, never read from
-//      device memory;
-//   2. scores on a 4 x 4 register tile per thread (rows ty*4+i, keys
-//      tx+16*j), f32 from 4-element vector loads; scale, softcap, mask;
-//   3. online softmax per row: max and sum by shuffles across the 16 threads
-//      that share a row, alpha = exp(m_old - m_new), p to shared memory;
-//   4. acc = acc * alpha + p @ v, each thread 4 rows x 2*NP columns.
-// Key tiles that the causal mask or the window hides completely are skipped
-// before any load: they would add p = 0 and leave m as it is. Query tiles are
-// scheduled last-first, so the longest causal rows start first.
+// Rounding. The reference keeps p in f32 and widens v before p @ v. A
+// tensor-core product takes p in bf16, and one bf16 rounding of p (2^-9
+// relative) is already as large as the one rounding of the output that the
+// result may carry. So p is split in two bf16 terms, P_hi = bf16(p) and
+// P_lo = bf16(p - P_hi), and acc += P_hi @ v + P_lo @ v in one f32
+// accumulator: what remains of p's rounding is ~2^-18 p. That is three
+// products where the function needs two: 1.5x its flops at D = Dv, all on
+// the tensor cores. q @ k needs no such care: a bf16 x bf16 product is exact
+// in f32. l is summed from the f32 p, never from its parts.
 //
-// Shared memory at D = Dv = 256 in f32: q 66.6 KB + k 66.6 KB + v 65.5 KB +
-// scores 17.4 KB = 216 KB of the 227 KB a block may use; in bf16 150 KB.
+// The bf16 kernel. One block of 160 threads per (64-row query tile, head h,
+// batch row b): warps 0-3 are one consumer warpgroup that owns the 64 rows;
+// warp 4 is the producer, one lane of which starts every TMA load. Tiles
+// arrive by TMA in boxes of 64 columns (128 bytes) with the 128-byte swizzle
+// that the wgmma descriptors name; rows past Sq or Sk and the columns past D
+// or Dv are TMA's out-of-bounds zero fill, so D pads to a multiple of 64 in
+// shared memory and never in device memory. q is loaded once; k and v tiles
+// stream through rings of 2 stages, k and v each with a `full` mbarrier (the
+// TMA bytes landed) and a `free` one (the 4 consumer warps are done with
+// it), so a k tile is reloaded as soon as its scores are in. Per key tile
+// of BK keys:
+//   1. S = q @ k^T: wgmma m64nBKk16, q and k from shared memory, K-major,
+//      4*ceil(D/64) steps; scale, softcap and the mask on the f32 fragment
+//      in registers (the mask only on tiles that the edges cross);
+//   2. online softmax on the fragment: each thread holds 2 rows, and a row's
+//      max and sum are reduced by shuffles among the 4 threads that share it;
+//   3. acc = acc * alpha + P_hi @ v + P_lo @ v: wgmma m64n64k16 per 64
+//      columns of Dv, P from registers (the f32 fragment converts pair by
+//      pair into the bf16 A fragment), v from shared memory, MN-major
+//      (the transpose bit for 16-bit types).
+// The products of consecutive tiles overlap: tile i+1's q @ k^T starts
+// with tile i's P @ v, and tile i+1's softmax runs on the CUDA cores while
+// that P @ v is still on the tensor cores; acc is rescaled once it is in.
+// Key tiles that the causal mask or the window hides completely are never
+// loaded; query tiles run last-first, so the longest causal rows start first.
+// exp is ex2.approx.ftz (2 ulp; a p below 2^-126 flushes to 0) with log2(e)
+// applied in f32; tanhf stays the accurate one: tanh.approx's ~2^-11 times a
+// cap of 50 would move a score by ~0.02.
 //
-// Left for later PRs:
-//   * the products on the tensor cores (mma / wgmma, bf16 in, f32 out), which
-//     is where the 15x between this kernel's peak and the card's lies;
-//   * cp.async / TMA double-buffering, so the next k/v tile loads while this
-//     one is in use (today every tile waits on its own load);
+// Tiles: BK = 64 keys, or 32 where Dv > 128 (the accumulator then takes 96
+// or 128 registers a thread) or where a 64-key ring would keep a second
+// block off the SM. Registers a thread: the 64 x 64*ceil(Dv/64) f32
+// accumulator (32-128), the S fragment (BK/2), P_hi and P_lo (BK/4 each),
+// within 200 (__maxnreg__), so that two blocks of 160 threads share an SM.
+// Shared memory: q 64 x 64*ceil(D/64) bf16 + 2 stages x BK x
+// 64*(ceil(D/64) + ceil(Dv/64)) bf16, 72 bytes of barriers and 1 KB to
+// align the swizzle: 83,016 bytes at D = Dv = 128 (BK 64), 99,400 at
+// D = Dv = 256 (BK 32); two blocks an SM.
+//
+// The f32 path keeps the CUDA-core design (flash_attention_f32_kernel): an
+// f32 q.k on bf16 tensor cores would lose the reference's f32 bound of 2e-5,
+// and TF32 keeps about three digits. One 256-thread block per query tile
+// walks 64-key tiles, 4 rows x 4 keys of scores a thread, f32 FMAs.
+//
+// Left for later:
+//   * two consumer warpgroups a block in ping-pong, so one's softmax hides
+//     under the other's products;
 //   * one block serving the G query heads of a kv head (k and v are re-read
 //     per query head now; L2 catches most of it);
-//   * split-K over the key axis when B*H*(Sq/64) blocks do not fill 132 SMs.
+//   * split-K over the key axis where B*H*ceil(Sq/64) blocks do not fill 132
+//     SMs (not the case at the shapes the configs use);
+//   * fp8 products, with scales beside the data.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;           // 16 x 16
-constexpr int kBQ = 64;                 // query rows per block
-constexpr int kBK = 64;                 // keys per tile
-constexpr int kPad = 4;                 // q and k rows: D + 4 elements
-constexpr int kLdp = kBK + 4;           // score tile row stride (floats)
 constexpr int kMaxDim = 256;            // D and Dv
 constexpr size_t kMaxSmem = 232448;     // 227 KB: a block's opt-in limit
 constexpr float kNegInf = -1e30f;
@@ -79,110 +107,79 @@ struct Params {
   float cap;
 };
 
-// Four consecutive elements, widened to f32.
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-// Two consecutive elements, widened to f32.
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  const unsigned u = *reinterpret_cast<const unsigned*>(p);
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
-}
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+// The key tiles [k_begin, k_end) that the query rows [q0, q0 + rows) can
+// see, k_begin rounded down to a tile of bk keys.
+struct KeyRange {
+  int begin, end;
+};
+__device__ __forceinline__ KeyRange key_range(const Params& p, int q0,
+                                              int rows, int bk) {
+  const int q_last = min(q0 + rows, p.Sq) - 1;
+  int k_begin = 0, k_end = p.Sk;
+  if (p.causal) k_end = min(k_end, q_last + 1);
+  if (p.has_window) k_begin = max(0, q0 - p.window + 1);
+  return {k_begin / bk * bk, k_end};
 }
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// ---------------------------------------------------------------------------
+// float32: both products on the CUDA cores
+// ---------------------------------------------------------------------------
 
-// Four elements moved as one vector: 16 bytes in f32, 8 in bf16.
-template <typename T> struct Vec4;
-template <> struct Vec4<float> { using type = float4; };
-template <> struct Vec4<__nv_bfloat16> { using type = uint2; };
+constexpr int kThreads = 256;           // 16 x 16
+constexpr int kBQ = 64;                 // query rows per block
+constexpr int kBK = 64;                 // keys per tile
+constexpr int kPad = 4;                 // q and k rows: D + 4 elements
+constexpr int kLdp = kBK + 4;           // score tile row stride (floats)
 
 // Copy `valid` rows of width W (a multiple of 4) from src (row stride W) to
 // dst (row stride ld), zero-filling rows [valid, rows).
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, int ld, const T* src, int W,
-                                      int rows, int valid) {
-  using V = typename Vec4<T>::type;
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
+                                      int W, int rows, int valid) {
   const int per_row = W / 4;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
     const int r = i / per_row, c = (i % per_row) * 4;
-    V x = {};
-    if (r < valid) x = *reinterpret_cast<const V*>(src + (size_t)r * W + c);
-    *reinterpret_cast<V*>(dst + r * ld + c) = x;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid) x = *reinterpret_cast<const float4*>(src + (size_t)r * W + c);
+    *reinterpret_cast<float4*>(dst + r * ld + c) = x;
   }
 }
 
-// Dynamic shared memory of one block, in bytes: q (f32), scores (f32), then
-// k and v in the input type. Every array starts on a 16-byte boundary.
-inline size_t smem_bytes(int D, int np, size_t elem) {
-  return (size_t)kBQ * (D + kPad) * 4 + (size_t)kBQ * kLdp * 4 +
-         (size_t)kBK * (D + kPad) * elem + (size_t)kBK * 32 * np * elem;
+// Dynamic shared memory of one block, in bytes: q, scores, k, v.
+inline size_t f32_smem_bytes(int D, int np) {
+  return ((size_t)kBQ * (D + kPad) + (size_t)kBQ * kLdp +
+          (size_t)kBK * (D + kPad) + (size_t)kBK * 32 * np) * 4;
 }
 
 // NP: pairs of output columns per thread (Dv <= 32 * NP).
-template <typename T, int NP>
+template <int NP>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const __grid_constant__ Params p) {
+flash_attention_f32_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   const int D = p.D, Dv = p.Dv, ld = D + kPad, ldv = 32 * NP;
   float* const q_s = reinterpret_cast<float*>(smem4);    // kBQ x ld
   float* const p_s = q_s + kBQ * ld;                      // kBQ x kLdp
-  T* const k_s = reinterpret_cast<T*>(p_s + kBQ * kLdp);  // kBK x ld
-  T* const v_s = k_s + kBK * ld;                          // kBK x ldv
+  float* const k_s = p_s + kBQ * kLdp;                    // kBK x ld
+  float* const v_s = k_s + kBK * ld;                      // kBK x ldv
 
   const int nq = (p.Sq + kBQ - 1) / kBQ;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (p.H / p.K);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* const Q = static_cast<const T*>(p.q) +
-                     ((size_t)b * p.H + h) * p.Sq * D;
-  const T* const Kg = static_cast<const T*>(p.k) +
-                      ((size_t)b * p.K + kh) * p.Sk * D;
-  const T* const Vg = static_cast<const T*>(p.v) +
-                      ((size_t)b * p.K + kh) * p.Sk * Dv;
-  T* const O = static_cast<T*>(p.o) + ((size_t)b * p.H + h) * p.Sq * Dv;
+  const float* const Q = static_cast<const float*>(p.q) +
+                         ((size_t)b * p.H + h) * p.Sq * D;
+  const float* const Kg = static_cast<const float*>(p.k) +
+                          ((size_t)b * p.K + kh) * p.Sk * D;
+  const float* const Vg = static_cast<const float*>(p.v) +
+                          ((size_t)b * p.K + kh) * p.Sk * Dv;
+  float* const O = static_cast<float*>(p.o) + ((size_t)b * p.H + h) * p.Sq * Dv;
+  const KeyRange kr = key_range(p, q0, kBQ, kBK);
 
-  // the key tiles this query tile can see
-  const int q_last = min(q0 + kBQ, p.Sq) - 1;
-  int k_begin = 0, k_end = p.Sk;
-  if (p.causal) k_end = min(k_end, q_last + 1);
-  if (p.has_window) k_begin = max(0, q0 - p.window + 1);
-  k_begin = k_begin / kBK * kBK;
-
-  // q once, widened to f32; v's pad columns [Dv, ldv) stay zero throughout
-  for (int i = tid; i < kBQ * (D / 4); i += kThreads) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < p.Sq) x = ld4(Q + (size_t)(q0 + r) * D + c);
-    *reinterpret_cast<float4*>(q_s + r * ld + c) = x;
-  }
+  // q once; v's pad columns [Dv, ldv) stay zero throughout
+  stage(q_s, ld, Q + (size_t)q0 * D, D, kBQ, min(kBQ, p.Sq - q0));
   for (int i = tid; i < kBK * (ldv - Dv); i += kThreads) {
     const int r = i / (ldv - Dv), c = Dv + i % (ldv - Dv);
-    v_s[r * ldv + c] = from_f32<T>(0.f);
+    v_s[r * ldv + c] = 0.f;
   }
 
   float m[4], l[4], acc[4][2 * NP];
@@ -194,14 +191,14 @@ flash_attention_kernel(const __grid_constant__ Params p) {
     for (int c = 0; c < 2 * NP; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+  for (int k0 = kr.begin; k0 < kr.end; k0 += kBK) {
     __syncthreads();                    // the last tile's k, v, p are used
     const int valid = min(kBK, p.Sk - k0);
     stage(k_s, ld, Kg + (size_t)k0 * D, D, kBK, valid);
     stage(v_s, ldv, Vg + (size_t)k0 * Dv, Dv, kBK, valid);
     __syncthreads();
 
-    // 2. s = q . k on a 4 x 4 tile: rows ty*4+i, keys tx+16*j
+    // s = q . k on a 4 x 4 tile: rows ty*4+i, keys tx+16*j
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -213,7 +210,8 @@ flash_attention_kernel(const __grid_constant__ Params p) {
       for (int i = 0; i < 4; ++i)
         qv[i] = *reinterpret_cast<const float4*>(q_s + (ty * 4 + i) * ld + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ld4(k_s + (tx + 16 * j) * ld + d);
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * ld + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -225,7 +223,7 @@ flash_attention_kernel(const __grid_constant__ Params p) {
         }
     }
 
-    // 3. scale, softcap, mask; online softmax across the row's 16 threads
+    // scale, softcap, mask; online softmax across the row's 16 threads
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty * 4 + i;
@@ -267,7 +265,7 @@ flash_attention_kernel(const __grid_constant__ Params p) {
     }
     __syncthreads();                    // the score tile is complete
 
-    // 4. acc += p @ v: rows ty*4+i, columns 2*tx + 32*t + {0, 1}
+    // acc += p @ v: rows ty*4+i, columns 2*tx + 32*t + {0, 1}
     for (int j = 0; j < kBK; j += 4) {
       float4 pv[4];
 #pragma unroll
@@ -276,10 +274,10 @@ flash_attention_kernel(const __grid_constant__ Params p) {
             *reinterpret_cast<const float4*>(p_s + (ty * 4 + i) * kLdp + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const T* const vrow = v_s + (j + jj) * ldv + 2 * tx;
+        const float* const vrow = v_s + (j + jj) * ldv + 2 * tx;
 #pragma unroll
         for (int t = 0; t < NP; ++t) {
-          const float2 x = ld2(vrow + 32 * t);
+          const float2 x = *reinterpret_cast<const float2*>(vrow + 32 * t);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float w = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y
@@ -301,16 +299,16 @@ flash_attention_kernel(const __grid_constant__ Params p) {
     for (int t = 0; t < NP; ++t) {
       const int c = 2 * tx + 32 * t;
       if (c < Dv)
-        st2(O + (size_t)q * Dv + c, acc[i][2 * t] / den,
-            acc[i][2 * t + 1] / den);
+        *reinterpret_cast<float2*>(O + (size_t)q * Dv + c) =
+            make_float2(acc[i][2 * t] / den, acc[i][2 * t + 1] / den);
     }
   }
 }
 
-template <typename T, int NP>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T, NP>;
-  const size_t smem = smem_bytes(p.D, NP, sizeof(T));
+template <int NP>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  auto kern = flash_attention_f32_kernel<NP>;
+  const size_t smem = f32_smem_bytes(p.D, NP);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -322,24 +320,546 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.Dv <= 32) return launch<T, 1>(p, stream);
-  if (p.Dv <= 64) return launch<T, 2>(p, stream);
-  if (p.Dv <= 128) return launch<T, 4>(p, stream);
-  if (p.Dv <= 160) return launch<T, 5>(p, stream);
-  return launch<T, 8>(p, stream);
-}
-
 int np_of(int Dv) {
   return Dv <= 32 ? 1 : Dv <= 64 ? 2 : Dv <= 128 ? 4 : Dv <= 160 ? 5 : 8;
+}
+
+cudaError_t dispatch_f32(const Params& p, cudaStream_t stream) {
+  switch (np_of(p.Dv)) {
+    case 1: return launch_f32<1>(p, stream);
+    case 2: return launch_f32<2>(p, stream);
+    case 4: return launch_f32<4>(p, stream);
+    case 5: return launch_f32<5>(p, stream);
+    default: return launch_f32<8>(p, stream);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: both products on the tensor cores (wgmma), tiles by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 64;               // query rows: one consumer warpgroup
+constexpr int kTcThreads = 128 + 32;    // the warpgroup + one producer warp
+constexpr int kStages = 2;              // k/v ring
+constexpr int kBox = 64;                // columns a TMA box carries
+constexpr int kRowBytes = kBox * 2;     // 128: one swizzle row
+constexpr int kBarBytes = 8 * (1 + 4 * kStages);
+constexpr size_t kTwoBlocks = kMaxSmem / 2 - 1024;  // both fit on one SM
+constexpr int kMaxRegs = 200;           // two blocks of 160 threads an SM
+constexpr float kLog2e = 1.4426950408889634f;
+
+inline int boxes(int d) { return (d + kBox - 1) / kBox; }
+
+// Dynamic shared memory of one block with ndk and ndv boxes of D and Dv:
+// q, the k ring, the v ring, barriers, and 1 KB to align the swizzled tiles
+// to 1,024 bytes.
+constexpr size_t tc_smem_bytes(int ndk, int ndv, int bk) {
+  return 1024 + (size_t)kRows * ndk * kRowBytes +
+         (size_t)kStages * bk * (ndk + ndv) * kRowBytes + kBarBytes;
+}
+// Keys a tile: 64 where the accumulator is at most 64 x 128 and two blocks'
+// shared memory fits on one SM; else 32.
+constexpr int tc_bk(int ndk, int ndv) {
+  return ndv <= 2 && tc_smem_bytes(ndk, ndv, 64) <= kTwoBlocks ? 64 : 32;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 3-d tensor map into shared memory; completion counts its
+// bytes on `bar`. Out-of-bounds elements arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a tile in 128-byte swizzled rows whose
+// groups of 8 rows lie 1,024 bytes apart (start 16-byte aligned; the
+// swizzle is that of the 1,024-aligned atom the start falls in).
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |     // start address
+         ((uint64_t)1 << 16) |                   // leading offset (unused)
+         ((uint64_t)(1024 >> 4) << 32) |         // stride offset: 8 rows
+         ((uint64_t)1 << 62);                    // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving register reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x N, f32) += a (64 x 16) @ b (16 x N), both bf16 in shared memory,
+// K-major. (The predicate p is wgmma's scale-d: 1 adds to d.)
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a,
+                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+// d (64 x 64, f32) += a (64 x 16, bf16 fragment in registers) @ b (16 x 64,
+// bf16 in shared memory, MN-major: the transpose bit).
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// S = q @ k^T for one key tile (64 x BK f32), started and committed.
+template <int NDK, int BK>
+__device__ __forceinline__ void start_qk(float (&sc)[BK / 2], uint32_t q_s,
+                                         uint32_t kb) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NDK; ++kk)      // columns past D are zeros
+    mma_ss(sc, desc(q_s + (kk / 4) * kRows * kRowBytes + (kk % 4) * 32),
+           desc(kb + (kk / 4) * BK * kRowBytes + (kk % 4) * 32));
+  wg_commit();
+}
+
+// acc += P_hi @ v + P_lo @ v for one key tile, started and committed.
+template <int NDV, int BK>
+__device__ __forceinline__ void start_pv(float (&acc)[NDV][32],
+                                         const uint32_t (&ph)[BK / 16][4],
+                                         const uint32_t (&pl)[BK / 16][4],
+                                         uint32_t vb) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < NDV; ++c) {
+      const uint64_t dv = desc(vb + (c * BK + kk * 16) * kRowBytes);
+      mma_rs(acc[c], ph[kk], dv);
+      mma_rs(acc[c], pl[kk], dv);
+    }
+  wg_commit();
+}
+
+// 2^x on the special-function unit (2 ulp; a result below 2^-126 is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Scale, softcap and mask on the S fragment of keys [k0, k0 + BK), then the
+// online softmax: p (f32) replaces s, m and l move on, alpha is what the
+// accumulator is to be scaled by. The softcap and the mask sit behind
+// branches around whole loops, taken alike by every thread: per element
+// they would run predicated on every tile. The 4 threads of a row reduce its
+// max by shuffles.
+template <int BK>
+__device__ __forceinline__ void softmax(float (&sc)[BK / 2], const Params& p,
+                                        int q0, int k0, const int (&qr)[2],
+                                        int cq, float (&m)[2], float (&l)[2],
+                                        float (&alpha)[2]) {
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) sc[e] *= p.scale;
+  if (p.has_cap) {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] = p.cap * tanhf(sc[e] / p.cap);
+  }
+  uint32_t vis = ~0u;                   // the keys this thread's rows see
+  if (k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0) ||
+      (p.has_window && q0 + kRows - 1 - k0 >= p.window)) {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int kp = k0 + 8 * (e / 4) + cq + (e & 1), qp = qr[(e >> 1) & 1];
+      bool ok = kp < p.Sk;
+      if (p.causal) ok = ok && kp <= qp;
+      if (p.has_window) ok = ok && qp - kp < p.window;
+      if (!ok) {
+        sc[e] = kNegInf;
+        vis &= ~(1u << e);
+      }
+    }
+  }
+  float mx[2] = {kNegInf, kNegInf}, mb[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = ex2((m[r] - m_new) * kLog2e);
+    m[r] = m_new;
+    mb[r] = m_new * kLog2e;
+  }
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    // exp(-1e30 - m_new) is 1 where the row has seen no key yet: re-mask
+    // after the exp
+    const float pe = ex2(fmaf(sc[e], kLog2e, -mb[(e >> 1) & 1]));
+    sc[e] = (vis >> e & 1u) ? pe : 0.f;
+    rs[(e >> 1) & 1] += sc[e];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// P_hi = bf16(p), P_lo = bf16(p - P_hi) as A fragments: register t of step
+// kk holds elements 8*kk + 2*t and + 1 of the S fragment.
+template <int BK>
+__device__ __forceinline__ void split(const float (&sc)[BK / 2],
+                                      uint32_t (&ph)[BK / 16][4],
+                                      uint32_t (&pl)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float x0 = sc[8 * kk + 2 * t], x1 = sc[8 * kk + 2 * t + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(hi);
+      ph[kk][t] = bits(hi);
+      pl[kk][t] = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+    }
+}
+
+// NDK, NDV: 64-column boxes of D and Dv (the accumulator is 64 x 64*NDV
+// f32); BK keys a tile. The m64nNk16 fragments: thread t of
+// the warpgroup holds rows 16*(t/32) + (t%32)/4 and that + 8; element
+// 4*j + e of an N-wide fragment is column 8*j + 2*(t%4) + (e&1) of the
+// first row (e < 2) or the second.
+template <int NDK, int NDV, int BK = tc_bk(NDK, NDV)>
+__global__ void __maxnreg__(kMaxRegs)
+flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ Params p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t k_s = q_s + kRows * NDK * kRowBytes;
+  const uint32_t v_s = k_s + kStages * BK * NDK * kRowBytes;
+  // barriers: q landed; per stage, k landed / k used, v landed / v used
+  const uint32_t q_full = v_s + kStages * BK * NDV * kRowBytes;
+  const uint32_t k_full = q_full + 8, k_free = k_full + 8 * kStages;
+  const uint32_t v_full = k_free + 8 * kStages, v_free = v_full + 8 * kStages;
+
+  const int nq = (p.Sq + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * kRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (p.H / p.K);
+  const KeyRange kr = key_range(p, q0, kRows, BK);
+  const int n_tiles = kr.end > kr.begin ? (kr.end - kr.begin + BK - 1) / BK : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(k_free + 8 * s, 4);     // one arrival per consumer warp
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_free + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {                      // the producer
+    if (lane == 0) {
+      const int qz = b * p.H + h, kz = b * p.K + kh;
+      mbar_expect_tx(q_full, kRows * NDK * kRowBytes);
+      for (int c = 0; c < NDK; ++c)
+        tma_load(q_s + c * kRows * kRowBytes, &tq, c * kBox, q0, qz, q_full);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages, k0 = kr.begin + i * BK;
+        const uint32_t parity = (i / kStages - 1) & 1;
+        if (i >= kStages) mbar_wait(k_free + 8 * s, parity);
+        mbar_expect_tx(k_full + 8 * s, BK * NDK * kRowBytes);
+        for (int c = 0; c < NDK; ++c)
+          tma_load(k_s + (s * NDK + c) * BK * kRowBytes, &tk, c * kBox, k0,
+                   kz, k_full + 8 * s);
+        if (i >= kStages) mbar_wait(v_free + 8 * s, parity);
+        mbar_expect_tx(v_full + 8 * s, BK * NDV * kRowBytes);
+        for (int c = 0; c < NDV; ++c)
+          tma_load(v_s + (s * NDV + c) * BK * kRowBytes, &tv, c * kBox, k0,
+                   kz, v_full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroup. Tile i + 1's q @ k^T runs on the tensor cores
+  // while tile i's P @ v does, and its softmax while P @ v still runs.
+  // Every register a product reads or writes is set before the fence that
+  // opens its group: one set between fence and commit would serialize them.
+  const int row = warp * 16 + lane / 4;            // and row + 8
+  const int qr[2] = {q0 + row, q0 + row + 8};
+  const int cq = 2 * (lane % 4);
+  float acc[NDV][32];
+#pragma unroll
+  for (int c = 0; c < NDV; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float sc[BK / 2];
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];
+
+  mbar_wait(q_full, 0);
+  if (n_tiles > 0) {
+    mbar_wait(k_full, 0);
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+    pin(sc);
+    wg_fence();
+    start_qk<NDK, BK>(sc, q_s, k_s);
+    wg_wait<0>();
+    pin(sc);
+    if (lane == 0) mbar_arrive(k_free);
+    softmax<BK>(sc, p, q0, kr.begin, qr, cq, m, l, alpha);
+    split<BK>(sc, ph, pl);              // acc is zero: alpha needs no use
+  }
+  for (int i = 0; i + 1 < n_tiles; ++i) {
+    const int s = i % kStages, t = (i + 1) % kStages;
+    mbar_wait(k_full + 8 * t, ((i + 1) / kStages) & 1);
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+    mbar_wait(v_full + 8 * s, (i / kStages) & 1);
+    pin(sc);
+#pragma unroll
+    for (int c = 0; c < NDV; ++c) pin(acc[c]);
+    pin(ph);
+    pin(pl);
+    wg_fence();
+    start_qk<NDK, BK>(sc, q_s, k_s + t * NDK * BK * kRowBytes);
+    start_pv<NDV, BK>(acc, ph, pl, v_s + s * NDV * BK * kRowBytes);
+    wg_wait<1>();                       // tile i + 1's scores are in
+    pin(sc);
+    if (lane == 0) mbar_arrive(k_free + 8 * t);
+    softmax<BK>(sc, p, q0, kr.begin + (i + 1) * BK, qr, cq, m, l, alpha);
+    wg_wait<0>();                       // tile i's P @ v is in
+#pragma unroll
+    for (int c = 0; c < NDV; ++c) pin(acc[c]);
+    pin(ph);
+    pin(pl);
+    if (lane == 0) mbar_arrive(v_free + 8 * s);
+#pragma unroll
+    for (int c = 0; c < NDV; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] *= alpha[(e >> 1) & 1];
+    split<BK>(sc, ph, pl);
+  }
+  if (n_tiles > 0) {                    // the last tile's P @ v
+    const int i = n_tiles - 1;
+    mbar_wait(v_full + 8 * (i % kStages), (i / kStages) & 1);
+#pragma unroll
+    for (int c = 0; c < NDV; ++c) pin(acc[c]);
+    pin(ph);
+    pin(pl);
+    wg_fence();
+    start_pv<NDV, BK>(acc, ph, pl, v_s + (i % kStages) * NDV * BK * kRowBytes);
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NDV; ++c) pin(acc[c]);
+  }
+
+  __nv_bfloat16* const O = static_cast<__nv_bfloat16*>(p.o) +
+                           ((size_t)b * p.H + h) * p.Sq * p.Dv;
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = l[r] > 0.f ? l[r] : 1.f;
+  }
+#pragma unroll
+  for (int c = 0; c < NDV; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int col = c * kBox + 8 * j + cq;
+        if (qr[r] < p.Sq && col < p.Dv)
+          *reinterpret_cast<__nv_bfloat162*>(O + (size_t)qr[r] * p.Dv + col) =
+              __floats2bfloat162_rn(acc[c][4 * j + 2 * r] / den[r],
+                                    acc[c][4 * j + 2 * r + 1] / den[r]);
+      }
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (depth, rows, cols) bf16 tensor, read in boxes of rows x 64 columns with
+// the 128-byte swizzle; out-of-bounds elements read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int cols, int rows,
+                int depth, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {kBox, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NDK, int NDV>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  constexpr int BK = tc_bk(NDK, NDV);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, p.q, p.D, p.Sq, p.B * p.H, kRows) ||
+      !tensor_map(&tk, p.k, p.D, p.Sk, p.B * p.K, BK) ||
+      !tensor_map(&tv, p.v, p.Dv, p.Sk, p.B * p.K, BK))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attention_bf16_kernel<NDK, NDV>;
+  constexpr size_t smem = tc_smem_bytes(NDK, NDV, BK);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Sq + kRows - 1) / kRows, p.H, p.B);
+  kern<<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+using Launch = cudaError_t (*)(const Params&, cudaStream_t);
+template <int NDK>
+constexpr Launch kLaunchRow[4] = {launch_bf16<NDK, 1>, launch_bf16<NDK, 2>,
+                                  launch_bf16<NDK, 3>, launch_bf16<NDK, 4>};
+
+cudaError_t dispatch_bf16(const Params& p, cudaStream_t stream) {
+  static const Launch* const rows[4] = {kLaunchRow<1>, kLaunchRow<2>,
+                                        kLaunchRow<3>, kLaunchRow<4>};
+  return rows[boxes(p.D) - 1][boxes(p.Dv) - 1](p, stream);
 }
 
 }  // namespace
 
 // Dynamic shared memory one block takes, in bytes.
 extern "C" long long flash_attention_smem_bytes(int D, int Dv, int bf16) {
-  return (long long)smem_bytes(D, np_of(Dv), bf16 ? 2 : 4);
+  return bf16 ? (long long)tc_smem_bytes(
+                    boxes(D), boxes(Dv), tc_bk(boxes(D), boxes(Dv)))
+              : (long long)f32_smem_bytes(D, np_of(Dv));
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
@@ -361,5 +881,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const Params p{q, k, v, o, B, H, K, Sq, Sk, D, Dv, scale,
                  causal, has_window, window, has_cap, cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? dispatch<__nv_bfloat16>(p, st) : dispatch<float>(p, st));
+  if (!bf16) return (int)dispatch_f32(p, st);
+  if (Sk == 0)                          // no key: every row is zeros
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * H * Sq * Dv * 2, st);
+  return (int)dispatch_bf16(p, st);
 }

@@ -5,7 +5,10 @@ and v (B,K,Sk,Dv) inside a hand-written CUDA kernel
 (``csrc/flash_attention.cu``, the Hopper port of the reference's Pallas
 ``flash_attention``): one thread block per (query tile, head, batch row)
 walks the key tiles with the running max, sum and output accumulator kept on
-chip, and skips the tiles that the causal mask or the window hides.
+chip, and skips the tiles that the causal mask or the window hides. In bf16
+both products run on the tensor cores (wgmma) over tiles loaded by TMA, p
+split in two bf16 terms so that the output keeps one bf16 rounding; in f32
+they run on the CUDA cores.
 
 ``attention_ref`` is the plain PyTorch version of the same function, line for
 line the reference oracle (``repro.kernels.ref.attention_ref``): kv heads

@@ -15,9 +15,18 @@ supported configs. Tolerances are the reference's own
 (``tests/test_kernels.py``): f32 atol = rtol = 2e-5 (the same math summed in
 another order), bf16 2e-2 (one bf16 rounding of the output on each side).
 
+``_emulate_kernel`` repeats the bf16 CUDA kernel's rounding points in plain
+PyTorch (bf16 q.k summed in f32, an f32 online softmax over 64-key tiles,
+p split into two bf16 terms before the f32 p @ v, the output rounded once to
+bf16): on the CPU it must stay within one bf16 rounding of the f32 answer
+(``attention_ref`` on the bf16 inputs widened to f32; atol 1e-5, rtol
+2^-8, the limit ``chip_smoke.py`` holds the kernel to), and the same
+emulation with p rounded once to bf16 must not.
+
 The ``cuda`` tests hold the CUDA kernel against the plain version on the
-card. JAX is imported in fixtures, not at module level, so that the file
-also runs where JAX is absent:
+card, and the bf16 kernel within that one rounding of the f32 answer. JAX
+is imported in fixtures, not at module level, so that the file also runs
+where JAX is absent:
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``.
 """
 import math
@@ -86,6 +95,79 @@ def _zero_rows(Sq, Sk, kw):
     if kw.get("window") is not None:
         mask &= (qp - kp) < kw["window"]
     return ~mask.any(-1)
+
+
+# one bf16 rounding of the output (half an ulp, 2^-9 relative, with 2x
+# room) and f32 summation noise; chip_smoke.py's FLASH_RTOL, FLASH_ATOL
+ONE_ROUNDING = dict(atol=1e-5, rtol=2.0 ** -8)
+
+
+def _emulate_kernel(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None, split=True, bk=64):
+    """The bf16 kernel's rounding points in plain PyTorch: q.k of bf16
+    inputs in f32 (each product exact), scale, softcap and mask in f32, an
+    online softmax over ``bk``-key tiles with m, l and acc in f32, l summed
+    from the f32 p, and p @ v as P_hi @ v + P_lo @ v with P_hi = bf16(p),
+    P_lo = bf16(p - P_hi) (``split``; else bf16(p) @ v alone), the output
+    rounded to bf16 once."""
+    B, H, Sq, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(H // K, dim=1)
+    v = v.float().repeat_interleave(H // K, dim=1)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qp = torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, v.shape[-1]))
+    for k0 in range(0, Sk, bk):
+        kt, vt = k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk]
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kt) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        vis = torch.ones((Sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            vis &= kp <= qp
+        if window is not None:
+            vis &= (qp - kp) < window
+        s = torch.where(vis, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(vis, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / torch.where(l > 0, l, 1.0)).to(torch.bfloat16)
+
+
+def _bf16(shape):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in _arrays(shape)]
+
+
+@pytest.mark.parametrize("name,shape,kw", CASES, ids=IDS)
+def test_split_p_rounding_within_one_bf16_rounding(name, shape, kw):
+    """The kernel's rounding design keeps the bf16 output within one bf16
+    rounding of the f32 answer; rows that see no key are exact zeros."""
+    q, k, v = _bf16(shape)
+    out = _emulate_kernel(q, k, v, **kw)
+    exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(out.float(), exact, **ONE_ROUNDING)
+    zero = torch.from_numpy(_zero_rows(shape[3], shape[4], kw))
+    assert bool((out[:, :, zero] == 0).all())
+
+
+def test_single_bf16_p_fails_one_rounding():
+    """The control: p rounded once to bf16 before p @ v does not hold that
+    limit where rows see hundreds of keys (sweep2: Sk 384)."""
+    name, shape, kw = CASES[IDS.index("sweep2")]
+    q, k, v = _bf16(shape)
+    exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+    single = _emulate_kernel(q, k, v, split=False, **kw).float()
+    assert int((~torch.isclose(single, exact, **ONE_ROUNDING)).sum()) > 0
 
 
 @pytest.fixture(scope="module")
@@ -221,6 +303,20 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, name, shape, kw):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     zero = torch.from_numpy(_zero_rows(shape[3], shape[4], kw))
     assert bool((out[:, :, zero.to(cuda_device)] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,kw", CASES, ids=IDS)
+def test_cuda_bf16_kernel_within_one_rounding(cuda_device, name, shape, kw):
+    """The bf16 kernel (tensor-core products, p split in two bf16 terms)
+    within one bf16 rounding of attention_ref's f32 answer for the same
+    bf16 inputs, at every case of the grid."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _arrays(shape))
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.testing.assert_close(out.float(), exact, **ONE_ROUNDING)
 
 
 @pytest.mark.cuda
