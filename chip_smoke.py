@@ -11,22 +11,32 @@ non-zero:
 1. card     name and power limit; TF32 off for float32 products, f32
             reductions for bf16 products.
 2. build    every CUDA kernel of the port (paged_attention.cu, ssd_scan.cu,
-            flash_attention.cu), compiled from the sources here, one nvcc
-            each, all at once; registers, shared memory and spills of each
-            kernel function (fails if flash attention's bf16 kernel
-            spills), and, where cuobjdump is on the machine, the HGMMA
-            (wgmma) instructions of that kernel (fails if there are none).
+            flash_attention.cu; both tensor-core sources include
+            hopper.cuh), compiled from the sources here, one nvcc each, all
+            at once; registers, shared memory and spills of each kernel
+            function (fails if a bf16 flash kernel or a split, combine or
+            tile paged kernel spills), and, where cuobjdump is on the
+            machine, the HGMMA (wgmma) instructions of the bf16 flash and
+            the tile paged kernels (fails on an instantiation without).
 3. kernels  each kernel against its plain PyTorch version on the card.
             paged_attention: the reference test grid (page sizes 2/4/8/16,
             MHA/GQA/MQA, window + softcap, the MLA q2/k2 form, ragged padded
-            prefill, fragmented tables with dead pages, a full pool) in f32
-            (atol 2e-5) and bf16 (atol 2e-2, rtol 1e-2), then the serving
-            path's own bf16 shapes. ssd_scan: the reference sweep
+            prefill, fragmented tables with dead pages, a full pool, and two
+            prefills with S*G >= 64) in f32 (atol 2e-5) and bf16 (atol
+            2e-2, rtol 1e-2), each case's route printed (split, tile and
+            general each run); then qwen3-14b's decode (split) and prefill
+            (tile) shapes and a long-context decode (4 x 4,096 rows, 67 MB
+            of K/V), each bf16 output held within one bf16 rounding of the
+            f32 answer, with a control that must fail that limit (slot 0's
+            last live page dropped). ssd_scan: the reference sweep
             (tests/test_kernels.py) in f32 (relative error 3e-4) and bf16
             (6e-2), y and the final state, then mamba2-1.3b's own scan
             (bf16 x/B/C, f32 dt, y f32; B=4, H=64, P=64, N=128, chunk 256,
-            S=512 and S=192). Times are CUDA-event medians of 30 launches,
-            L2 flushed between launches, beside the plain version and the
+            S=512 and S=192). Two times a kernel: "call" ms, the median of
+            30 calls between CUDA events (L2 flushed before each), which
+            holds the Python wrapper's host work too, and "device" ms, the
+            profiler's self device time of the kernel's own functions per
+            call over the same loop; beside them the plain version and the
             bound. paged_attention gets scaled_dot_product_attention on the
             already-gathered dense view as a yardstick; no single PyTorch
             call computes either function, so ``library_ms`` is null.
@@ -46,9 +56,10 @@ non-zero:
             (the window edge one 64-key tile off) must fail that limit. Each
             is timed beside its bound, the plain version and one library
             call: ``scaled_dot_product_attention``, or where it cannot apply
-            a softcap, ``flex_attention`` compiled; printed with its
-            TFLOP/s on the function's flops and its ratios to the library's
-            time and (in the printed line only) to the CUDA-core design's
+            a softcap, ``flex_attention`` compiled; printed with its device
+            and call times, its TFLOP/s on the function's flops (device
+            time) and its call time's ratios to the library's and (in the
+            printed line only) to the CUDA-core design's
             (``FLASH_EARLIER_MS``).
 5. serve    ``repro_torch.launch.serve.serve`` with qwen3-14b at its full
             published width (40 layers, d_model 5120, 40/8 heads, head_dim
@@ -59,12 +70,15 @@ non-zero:
             requests of 128 prompt tokens and 16 generated tokens, half of
             them extending the system prompt. Every paged-attention launch
             of both waves is counted: 40 per prefill dispatch and per
-            decode step; the other kernels' counts stay 0.
+            decode step, every decode step on the split route and every
+            prefill dispatch on the tile route; the other kernels' counts
+            stay 0.
 6. lockstep from one set of params, paged_prefill + 4 paged_decode_step
             with kernel "paged" and with kernel "gather" on two copies of a
             fresh pool: greedy tokens agree up to the first near-tie.
 7. profile  torch.profiler over full-width decode steps: host wall time,
-            device busy share, the kernels that take the time.
+            device busy share, the kernels that take the time, the paged
+            kernels' share.
 8. blocked  the model's blocked attention path at qwen3-14b's width: (a)
             ``attn_core`` at one layer's shape (Q = S = 8,448: past the
             8,192 threshold, the last 1,024-block padded) against the flat
@@ -133,8 +147,11 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps=30, warmup=3):
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events),
-    with the 50 MB L2 flushed before each, as a caller would find it."""
+    """Call time of ``fn``: the median over ``reps`` calls of CUDA events
+    recorded around it, with the 50 MB L2 flushed before each, as a caller
+    would find it. The start event is recorded before the Python wrapper
+    runs, so this is the wrapper's host work and the kernel's device time
+    together (``device_ms`` has the kernel alone)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(warmup):
         fn()
@@ -149,6 +166,43 @@ def time_ms(fn, reps=30, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, names, reps=30, warmup=3):
+    """The kernels' own device time per call of ``fn``: torch.profiler's
+    self device time of every kernel whose name holds one of ``names``,
+    summed over ``reps`` calls with the L2 flushed before each (the loop of
+    ``time_ms``), divided by ``reps``. Returns the total and the time per
+    name."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    per = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        for n in names:
+            if n in e.key:
+                per[n] += us / reps / 1e3
+    check(all(v > 0 for v in per.values()),
+          f"the profiler saw no device time for {per}")
+    return sum(per.values()), per
+
+
+# kernel function names of each paged-attention route, as the profiler shows
+PAGED_KERNELS = {"split": ("paged_split_kernel", "paged_combine_kernel"),
+                 "tile": ("paged_tile_kernel",),
+                 "general": ("paged_attention_kernel",)}
 
 
 def _cuda_tool(name):
@@ -269,17 +323,51 @@ def small_cases():
               ("dk_ne_dv", lambda d: problem(6, d, Dk=32, Dv=16), {}),
               ("prefill_ragged_padded", ragged, {}),
               ("dead_slot_full_pool",
-               lambda d: problem(5, d, B=4, P=12, filled=[4, 0, 3, 4]), {})]
+               lambda d: problem(5, d, B=4, P=12, filled=[4, 0, 3, 4]), {}),
+              # S*G >= 64: tile route in bf16, general in f32
+              ("prefill_tiles",
+               lambda d: problem(8, d, S=32, H=8, K=2, P=40, ps=4, npps=24,
+                                 filled=[20, 18], q_from_zero=True), {}),
+              ("prefill_tiles_window_softcap",
+               lambda d: problem(9, d, S=32, H=8, K=2, P=40, ps=4, npps=24,
+                                 filled=[20, 18], q_from_zero=True),
+               dict(window=20, softcap=30.0)),
+              # S*G >= 64 with q2/k2 (MLA's prefill): general in both types
+              ("mla_prefill",
+               lambda d: problem(10, d, S=32, H=4, K=1, P=40, ps=4, npps=24,
+                                 filled=[20, 18], q2dim=8, q_from_zero=True),
+               dict(scale=1.0 / math.sqrt(16 + 8)))]
     return cases
 
 
-def phase_kernels(paged_attention, paged_attention_ref):
+def route_of(paged_attention, fn):
+    """Run ``fn`` and return the one route its paged_attention call took."""
+    before = dict(paged_attention.routes)
+    out = fn()
+    taken = [r for r in before if paged_attention.routes[r] != before[r]]
+    check(len(taken) == 1, f"routes taken: {taken}")
+    return out, taken[0]
+
+
+# the serving path's shapes (qwen3-14b's attention: B=4, H=40, K=8, D=128,
+# 16-row pages) and a long-context decode: 4 x 4,096 rows, 67 MB of K/V
+PAGED_SHAPES = [
+    ("decode", dict(S=1, filled=[9] * 4), "split"),
+    ("prefill", dict(S=128, filled=[8] * 4, q_from_zero=True), "tile"),
+    ("long_decode", dict(S=1, filled=[256] * 4, P=1024, npps=256), "split"),
+]
+
+
+def phase_kernels(paged_attention, paged_attention_ref, card):
     print("[kernels] paged_attention against paged_attention_ref on the card")
+    seen = {torch.float32: set(), torch.bfloat16: set()}
     for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-5),
                               (torch.bfloat16, 2e-2, 1e-2)):
         for name, make, kw in small_cases():
             a = make(dtype)
-            out = call(paged_attention, a, **kw)
+            out, route = route_of(paged_attention,
+                                  lambda: call(paged_attention, a, **kw))
+            seen[dtype].add(route)
             torch.cuda.synchronize()
             ref = call(paged_attention_ref, a, **kw)
             err = (out.float() - ref.float()).abs().max().item()
@@ -289,35 +377,69 @@ def phase_kernels(paged_attention, paged_attention_ref):
                 check(bool((out[1, 5:] == 0).all()), "pad rows not zero")
             if name == "dead_slot_full_pool":
                 check(bool((out[1] == 0).all()), "dead slot not zero")
-            print(f"[kernels]   {str(dtype)[6:]:8s} {name:22s} "
-                  f"max_abs_err={err:.3e} ok")
+            print(f"[kernels]   {str(dtype)[6:]:8s} {name:28s} "
+                  f"route={route:7s} max_abs_err={err:.3e} ok")
+    # every route in bf16, the serving type; f32 has no tile route
+    check(seen[torch.bfloat16] == set(PAGED_KERNELS)
+          and seen[torch.float32] == {"split", "general"},
+          f"the grid ran routes {seen}")
 
     rec = {}
-    for shape, kw in (("decode", dict(S=1, filled=[9] * 4)),
-                      ("prefill", dict(S=128, filled=[8] * 4,
-                                       q_from_zero=True))):
-        a = problem(7, torch.bfloat16, B=4, H=40, K=8, Dk=128, Dv=128,
-                    P=128, ps=16, npps=32, **kw)
-        out = call(paged_attention, a)
+    for shape, kw, want in PAGED_SHAPES:
+        kw = {**dict(B=4, H=40, K=8, Dk=128, Dv=128, P=128, ps=16, npps=32),
+              **kw}
+        a = problem(7, torch.bfloat16, **kw)
+        out, route = route_of(paged_attention,
+                              lambda: call(paged_attention, a))
+        check(route == want, f"{shape}: route {route}, not {want}")
         torch.cuda.synchronize()
         ref = call(paged_attention_ref, a)
         err = (out.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                    rtol=1e-2)
-        rec[shape] = dict(max_abs_err=err, **measure(paged_attention,
-                                                     paged_attention_ref, a))
-        r = rec[shape]
+        # one rounding of the f32 answer for these bf16 inputs, and a
+        # control that must fail it: slot 0's last live page dropped
+        f32 = {n: (x.float() if x is not None and x.is_floating_point()
+                   else x) for n, x in a.items()}
+        exact = call(paged_attention_ref, f32)
+        err_exact = (out.float() - exact).abs().max().item()
+        torch.testing.assert_close(out.float(), exact, atol=FLASH_ATOL,
+                                   rtol=FLASH_RTOL,
+                                   msg=lambda m: f"{shape}: {m}")
+        dropped = dict(f32, tables=f32["tables"].clone())
+        dropped["tables"][0, kw["filled"][0] - 1] = -1
+        ctl = call(paged_attention_ref, dropped)
+        n_off = int((~torch.isclose(out.float(), ctl, atol=FLASH_ATOL,
+                                    rtol=FLASH_RTOL)).sum())
+        check(n_off > 0, f"{shape}: the one-rounding limit passes a dropped "
+                         "page")
+        del f32, exact, dropped, ctl
+        r = rec[shape] = dict(route=route, max_abs_err=err,
+                              max_abs_err_f32=err_exact, control_off=n_off,
+                              **measure(paged_attention, paged_attention_ref,
+                                        a, PAGED_KERNELS[route]))
+        dev = " + ".join(f"{n} {ms:.4f}"
+                         for n, ms in r["device_parts"].items())
         print(f"[kernels] {shape}: B=4 S={a['q'].shape[1]} H=40 K=8 D=128 "
-              f"ps=16 npps=32 live pages/slot={kw['filled'][0]} bf16 "
-              f"max_abs_err={err:.3e} kernel={r['ms']:.4f}ms "
-              f"plain={r['plain_ms']:.4f}ms bound={r['bound_ms']:.4f}ms "
-              f"({r['bound_by']}) sdpa_on_gathered_view={r['sdpa_ms']:.4f}ms "
-              "(yardstick only: no single PyTorch call computes the paged "
-              "function)")
+              f"ps=16 npps={kw['npps']} live pages/slot={kw['filled'][0]} "
+              f"bf16 route={route}: max_abs_err={err:.3e} against the plain "
+              f"version, {err_exact:.3e} against its f32 answer (limit "
+              f"{FLASH_ATOL:g} + {FLASH_RTOL:g}|ref|: one bf16 rounding); "
+              f"control (slot 0's last live page dropped): {n_off} elements "
+              f"over the limit, fails as it must; device="
+              f"{r['device_ms']:.4f}ms ({dev}) call={r['ms']:.4f}ms "
+              f"(wrapper + kernel) plain={r['plain_ms']:.4f}ms "
+              f"bound={r['bound_ms']:.4f}ms ({r['bound_by']}: "
+              f"{r['mbytes']:.1f} MB) sdpa_on_gathered_view="
+              f"{r['sdpa_ms']:.4f}ms (yardstick only: no single PyTorch call "
+              "computes the paged function)")
+        del a, out, ref
+        torch.cuda.empty_cache()
+    print(f"[kernels] paged_attention times on {card}")
     return rec
 
 
-def measure(paged_attention, paged_attention_ref, a):
+def measure(paged_attention, paged_attention_ref, a, names):
     q, k, v, kpos, tables, q_pos = (a[n] for n in ("q", "k", "v", "kpos",
                                                    "tables", "q_pos"))
     B, S, H, D = q.shape
@@ -341,12 +463,15 @@ def measure(paged_attention, paged_attention_ref, a):
     qh = q.transpose(1, 2)
     mask = vis[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev, parts = device_ms(lambda: call(paged_attention, a), names)
     return dict(
         ms=time_ms(lambda: call(paged_attention, a)),
+        device_ms=dev, device_parts=parts,
         plain_ms=time_ms(lambda: call(paged_attention_ref, a)),
         sdpa_ms=time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask)),
         bound_ms=max(t_bytes, t_ops) * 1e3,
-        bound_by="bytes" if t_bytes >= t_ops else "operations")
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        mbytes=n_bytes / 1e6)
 
 
 SSD_SWEEP = [(1, 128, 2, 64, 32, 64),       # tests/test_kernels.py:60-64
@@ -414,19 +539,24 @@ def phase_ssd(ssd_scan, ssd_chunked_ref, card):
         check(ey < tol and eh < tol,
               f"ssd_scan {shape} {dtype}: rel err y {ey:.3e} h {eh:.3e}")
         b = ssd_bound(args, y, h, chunk)
-        ms = time_ms(lambda: ssd_scan(*args, chunk=chunk, out_dtype=out_dtype,
-                                      return_state=True))
+        def run():
+            return ssd_scan(*args, chunk=chunk, out_dtype=out_dtype,
+                            return_state=True)
+        ms = time_ms(run)
         plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk))
         model = out_dtype is not None
+        dev = device_ms(run, ("ssd_scan_kernel",))[0] if model else None
         print(f"[kernels]   {'model ' if model else ''}{str(dtype)[6:]:8s} "
               f"Bz={Bz} S={S} H={H} P={P} N={N} chunk={chunk}: rel_err y "
-              f"{ey:.3e} h {eh:.3e} (tol {tol:g}) kernel={ms:.4f}ms "
+              f"{ey:.3e} h {eh:.3e} (tol {tol:g}) "
+              + (f"device={dev:.4f}ms " if model else "")
+              + f"call={ms:.4f}ms (wrapper + kernel) "
               f"plain={plain_ms:.4f}ms bound={b['bound_ms']:.4f}ms "
               f"({b['bound_by']}: {b['mbytes']:.1f} MB, {b['gflop']:.2f} "
               f"GFLOP) ok")
         if model:
             rec[f"S{S}"] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=b["bound_ms"],
                 bound_by=b["bound_by"], rel_err_y=ey, rel_err_h=eh,
                 max_abs_err=(y.float() - ry).abs().max().item())
     print(f"[kernels] ssd_scan times on {card}")
@@ -602,6 +732,8 @@ def phase_flash(flash_attention, attention_ref, attention, counters, card):
                          "tile off")
         del exact, ctl, off, f32
         ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+        dev = device_ms(lambda: flash_attention(q, k, v, **kw),
+                        ("flash_attention_bf16_kernel",))[0]
         plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), reps=10)
         torch.cuda.empty_cache()
         if kw.get("softcap") is not None:
@@ -622,25 +754,27 @@ def phase_flash(flash_attention, attention_ref, attention, counters, card):
         rec[name] = dict(shape=f"B={B} H={H} K={K} Sq={Sq} Sk={Sk} D={D} "
                                f"Dv={Dv} {kw or 'causal'} bf16",
                          max_abs_err=err, max_abs_err_f32=err_exact, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b["bound_ms"],
-                         bound_by=b["bound_by"], library_ms=lib_ms,
+                         device_ms=dev, plain_ms=plain_ms,
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                         library_ms=lib_ms,
                          library=lib_name, gflop=b["gflop"],
-                         tflops=b["gflop"] / ms,
+                         tflops=b["gflop"] / dev,
                          x_library=ms / lib_ms)
         print(f"[flash] {name}: {rec[name]['shape']}: max_abs_err="
               f"{err:.3e} against attention_ref, {err_exact:.3e} against its "
               f"f32 answer (limit {FLASH_ATOL:g} + {FLASH_RTOL:g}|ref|: "
               f"one bf16 rounding); control (window edge one tile off) "
               f"max_abs_err={ctl_err:.3e}, {n_off} elements over the limit: "
-              f"fails as it must; kernel={ms:.4f}ms "
+              f"fails as it must; device={dev:.4f}ms call={ms:.4f}ms "
+              f"(wrapper + kernel) "
               f"bound={b['bound_ms']:.4f}ms ({b['bound_by']}: "
               f"{b['gflop']:.1f} GFLOP, {b['mbytes']:.1f} MB) "
               f"plain={plain_ms:.4f}ms library={lib_ms:.4f}ms ({lib_name}; "
               f"max |diff| to the kernel {lib_diff:.3e}); "
-              f"{rec[name]['tflops']:.1f} TFLOP/s of the function's flops, "
-              f"{rec[name]['x_library']:.2f}x the library's time, "
-              f"{FLASH_EARLIER_MS[name] / ms:.2f}x faster than the CUDA-core "
-              f"design's {FLASH_EARLIER_MS[name]}ms")
+              f"{rec[name]['tflops']:.1f} TFLOP/s of the function's flops "
+              f"(device time), call {rec[name]['x_library']:.2f}x the "
+              f"library's call time and {FLASH_EARLIER_MS[name] / ms:.2f}x "
+              f"faster than the CUDA-core design's {FLASH_EARLIER_MS[name]}ms")
         del q, k, v, out
         torch.cuda.empty_cache()
     del inputs, outs
@@ -681,6 +815,7 @@ def run_serve(cfg, params, waves, kernel_fn, **kw):
     try:
         for fn in counters:
             fn.launches = 0
+        paged_attention.routes = dict.fromkeys(paged_attention.routes, 0)
         eng = serve(cfg, params, waves, device=DEV, **kw)
         torch.cuda.synchronize()
         launches = kernel_fn.launches
@@ -747,8 +882,15 @@ def phase_serve(cfg, params, paged_attention, card):
           f"[{st['prefix_hits']} warm] + {st['steps']} decode steps)")
     check(launches == layers * dispatches,
           f"launches {launches} != {layers} x {dispatches}")
+    routes = dict(paged_attention.routes)
+    want = {"split": layers * st["steps"],
+            "tile": layers * st["prefill_dispatches"], "general": 0}
+    print(f"[serve] paged_attention routes {json.dumps(routes)}: every "
+          f"decode step on split, every prefill dispatch on tile")
+    check(routes == want, f"routes {routes}, expected {want}")
     check(st["prefix_hits"] > 0, "no prefix hit")
     out = serve_numbers(eng, wave, launches)
+    out["routes"] = routes
     print_serve("serve", wave, out, card)
     return out
 
@@ -1137,8 +1279,13 @@ def phase_profile(cfg, params, steps=3, S=128, tag="profile"):
           f"({busy / (wall * 1e3):.1%}), {n_kernels:.0f} kernels a step")
     for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"[{tag}]   {ms:8.3f} ms {n:6.0f}x  {name[:90]}")
+    paged = {n: v for n, v in kern.items() if "paged_" in n}
+    paged_ms = sum(ms for ms, _ in paged.values())
+    print(f"[{tag}] paged-attention kernels: {paged_ms:.3f} ms of device "
+          f"time a step in {sum(n for _, n in paged.values()):.0f} launches")
     check(busy > 0, "the profiler saw no device time")
-    return dict(wall_ms=wall * 1e3, busy_ms=busy, kernels=n_kernels)
+    return dict(wall_ms=wall * 1e3, busy_ms=busy, kernels=n_kernels,
+                paged_ms=paged_ms)
 
 
 def main() -> int:
@@ -1176,25 +1323,36 @@ def main() -> int:
     libs = {kname: _build.load(kname) for kname in names}
     print(f"[build] {', '.join(n + '.cu' for n in names)} built and loaded "
           f"in {time.perf_counter() - t0:.1f}s (set-up)")
-    bf16_spills = {f: n for f, n in spills.get("flash_attention", {}).items()
-                   if "bf16" in f}
-    check(all(n == 0 for n in bf16_spills.values()),
-          f"flash_attention's bf16 kernel spills: {bf16_spills}")
-    hgmma = sass_count(_build.library_path("flash_attention"), "HGMMA",
-                       "flash_attention_bf16")
-    if hgmma is None:
-        print("[build]   flash_attention: no cuobjdump on this machine: "
-              "HGMMA not counted")
-    else:
+    new_spills = {f: n for kname, parts in (
+        ("flash_attention", ("flash_attention_bf16",)),
+        ("paged_attention", ("paged_split", "paged_combine", "paged_tile")))
+        for f, n in spills.get(kname, {}).items()
+        if any(part in f for part in parts)}
+    check(all(n == 0 for n in new_spills.values()),
+          f"a tensor-core or split kernel spills: {new_spills}")
+    for kname, part in (("flash_attention", "flash_attention_bf16"),
+                        ("paged_attention", "paged_tile_kernel")):
+        hgmma = sass_count(_build.library_path(kname), "HGMMA", part)
+        if hgmma is None:
+            print(f"[build]   {kname}: no cuobjdump on this machine: HGMMA "
+                  "not counted")
+            continue
         check(hgmma and all(hgmma.values()),
-              f"flash_attention's bf16 kernel has no HGMMA: {hgmma}")
-        print(f"[build]   flash_attention: HGMMA (wgmma) instructions in "
-              f"each bf16 kernel: {json.dumps(hgmma)}")
+              f"{kname}: a {part} instantiation has no HGMMA: {hgmma}")
+        print(f"[build]   {kname}: HGMMA (wgmma) instructions in each "
+              f"{part} instantiation: {sorted(hgmma.values())}")
     smem = libs["ssd_scan"].ssd_scan_smem_bytes
     smem.restype = ctypes.c_longlong
     print(f"[build]   ssd_scan: dynamic shared memory {smem(128, 256):,} "
-          f"bytes a block at N=128, chunk 256 (of 232,448); paged_attention "
-          f"sizes its own per launch from the page size and head dims")
+          f"bytes a block at N=128, chunk 256 (of 232,448)")
+    split = libs["paged_attention"].paged_attention_split_smem_bytes
+    tile = libs["paged_attention"].paged_attention_tile_smem_bytes
+    split.restype = tile.restype = ctypes.c_longlong
+    print(f"[build]   paged_attention: dynamic shared memory a block at "
+          f"qwen3-14b's shapes (G=5, D=128, 16-row pages): split "
+          f"{split(5, 16, 128, 128, 2, 2):,} bytes (decode, 2 entries a "
+          f"split), tile {tile(128, 128, 32, 16):,} bytes (32 table "
+          f"entries); the general kernel sizes its own per launch")
     smem = libs["flash_attention"].flash_attention_smem_bytes
     smem.restype = ctypes.c_longlong
     print(f"[build]   flash_attention: dynamic shared memory "
@@ -1202,7 +1360,7 @@ def main() -> int:
           f"D=Dv=128 / 256 bf16, {smem(256, 256, 0):,} at D=Dv=256 f32 (of "
           f"232,448)")
 
-    rec = phase_kernels(paged_attention, paged_attention_ref)
+    rec = phase_kernels(paged_attention, paged_attention_ref, card)
     rec_ssd = phase_ssd(ssd_scan, ssd_chunked_ref, card)
     # before any weights are on the card: the plain version's score tensors
     # take up to ~26 GB at the largest shapes
@@ -1243,29 +1401,34 @@ def main() -> int:
     ssm["lockstep"] = phase_lockstep_ssm(cfg, params)
     ssm["profile"] = phase_profile(cfg, params, S=512, tag="profile-ssm")
 
-    dec, pre = rec["decode"], rec["prefill"]
+    dec = rec["decode"]
+    keep = ("route", "ms", "device_ms", "device_parts", "plain_ms",
+            "bound_ms", "bound_by", "sdpa_ms", "max_abs_err",
+            "max_abs_err_f32")
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:107",
-        "launches": srv["launches"],
-        "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "launches": srv["launches"], "routes": srv["routes"],
+        "max_abs_err": max(r["max_abs_err"] for r in rec.values()),
+        "ms": dec["ms"], "device_ms": dec["device_ms"],
+        "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": None,
         "shape": "decode B=4 S=1 H=40 K=8 D=128 ps=16 npps=32, 9 live "
-                 "pages/slot, bf16",
+                 "pages/slot, bf16; ms is the call (wrapper + kernel), "
+                 "device_ms the kernels alone",
         "sdpa_dense_view_ms": dec["sdpa_ms"],
-        "prefill": {k: pre[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "sdpa_ms",
-                                        "max_abs_err")},
+        **{shape: {k: rec[shape][k] for k in keep}
+           for shape in ("prefill", "long_decode")},
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:63",
         "launches": ssm["launches"],
-        **{k: rec_ssd["S512"][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by")},
+        **{k: rec_ssd["S512"][k] for k in ("max_abs_err", "ms", "device_ms",
+                                           "plain_ms", "bound_ms",
+                                           "bound_by")},
         "library_ms": None,
         "shape": "Bz=4 S=512 H=64 P=64 N=128 chunk 256, bf16 x/B/C, f32 "
                  "dt, y f32 + final state",
@@ -1276,8 +1439,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "launches": flash_launches,
         **{k: rec_flash["qwen3-14b"][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")},
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape")},
         "shapes": {n: r for n, r in rec_flash.items() if n != "qwen3-14b"},
     }]
     print(f"[serve] summary {json.dumps(srv)}")

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface. On first use it is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) and
 loaded with ``ctypes``. The library's file name carries a digest of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing is compiled when a module is imported: the CPU tests
+source, of every header in ``csrc/`` (``*.cuh``, which the sources include)
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. Nothing is compiled when a module is imported: the CPU tests
 import every module on machines without ``nvcc``.
 """
 from __future__ import annotations
@@ -35,8 +36,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -90,7 +90,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kMaxDim = 256;            // D and Dv
 constexpr size_t kMaxSmem = 232448;     // 227 KB: a block's opt-in limit
@@ -338,11 +342,8 @@ cudaError_t dispatch_f32(const Params& p, cudaStream_t stream) {
 // bfloat16: both products on the tensor cores (wgmma), tiles by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;               // query rows: one consumer warpgroup
 constexpr int kTcThreads = 128 + 32;    // the warpgroup + one producer warp
 constexpr int kStages = 2;              // k/v ring
-constexpr int kBox = 64;                // columns a TMA box carries
-constexpr int kRowBytes = kBox * 2;     // 128: one swizzle row
 constexpr int kBarBytes = 8 * (1 + 4 * kStages);
 constexpr size_t kTwoBlocks = kMaxSmem / 2 - 1024;  // both fit on one SM
 constexpr int kMaxRegs = 200;           // two blocks of 160 threads an SM
@@ -361,186 +362,6 @@ constexpr size_t tc_smem_bytes(int ndk, int ndv, int bk) {
 // shared memory fits on one SM; else 32.
 constexpr int tc_bk(int ndk, int ndv) {
   return ndv <= 2 && tc_smem_bytes(ndk, ndv, 64) <= kTwoBlocks ? 64 : 32;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a 3-d tensor map into shared memory; completion counts its
-// bytes on `bar`. Out-of-bounds elements arrive as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for a tile in 128-byte swizzled rows whose
-// groups of 8 rows lie 1,024 bytes apart (start 16-byte aligned; the
-// swizzle is that of the 1,024-aligned atom the start falls in).
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |     // start address
-         ((uint64_t)1 << 16) |                   // leading offset (unused)
-         ((uint64_t)(1024 >> 4) << 32) |         // stride offset: 8 rows
-         ((uint64_t)1 << 62);                    // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Until at most N committed groups of products are still running.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving register reads or writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d (64 x N, f32) += a (64 x 16) @ b (16 x N), both bf16 in shared memory,
-// K-major. (The predicate p is wgmma's scale-d: 1 adds to d.)
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
-                                       uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a,
-                                       uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-// d (64 x 64, f32) += a (64 x 16, bf16 fragment in registers) @ b (16 x 64,
-// bf16 in shared memory, MN-major: the transpose bit).
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                       uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// S = q @ k^T for one key tile (64 x BK f32), started and committed.
-template <int NDK, int BK>
-__device__ __forceinline__ void start_qk(float (&sc)[BK / 2], uint32_t q_s,
-                                         uint32_t kb) {
-#pragma unroll
-  for (int kk = 0; kk < 4 * NDK; ++kk)      // columns past D are zeros
-    mma_ss(sc, desc(q_s + (kk / 4) * kRows * kRowBytes + (kk % 4) * 32),
-           desc(kb + (kk / 4) * BK * kRowBytes + (kk % 4) * 32));
-  wg_commit();
-}
-
-// acc += P_hi @ v + P_lo @ v for one key tile, started and committed.
-template <int NDV, int BK>
-__device__ __forceinline__ void start_pv(float (&acc)[NDV][32],
-                                         const uint32_t (&ph)[BK / 16][4],
-                                         const uint32_t (&pl)[BK / 16][4],
-                                         uint32_t vb) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int c = 0; c < NDV; ++c) {
-      const uint64_t dv = desc(vb + (c * BK + kk * 16) * kRowBytes);
-      mma_rs(acc[c], ph[kk], dv);
-      mma_rs(acc[c], pl[kk], dv);
-    }
-  wg_commit();
-}
-
-// 2^x on the special-function unit (2 ulp; a result below 2^-126 is 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Scale, softcap and mask on the S fragment of keys [k0, k0 + BK), then the
@@ -597,24 +418,6 @@ __device__ __forceinline__ void softmax(float (&sc)[BK / 2], const Params& p,
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-}
-
-// P_hi = bf16(p), P_lo = bf16(p - P_hi) as A fragments: register t of step
-// kk holds elements 8*kk + 2*t and + 1 of the S fragment.
-template <int BK>
-__device__ __forceinline__ void split(const float (&sc)[BK / 2],
-                                      uint32_t (&ph)[BK / 16][4],
-                                      uint32_t (&pl)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float x0 = sc[8 * kk + 2 * t], x1 = sc[8 * kk + 2 * t + 1];
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-      const float2 hf = __bfloat1622float2(hi);
-      ph[kk][t] = bits(hi);
-      pl[kk][t] = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-    }
 }
 
 // NDK, NDV: 64-column boxes of D and Dv (the accumulator is 64 x 64*NDV
@@ -778,50 +581,14 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       }
 }
 
-// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A (depth, rows, cols) bf16 tensor, read in boxes of rows x 64 columns with
 // the 128-byte swizzle; out-of-bounds elements read as zeros.
 bool tensor_map(CUtensorMap* map, const void* ptr, int cols, int rows,
                 int depth, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)depth};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {kBox, (cuuint32_t)box_rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map_3d(
+      map, ptr, {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth},
+      {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2},
+      {kBox, (cuuint32_t)box_rows, 1});
 }
 
 template <int NDK, int NDV>

@@ -1,0 +1,303 @@
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
+// (flash_attention.cu, paged_attention.cu): shared-memory addresses,
+// mbarriers, TMA and cp.async copies, wgmma descriptors and products, the
+// split of an f32 P into two bf16 terms, and TMA tensor maps (host).
+//
+// Tiles are 64 rows (one warpgroup's wgmma M) in boxes of 64 bf16 columns,
+// 128 bytes a row, with the 128-byte swizzle: chunk c (16 bytes) of row r
+// of a box lies at r * 128 + ((c ^ (r % 8)) * 16) from a 1,024-aligned base,
+// which is where TMA's SWIZZLE_128B puts it and where the wgmma descriptors
+// below read it.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace hopper {
+
+constexpr int kRows = 64;               // rows of a tile: one warpgroup's M
+constexpr int kBox = 64;                // bf16 columns a box carries
+constexpr int kRowBytes = kBox * 2;     // 128: one swizzle row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 3-d tensor map into shared memory; completion counts its
+// bytes on `bar`. Out-of-bounds elements arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a tile in 128-byte swizzled rows whose
+// groups of 8 rows lie 1,024 bytes apart (start 16-byte aligned; the
+// swizzle is that of the 1,024-aligned atom the start falls in).
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |     // start address
+         ((uint64_t)1 << 16) |                   // leading offset (unused)
+         ((uint64_t)(1024 >> 4) << 32) |         // stride offset: 8 rows
+         ((uint64_t)1 << 62);                    // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving register reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x N, f32) += a (64 x 16) @ b (16 x N), both bf16 in shared memory,
+// K-major. (The predicate p is wgmma's scale-d: 1 adds to d.)
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a,
+                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+// d (64 x 64, f32) += a (64 x 16, bf16 fragment in registers) @ b (16 x 64,
+// bf16 in shared memory, MN-major: the transpose bit).
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// S = q @ k^T for one key tile (64 x BK f32), started and committed.
+template <int NDK, int BK>
+__device__ __forceinline__ void start_qk(float (&sc)[BK / 2], uint32_t q_s,
+                                         uint32_t kb) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NDK; ++kk)      // columns past D are zeros
+    mma_ss(sc, desc(q_s + (kk / 4) * kRows * kRowBytes + (kk % 4) * 32),
+           desc(kb + (kk / 4) * BK * kRowBytes + (kk % 4) * 32));
+  wg_commit();
+}
+
+// acc += P_hi @ v + P_lo @ v for one key tile, started and committed.
+template <int NDV, int BK>
+__device__ __forceinline__ void start_pv(float (&acc)[NDV][32],
+                                         const uint32_t (&ph)[BK / 16][4],
+                                         const uint32_t (&pl)[BK / 16][4],
+                                         uint32_t vb) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < NDV; ++c) {
+      const uint64_t dv = desc(vb + (c * BK + kk * 16) * kRowBytes);
+      mma_rs(acc[c], ph[kk], dv);
+      mma_rs(acc[c], pl[kk], dv);
+    }
+  wg_commit();
+}
+
+// 2^x on the special-function unit (2 ulp; a result below 2^-126 is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P_hi = bf16(p), P_lo = bf16(p - P_hi) as A fragments: register t of step
+// kk holds elements 8*kk + 2*t and + 1 of the S fragment.
+template <int BK>
+__device__ __forceinline__ void split(const float (&sc)[BK / 2],
+                                      uint32_t (&ph)[BK / 16][4],
+                                      uint32_t (&pl)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float x0 = sc[8 * kk + 2 * t], x1 = sc[8 * kk + 2 * t + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(hi);
+      ph[kk][t] = bits(hi);
+      pl[kk][t] = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+    }
+}
+
+// 16 bytes from global to shared memory, bypassing L1; with src_bytes 0 the
+// 16 bytes are zeros and nothing is read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes from global to shared memory (zeros with src_bytes 0).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Until at most N committed groups of this thread's copies are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// One arrival on `bar` once every cp.async this thread has issued so far
+// has landed (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+// Orders this thread's view of shared memory written by the generic proxy
+// (cp.async, st.shared) before its later async-proxy reads (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor of three dimensions (dims[0] contiguous; strides of
+// dimensions 1 and 2 in bytes), read in boxes of box[0] x box[1] x box[2]
+// elements with the 128-byte swizzle; out-of-bounds elements read as zeros.
+inline bool tensor_map_3d(CUtensorMap* map, const void* ptr,
+                          const cuuint64_t (&dims)[3],
+                          const cuuint64_t (&strides)[2],
+                          const cuuint32_t (&box)[3]) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

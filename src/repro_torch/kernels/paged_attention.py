@@ -2,20 +2,30 @@
 
 The serving engine keeps KV state in one shared pool of fixed-size pages;
 each slot owns an ordered page list (its page table, -1 = unallocated).
-``paged_attention`` walks that table inside a hand-written CUDA kernel
+``paged_attention`` walks that table inside hand-written CUDA kernels
 (``csrc/paged_attention.cu``, the Hopper port of the reference's Pallas
 ``_kernel``) and never materializes a dense per-slot view: each live K/V
-page is read once per (slot, kv head, query chunk) and shared by the G query
-heads of that kv head, with online softmax carried across pages.
+page is read once per (slot, kv head, block) and shared by the G query
+heads of that kv head.
+
+Three routes, chosen by ``_route`` from shapes, dtype, the SM count and
+the routes' shared memory alone (never from the contents of ``tables``,
+``kpos`` or ``q_pos``, so no host sync; worked out once a shape by
+``_plan``): ``split`` (S*G < 64: decode; the table split across blocks,
+then a combine kernel), ``tile`` (bf16 prefill: tensor-core tiles gathered
+from pages) and ``general`` (the rest). A route is never a fallback: a
+failed launch raises.
 
 ``paged_attention_ref`` is the plain PyTorch version of the same function,
 line for line the reference oracle (``repro.kernels.ref``): gather each
 slot's pages into a dense view, then naive masked attention. The wrapper
-takes it only for tensors on the CPU; on a CUDA tensor it launches the
-kernel or raises. ``paged_attention.launches`` counts kernel launches.
+takes it only for tensors on the CPU; on a CUDA tensor it launches a kernel
+or raises. ``paged_attention.launches`` counts wrapper calls that launched,
+``paged_attention.routes`` the same calls by route.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -106,11 +116,88 @@ def _check(q, k, v, kpos, tables, q_pos, q2, k2):
         raise ValueError("paged_attention: q2 (B,S,H,Dk2), k2 (P,ps,K,Dk2)")
 
 
+ROUTES = ("split", "tile", "general")
+TILE_ROWS = 64                   # (query, group) rows of a tile block
+
+# A route's shared memory a block, as the CUDA source lays it out:
+# ``split(R, ps, Dt, Dv, elem, per)`` and ``tile(Dk, Dv, npps, ps)`` in
+# bytes, and the most a block may take. On the card these are the
+# library's own functions (``_library_smem``), so the layout is known in
+# one place only.
+Smem = collections.namedtuple("Smem", "split tile limit")
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.load("paged_attention").paged_attention_launch
+def _library_smem() -> Smem:
+    lib = _build.load("paged_attention")
+    split = lib.paged_attention_split_smem_bytes
+    tile = lib.paged_attention_tile_smem_bytes
+    limit = lib.paged_attention_max_smem_bytes
+    split.argtypes, tile.argtypes = [ctypes.c_int] * 6, [ctypes.c_int] * 4
+    split.restype = tile.restype = limit.restype = ctypes.c_longlong
+    # ctypes functions do not hash; ``_plan``'s cache key needs them to
+    return Smem(lambda *a: split(*a), lambda *a: tile(*a), limit())
+
+
+def _splits(B: int, K: int, npps: int, n_sm: int) -> int:
+    """How many ranges of table entries the split route cuts each slot's
+    table into: about four blocks an SM over B*K (slot, kv head) pairs,
+    each range ``-(-npps // splits)`` entries, none empty."""
+    want = max(1, min(npps, -(-4 * n_sm // max(1, B * K))))
+    per = max(1, -(-npps // want))
+    return max(1, -(-npps // per))
+
+
+def _shape(q, k, v, q2, tables) -> tuple:
+    """All that a route depends on: shapes and dtype, never contents."""
+    return (*q.shape, *k.shape[1:3], v.shape[-1],
+            q2.shape[-1] if q2 is not None else 0, tables.shape[1], q.dtype)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(shape: tuple, n_sm: int, smem: Smem):
+    """``(route, splits, per, workspace floats)`` for one ``_shape``:
+    worked out once a shape, so a call's host work stays a lookup."""
+    B, S, H, Dk, ps, K, Dv, Dk2, npps, dtype = shape
+    R, elem = S * (H // K), 2 if dtype == torch.bfloat16 else 4
+    if R < TILE_ROWS:
+        splits = _splits(B, K, npps, n_sm)
+        per = -(-npps // splits)
+        if (all(d * elem % 16 == 0 for d in (Dk, Dk2, Dv))
+                and smem.split(R, ps, Dk + Dk2, Dv, elem, per) <= smem.limit):
+            return "split", splits, per, B * K * splits * R * (Dv + 2)
+        return "general", 0, 0, 0
+    if (dtype == torch.bfloat16 and Dk2 == 0
+            and all(d % 8 == 0 and 8 <= d <= 256 for d in (Dk, Dv))
+            and 64 % ps == 0 and smem.tile(Dk, Dv, npps, ps) <= smem.limit):
+        return "tile", 0, 0, 0
+    return "general", 0, 0, 0
+
+
+def _route(q, k, v, q2, tables, n_sm: int, smem: Smem) -> str:
+    """``"split"``, ``"tile"`` or ``"general"``, from shapes, dtype, the SM
+    count and the routes' shared memory alone."""
+    return _plan(_shape(q, k, v, q2, tables), n_sm, smem)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(route: str):
+    lib = _build.load("paged_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 9 + [i] * 10 + [f, i, i, i, i, f, i, p]
+    if route == "general":
+        fn = lib.paged_attention_launch
+        fn.argtypes = [p] * 9 + [i] * 10 + [f, i, i, i, i, f, i, p]
+    elif route == "split":
+        fn = lib.paged_attention_split_launch
+        fn.argtypes = [p] * 10 + [i] * 12 + [f, i, i, i, i, f, i, p]
+    else:
+        fn = lib.paged_attention_tile_launch
+        fn.argtypes = [p] * 7 + [i] * 9 + [f, i, i, i, i, f, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -132,7 +219,9 @@ def paged_attention(q, k, v, kpos, tables, q_pos, *, q2=None, k2=None,
     All float inputs share one dtype (float32 or bfloat16); every tensor is
     contiguous and on one device. Returns (B, S, H, Dv) in v.dtype. A slot
     whose table is all -1 (or a pad query row) gets exact zeros. CPU tensors
-    take ``paged_attention_ref``; CUDA tensors launch the kernel.
+    take ``paged_attention_ref``; CUDA tensors launch the kernels of the
+    route ``_route`` picks (the split and tile routes take 16-byte aligned
+    tensors and raise on others).
     """
     _check(q, k, v, kpos, tables, q_pos, q2, k2)
     if q.device.type == "cpu":
@@ -141,30 +230,45 @@ def paged_attention(q, k, v, kpos, tables, q_pos, *, q2=None, k2=None,
                                    softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
-    B, S, H, Dk = q.shape
-    P, ps, K, _ = k.shape
-    Dv = v.shape[-1]
-    Dk2 = q2.shape[-1] if q2 is not None else 0
+    shape = _shape(q, k, v, q2, tables)
+    B, S, H, Dk, ps, K, Dv, Dk2, npps, _ = shape
+    P = k.shape[0]
     if scale is None:
         scale = 1.0 / math.sqrt(Dk + Dk2)
+    n_sm = _n_sm(q.device.index if q.device.index is not None
+                 else torch.cuda.current_device())
+    route, splits, per, ws_floats = _plan(shape, n_sm, _library_smem())
+    ptr = [t.data_ptr() for t in (q, k, v, kpos, tables, q_pos)]
+    opt = [q2.data_ptr() if q2 is not None else None,
+           k2.data_ptr() if k2 is not None else None]
+    if route != "general" and any(x % 16 for x in ptr[:3] + opt if x):
+        raise ValueError(f"paged_attention ({route} route) takes tensors "
+                         "that start on 16-byte boundaries")
     out = torch.empty((B, S, H, Dv), dtype=v.dtype, device=q.device)
-    err = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
-        tables.data_ptr(), q_pos.data_ptr(),
-        q2.data_ptr() if q2 is not None else None,
-        k2.data_ptr() if k2 is not None else None, out.data_ptr(),
-        B, S, H, K, Dk, Dk2, Dv, P, ps, tables.shape[1], float(scale),
-        int(causal), int(window is not None),
-        int(window) if window is not None else 0,
-        int(softcap is not None),
-        float(softcap) if softcap is not None else 0.0,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    mask = [float(scale), int(causal), int(window is not None),
+            int(window) if window is not None else 0,
+            int(softcap is not None),
+            float(softcap) if softcap is not None else 0.0]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    bf16 = int(q.dtype == torch.bfloat16)
+    if route == "split":
+        ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
+        err = _launcher(route)(*ptr, *opt, out.data_ptr(), ws.data_ptr(),
+                               B, S, H, K, Dk, Dk2, Dv, P, ps, npps, splits,
+                               per, *mask, bf16, stream)
+    elif route == "tile":
+        err = _launcher(route)(*ptr, out.data_ptr(), B, S, H, K, Dk, Dv, P,
+                               ps, npps, *mask, stream)
+    else:
+        err = _launcher(route)(*ptr, *opt, out.data_ptr(), B, S, H, K, Dk,
+                               Dk2, Dv, P, ps, npps, *mask, bf16, stream)
     if err:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"paged_attention kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
     paged_attention.launches += 1
+    paged_attention.routes[route] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.routes = dict.fromkeys(ROUTES, 0)
