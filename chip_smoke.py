@@ -11,13 +11,13 @@ non-zero:
 1. card     name and power limit; TF32 off for float32 products, f32
             reductions for bf16 products.
 2. build    every CUDA kernel of the port (paged_attention.cu, ssd_scan.cu,
-            flash_attention.cu; both tensor-core sources include
-            hopper.cuh), compiled from the sources here, one nvcc each, all
-            at once; registers, shared memory and spills of each kernel
-            function (fails if a bf16 flash kernel or a split, combine or
-            tile paged kernel spills), and, where cuobjdump is on the
-            machine, the HGMMA (wgmma) instructions of the bf16 flash and
-            the tile paged kernels (fails on an instantiation without).
+            flash_attention.cu; all three include hopper.cuh), compiled
+            from the sources here, one nvcc each, all at once; registers,
+            shared memory and spills of each kernel function (fails if a
+            bf16 flash kernel, a split, combine or tile paged kernel or a tc
+            SSD kernel spills), and, where cuobjdump is on the machine, the
+            HGMMA (wgmma) instructions of the bf16 flash, the tile paged and
+            the tc SSD kernels (fails on an instantiation without).
 3. kernels  each kernel against its plain PyTorch version on the card.
             paged_attention: the reference test grid (page sizes 2/4/8/16,
             MHA/GQA/MQA, window + softcap, the MLA q2/k2 form, ragged padded
@@ -29,10 +29,17 @@ non-zero:
             of K/V), each bf16 output held within one bf16 rounding of the
             f32 answer, with a control that must fail that limit (slot 0's
             last live page dropped). ssd_scan: the reference sweep
-            (tests/test_kernels.py) in f32 (relative error 3e-4) and bf16
-            (6e-2), y and the final state, then mamba2-1.3b's own scan
-            (bf16 x/B/C, f32 dt, y f32; B=4, H=64, P=64, N=128, chunk 256,
-            S=512 and S=192). Two times a kernel: "call" ms, the median of
+            (tests/test_kernels.py, and a ragged tc shape) in f32 on its
+            planned route (relative error 3e-4) and in bf16 on every route
+            that takes the shape (6e-2), y and the final state, each case's
+            route printed (tc and simt must both run); a strong decay (dt x
+            10) on tc, finite and within 3e-4; then the model path's call
+            (bf16 x/B/C, f32 dt, y f32 with the state; within 3e-4) at
+            mamba2-1.3b's 4 x 512 and 4 x 192 (H=64, P=64, N=128, chunk
+            256), batch 1 at 512 and 4,096 tokens, and zamba2-7b's width
+            (4 x 512, H=112, N=64), on the planned tc route and on simt
+            forced through the wrapper, both timed. Two times a kernel:
+            "call" ms, the median of
             30 calls between CUDA events (L2 flushed before each), which
             holds the Python wrapper's host work too, and "device" ms, the
             profiler's self device time of the kernel's own functions per
@@ -95,7 +102,8 @@ non-zero:
             with 512-token prompts (two chunks: the state carries) and four
             with 192-token prompts (Q = S). Prefill groups have one exact
             length; every SSD-scan launch is counted: 48 per prefill
-            dispatch (decode runs the recurrence, not the scan).
+            dispatch (decode runs the recurrence, not the scan), every one
+            on the tc route.
 10. lockstep-ssm  4 prompts of 512 tokens prefilled through the SSD kernel
             and decoded 4 steps, against the same prompts fed one token at
             a time through paged_decode_step (the decode recurrence, an
@@ -105,7 +113,9 @@ non-zero:
             first near-tie. In bf16, the served model, the paths round at
             different points (as the reference's do): the state's and the
             logits' relative errors and the token agreement are printed.
-11. profile-ssm  as 7, for a mamba2-1.3b decode step.
+11. profile-ssm  as 7, for a mamba2-1.3b decode step; then one 4 x 512
+            prefill dispatch under the profiler: host wall, device busy,
+            kernel count, the SSD kernels' device time and share.
 
 The last three lines: the card's name and power limit (nvidia-smi), the
 kernels' JSON record, and ``{"ok": true, "device": {...}}``.
@@ -476,9 +486,16 @@ def measure(paged_attention, paged_attention_ref, a, names):
 
 SSD_SWEEP = [(1, 128, 2, 64, 32, 64),       # tests/test_kernels.py:60-64
              (2, 256, 4, 64, 64, 128),
-             (1, 192, 2, 32, 16, 64)]
-SSD_MODEL = [(4, 512, 64, 64, 128, 256),    # mamba2-1.3b: two chunks
-             (4, 192, 64, 64, 128, 256)]    # Q = S = 192
+             (1, 192, 2, 32, 16, 64),
+             (1, 200, 3, 64, 128, 100)]     # tc: a ragged last tile, H odd
+# bf16 x/B/C, f32 dt, y f32 with the final state: the model path's call
+SSD_MODEL = [("S512", (4, 512, 64, 64, 128, 256)),     # mamba2-1.3b: 2 chunks
+             ("S192", (4, 192, 64, 64, 128, 256)),     # Q = S = 192
+             ("batch1", (1, 512, 64, 64, 128, 256)),   # two blocks a head
+             ("long4096", (1, 4096, 64, 64, 128, 256)),  # 16 chunks carried
+             ("zamba2", (4, 512, 112, 64, 64, 256))]   # zamba2-7b's width
+# kernel function names of each SSD route, as the profiler shows them
+SSD_KERNELS = {"tc": ("ssd_scan_tc_kernel",), "simt": ("ssd_scan_simt_kernel",)}
 
 
 def ssd_problem(seed, Bz, S, H, P, N, dtype, dt_dtype):
@@ -520,45 +537,99 @@ def ssd_bound(args, y, h, chunk):
                 mbytes=n_bytes / 1e6, gflop=flops / 1e9)
 
 
+def ssd_run(ssd_scan, args, chunk, out_dtype=None, route=None):
+    """One wrapper call; returns y, h and the route that launched."""
+    before = dict(ssd_scan.routes)
+    y, h = ssd_scan(*args, chunk=chunk, out_dtype=out_dtype,
+                    return_state=True, route=route)
+    torch.cuda.synchronize()
+    ran = [r for r, n in ssd_scan.routes.items() if n != before[r]]
+    check(len(ran) == 1, f"ssd_scan: one call moved the route counts {ran}")
+    return y, h, ran[0]
+
+
 def phase_ssd(ssd_scan, ssd_chunked_ref, card):
+    """The sweep in f32 on its planned route and in bf16 on every route that
+    takes the shape; a strong decay; then the model path's shapes on the
+    planned route (tc) beside the simt route forced through the wrapper,
+    each within 3e-4 and timed."""
+    from repro_torch.kernels.ssd_scan import ROUTES, _plan
     print("[kernels] ssd_scan against ssd_chunked_ref on the card")
-    cases = [(dtype, dtype, None, tol, shape)
-             for dtype, tol in ((torch.float32, 3e-4), (torch.bfloat16, 6e-2))
-             for shape in SSD_SWEEP]
-    cases += [(torch.bfloat16, torch.float32, torch.float32, 3e-4, shape)
-              for shape in SSD_MODEL]
+    ran = dict.fromkeys(ROUTES, 0)
+    for dtype, tol in ((torch.float32, 3e-4), (torch.bfloat16, 6e-2)):
+        for shape in SSD_SWEEP:
+            Bz, S, H, P, N, chunk = shape
+            args = ssd_problem(S, Bz, S, H, P, N, dtype, dtype)
+            plan = _plan((Bz, S, H, P, N, min(chunk, S), dtype), 132)
+            forced = [None] if dtype == torch.float32 else (
+                ["tc", "simt"] if plan.route == "tc" else ["simt"])
+            ry, rh = ssd_chunked_ref(*args, chunk)
+            for route in forced:
+                y, h, got = ssd_run(ssd_scan, args, chunk, route=route)
+                ran[got] += 1
+                ey, eh = rel_err(y, ry.to(y.dtype)), rel_err(h, rh)
+                check(ey < tol and eh < tol,
+                      f"ssd_scan {shape} {dtype} ({got}): rel err y "
+                      f"{ey:.3e} h {eh:.3e}")
+                print(f"[kernels]   {str(dtype)[6:]:8s} Bz={Bz} S={S} H={H} "
+                      f"P={P} N={N} chunk={chunk} route={got}: rel_err y "
+                      f"{ey:.3e} h {eh:.3e} (tol {tol:g}) ok")
+    # strong decay: dt x 10, exp(cum) underflows along the chunk
+    args = list(ssd_problem(11, 4, 512, 64, 64, 128, torch.bfloat16,
+                            torch.float32))
+    args[1] = args[1] * 10
+    y, h, got = ssd_run(ssd_scan, args, 256, out_dtype=torch.float32)
+    ry, rh = ssd_chunked_ref(*args, 256)
+    ey, eh = rel_err(y, ry), rel_err(h, rh)
+    check(got == "tc" and bool(torch.isfinite(y).all())
+          and bool(torch.isfinite(h).all()) and ey < 3e-4 and eh < 3e-4,
+          f"ssd_scan strong decay ({got}): rel err y {ey:.3e} h {eh:.3e}")
+    print(f"[kernels]   strong decay (dt x 10) Bz=4 S=512 H=64: route={got} "
+          f"rel_err y {ey:.3e} h {eh:.3e} (tol 3e-4), all finite: ok")
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rec = {}
-    for dtype, dt_dtype, out_dtype, tol, shape in cases:
+    for name, shape in SSD_MODEL:
         Bz, S, H, P, N, chunk = shape
-        args = ssd_problem(S, Bz, S, H, P, N, dtype, dt_dtype)
-        y, h = ssd_scan(*args, chunk=chunk, out_dtype=out_dtype,
-                        return_state=True)
-        torch.cuda.synchronize()
+        args = ssd_problem(S, Bz, S, H, P, N, torch.bfloat16, torch.float32)
+        plan = _plan((Bz, S, H, P, N, min(chunk, S), torch.bfloat16), n_sm)
         ry, rh = ssd_chunked_ref(*args, chunk)
-        ey, eh = rel_err(y, ry.to(y.dtype)), rel_err(h, rh)
-        check(ey < tol and eh < tol,
-              f"ssd_scan {shape} {dtype}: rel err y {ey:.3e} h {eh:.3e}")
-        b = ssd_bound(args, y, h, chunk)
-        def run():
-            return ssd_scan(*args, chunk=chunk, out_dtype=out_dtype,
-                            return_state=True)
-        ms = time_ms(run)
+        b = ssd_bound(args, ry, rh, chunk)
         plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk))
-        model = out_dtype is not None
-        dev = device_ms(run, ("ssd_scan_kernel",))[0] if model else None
-        print(f"[kernels]   {'model ' if model else ''}{str(dtype)[6:]:8s} "
-              f"Bz={Bz} S={S} H={H} P={P} N={N} chunk={chunk}: rel_err y "
-              f"{ey:.3e} h {eh:.3e} (tol {tol:g}) "
-              + (f"device={dev:.4f}ms " if model else "")
-              + f"call={ms:.4f}ms (wrapper + kernel) "
-              f"plain={plain_ms:.4f}ms bound={b['bound_ms']:.4f}ms "
-              f"({b['bound_by']}: {b['mbytes']:.1f} MB, {b['gflop']:.2f} "
-              f"GFLOP) ok")
-        if model:
-            rec[f"S{S}"] = dict(
-                ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=b["bound_ms"],
-                bound_by=b["bound_by"], rel_err_y=ey, rel_err_h=eh,
-                max_abs_err=(y.float() - ry).abs().max().item())
+        out = dict(plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                   bound_by=b["bound_by"], plan=dict(plan._asdict()))
+        for route in ("tc", "simt"):
+            y, h, got = ssd_run(ssd_scan, args, chunk, torch.float32,
+                                None if route == "tc" else route)
+            ran[got] += 1
+            check(got == route, f"ssd_scan {name}: planned {got}, not tc")
+            ey, eh = rel_err(y, ry), rel_err(h, rh)
+            check(ey < 3e-4 and eh < 3e-4,
+                  f"ssd_scan {name} ({route}): rel err y {ey:.3e} h "
+                  f"{eh:.3e}")
+
+            def run(route=route):
+                return ssd_scan(*args, chunk=chunk, out_dtype=torch.float32,
+                                return_state=True,
+                                route=None if route == "tc" else route)
+            ms = time_ms(run)
+            dev = device_ms(run, SSD_KERNELS[route])[0]
+            key = "" if route == "tc" else "simt_"
+            out.update({f"{key}ms": ms, f"{key}device_ms": dev,
+                        f"{key}rel_err_y": ey, f"{key}rel_err_h": eh,
+                        f"{key}max_abs_err": (y - ry).abs().max().item()})
+            print(f"[kernels]   model {name} Bz={Bz} S={S} H={H} P={P} N={N} "
+                  f"chunk={chunk} route={route}"
+                  + (f" (G={plan.G} R={plan.R}: {plan.blocks} blocks on "
+                     f"{n_sm} SMs)" if route == "tc" else "")
+                  + f": rel_err y {ey:.3e} h {eh:.3e} (tol 3e-4) "
+                  f"device={dev:.4f}ms call={ms:.4f}ms (wrapper + kernel) "
+                  f"plain={plain_ms:.4f}ms bound={b['bound_ms']:.4f}ms "
+                  f"({b['bound_by']}: {b['mbytes']:.1f} MB, {b['gflop']:.2f} "
+                  f"GFLOP; x{dev / b['bound_ms']:.1f}) ok")
+        rec[name] = out
+    print(f"[kernels] ssd_scan routes run: {json.dumps(ran)}")
+    check(all(ran.values()), f"an ssd_scan route never ran: {ran}")
     print(f"[kernels] ssd_scan times on {card}")
     return rec
 
@@ -816,6 +887,7 @@ def run_serve(cfg, params, waves, kernel_fn, **kw):
         for fn in counters:
             fn.launches = 0
         paged_attention.routes = dict.fromkeys(paged_attention.routes, 0)
+        ssd_scan.routes = dict.fromkeys(ssd_scan.routes, 0)
         eng = serve(cfg, params, waves, device=DEV, **kw)
         torch.cuda.synchronize()
         launches = kernel_fn.launches
@@ -1105,8 +1177,13 @@ def phase_serve_ssm(cfg, params, ssd_scan, card):
     check(launches > 0 and launches == layers * st["prefill_dispatches"],
           f"ssd_scan launches {launches} != {layers} x "
           f"{st['prefill_dispatches']}")
+    routes = dict(ssd_scan.routes)
+    print(f"[serve-ssm] ssd_scan launches by route {json.dumps(routes)}")
+    check(routes["tc"] == launches,
+          f"ssd_scan: {launches} launches, {routes['tc']} on the tc route")
     check(st["prefix_hits"] == 0, "an SSM config shared a prefix")
     out = serve_numbers(eng, wave, launches)
+    out["routes"] = routes
     print_serve("serve-ssm", wave, out, card)
     return out
 
@@ -1288,6 +1365,59 @@ def phase_profile(cfg, params, steps=3, S=128, tag="profile"):
                 paged_ms=paged_ms)
 
 
+def phase_profile_prefill(cfg, params, B=4, S=512, tag="profile-ssm"):
+    """Where one full-width prefill dispatch's time goes (B prompts of S
+    tokens, the engine's SSM prefill: every layer's scan through the SSD
+    kernel): ``torch.profiler`` over one dispatch after a warm-up one, each
+    into a fresh pool; host wall, device busy, kernel count, and the SSD
+    kernels' device time and share of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.lm import paged_cache_init, paged_prefill
+    tables = torch.full((B, 1), -1, dtype=torch.int32, device=DEV)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab, (B, S)).astype(np.int32)).to(DEV)
+    lens = torch.full((B,), S, dtype=torch.int32, device=DEV)
+
+    def dispatch(pool):
+        lg, _ = paged_prefill(params, pool, tables, toks, lens, cfg,
+                              slot_ids=list(range(B)), kernel="paged")
+        return torch.argmax(lg[:, 0], -1).cpu()  # the engine reads a token
+
+    dispatch(paged_cache_init(cfg, B, 1, 16, DEV))      # warm-up
+    pool = paged_cache_init(cfg, B, 1, 16, DEV)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dispatch(pool)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0 and e.device_type.name == "CUDA":
+            kern[e.key] = (dev_us / 1e3, e.count)
+    busy = sum(ms for ms, _ in kern.values())
+    n_kernels = sum(n for _, n in kern.values())
+    ssd = {n: v for n, v in kern.items() if "ssd_scan" in n}
+    ssd_ms = sum(ms for ms, _ in ssd.values())
+    ssd_n = sum(n for _, n in ssd.values())
+    print(f"[{tag}] {cfg.name} prefill dispatch at full width ({B} prompts "
+          f"of {S} tokens, kernel paged): host wall {wall * 1e3:.2f} ms, "
+          f"device busy {busy:.2f} ms ({busy / (wall * 1e3):.1%}), "
+          f"{n_kernels} kernels")
+    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[{tag}]   {ms:8.3f} ms {n:6d}x  {name[:90]}")
+    check(busy > 0 and ssd_n == cfg.n_layers,
+          f"prefill profile: busy {busy} ms, {ssd_n} SSD launches")
+    print(f"[{tag}] SSD-scan kernels: {ssd_ms:.3f} ms of device time in "
+          f"{ssd_n} launches, {ssd_ms / busy:.1%} of the dispatch's busy "
+          f"time")
+    return dict(wall_ms=wall * 1e3, busy_ms=busy, kernels=n_kernels,
+                ssd_ms=ssd_ms, ssd_launches=ssd_n, ssd_share=ssd_ms / busy)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1325,13 +1455,15 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f}s (set-up)")
     new_spills = {f: n for kname, parts in (
         ("flash_attention", ("flash_attention_bf16",)),
-        ("paged_attention", ("paged_split", "paged_combine", "paged_tile")))
+        ("paged_attention", ("paged_split", "paged_combine", "paged_tile")),
+        ("ssd_scan", ("ssd_scan_tc",)))
         for f, n in spills.get(kname, {}).items()
         if any(part in f for part in parts)}
     check(all(n == 0 for n in new_spills.values()),
           f"a tensor-core or split kernel spills: {new_spills}")
     for kname, part in (("flash_attention", "flash_attention_bf16"),
-                        ("paged_attention", "paged_tile_kernel")):
+                        ("paged_attention", "paged_tile_kernel"),
+                        ("ssd_scan", "ssd_scan_tc_kernel")):
         hgmma = sass_count(_build.library_path(kname), "HGMMA", part)
         if hgmma is None:
             print(f"[build]   {kname}: no cuobjdump on this machine: HGMMA "
@@ -1341,10 +1473,14 @@ def main() -> int:
               f"{kname}: a {part} instantiation has no HGMMA: {hgmma}")
         print(f"[build]   {kname}: HGMMA (wgmma) instructions in each "
               f"{part} instantiation: {sorted(hgmma.values())}")
-    smem = libs["ssd_scan"].ssd_scan_smem_bytes
-    smem.restype = ctypes.c_longlong
-    print(f"[build]   ssd_scan: dynamic shared memory {smem(128, 256):,} "
-          f"bytes a block at N=128, chunk 256 (of 232,448)")
+    smem = libs["ssd_scan"].ssd_scan_simt_smem_bytes
+    tc_smem = libs["ssd_scan"].ssd_scan_tc_smem_bytes
+    smem.restype = tc_smem.restype = ctypes.c_longlong
+    print(f"[build]   ssd_scan: dynamic shared memory a block (of 232,448): "
+          f"tc {tc_smem(2, 128, 256):,} bytes at G=2, N=128, chunk 256 "
+          f"({tc_smem(1, 128, 256):,} at G=1; {tc_smem(2, 64, 256):,} at "
+          f"N=64; {tc_smem(2, 128, 1024):,} at chunk 1,024); simt "
+          f"{smem(128, 256):,} bytes at N=128, chunk 256")
     split = libs["paged_attention"].paged_attention_split_smem_bytes
     tile = libs["paged_attention"].paged_attention_tile_smem_bytes
     split.restype = tile.restype = ctypes.c_longlong
@@ -1400,6 +1536,7 @@ def main() -> int:
     ssm = phase_serve_ssm(cfg, params, ssd_scan, card)
     ssm["lockstep"] = phase_lockstep_ssm(cfg, params)
     ssm["profile"] = phase_profile(cfg, params, S=512, tag="profile-ssm")
+    ssm["prefill_profile"] = phase_profile_prefill(cfg, params)
 
     dec = rec["decode"]
     keep = ("route", "ms", "device_ms", "device_parts", "plain_ms",
@@ -1425,14 +1562,15 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:63",
-        "launches": ssm["launches"],
-        **{k: rec_ssd["S512"][k] for k in ("max_abs_err", "ms", "device_ms",
-                                           "plain_ms", "bound_ms",
-                                           "bound_by")},
+        "launches": ssm["launches"], "routes": ssm["routes"],
+        **{k: rec_ssd["S512"][k] for k in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "simt_ms", "simt_device_ms", "plan")},
         "library_ms": None,
         "shape": "Bz=4 S=512 H=64 P=64 N=128 chunk 256, bf16 x/B/C, f32 "
-                 "dt, y f32 + final state",
-        "S192": rec_ssd["S192"],
+                 "dt, y f32 + final state; ms / device_ms on the tc route, "
+                 "simt_* the simt route forced through the wrapper",
+        "shapes": {n: r for n, r in rec_ssd.items() if n != "S512"},
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

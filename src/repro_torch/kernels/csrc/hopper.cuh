@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, paged_attention.cu): shared-memory addresses,
-// mbarriers, TMA and cp.async copies, wgmma descriptors and products, the
-// split of an f32 P into two bf16 terms, and TMA tensor maps (host).
+// (flash_attention.cu, paged_attention.cu, ssd_scan.cu): shared-memory
+// addresses, mbarriers, TMA and cp.async copies, wgmma descriptors and
+// products, the split of an f32 P into two bf16 terms, ldmatrix, and TMA
+// tensor maps (host).
 //
 // Tiles are 64 rows (one warpgroup's wgmma M) in boxes of 64 bf16 columns,
 // 128 bytes a row, with the 128-byte swizzle: chunk c (16 bytes) of row r
@@ -218,6 +219,18 @@ __device__ __forceinline__ void split(const float (&sc)[BK / 2],
       ph[kk][t] = bits(hi);
       pl[kk][t] = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
     }
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i .. 8i + 7
+// give the addresses of matrix i's eight 16-byte rows, and register i of lane
+// l holds elements (2*(l%4), l/4) and (2*(l%4) + 1, l/4) of matrix i -- row
+// l/4, columns 2*(l%4) and + 1 of its transpose, an mma A-fragment word.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 
 // 16 bytes from global to shared memory, bypassing L1; with src_bytes 0 the

@@ -1,20 +1,27 @@
 """Mamba2 SSD (state-space duality) chunked scan.
 
-``ssd_scan`` computes the chunked SSD scan inside a hand-written CUDA kernel
+``ssd_scan`` computes the chunked SSD scan inside hand-written CUDA kernels
 (``csrc/ssd_scan.cu``, the Hopper port of the reference's Pallas ``ssd_scan``
-kernel): one thread block per (batch row, head) walks the chunks in order
-and carries the (P x N) f32 state in shared memory, so the state never
-travels through device memory between chunks.
+kernel). A block walks the chunks of its batch row in order and carries
+the (P x N) f32 state on chip, so the state never travels through device
+memory between chunks. Two routes, chosen by ``_plan`` from shapes, dtype
+and the SM count alone (never from tensor contents, so no host sync):
+``tc`` (bf16 x/B/C, P = 64, N = 64 or 128: the products on the tensor
+cores, G heads a block sharing each C.B^T tile, R blocks splitting a
+chunk's query tiles) and ``simt`` (the first design, f32 products on the
+CUDA cores: f32 inputs and every other shape). A route is never a
+fallback: a failed launch raises.
 
 ``ssd_chunked_ref`` is the plain PyTorch version of the same function, line
 for line the reference's XLA path (``repro.models.ssm.ssd_chunked``); the
 wrapper takes it only for tensors on the CPU, and on a CUDA tensor launches
 the kernel or raises. ``ssd_ref`` is the sequential recurrence, the semantic
 ground truth (``repro.kernels.ref.ssd_ref``). ``ssd_scan.launches`` counts
-kernel launches.
+kernel launches, ``ssd_scan.routes`` the same launches by route.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -23,7 +30,9 @@ import torch
 from repro_torch.kernels import _build
 
 _FLOATS = (torch.float32, torch.bfloat16)
-MAX_P, MAX_N, MAX_Q = 64, 128, 1024        # what the kernel's tiles hold
+MAX_P, MAX_N, MAX_Q = 64, 128, 1024        # what the kernels' tiles hold
+ROUTES = ("tc", "simt")
+TC_P, TC_N = 64, (64, 128)                 # the shapes the tc route takes
 
 
 def ssd_chunked_ref(xh, dt, A, Bm, Cm, chunk: int):
@@ -120,17 +129,47 @@ def _check(x, dt, A, B, C, chunk):
                         f"{dt.dtype}, {A.dtype}")
 
 
+Plan = collections.namedtuple("Plan", "route G R blocks")
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(shape: tuple, n_sm: int) -> Plan:
+    """Route, heads a block (G), blocks a head group (R) and the block count
+    for ``shape`` = (Bz, S, H, P, N, Q, dtype) on a card of ``n_sm`` SMs:
+    shapes alone, worked out once a shape. The tc route takes two heads a
+    block where that still leaves about one block an SM (3/4 of the SMs or
+    more), and splits each chunk's query tiles over two blocks a head where
+    one block a head would leave more than half the card idle."""
+    Bz, S, H, P, N, Q, dtype = shape
+    if dtype != torch.bfloat16 or P != TC_P or N not in TC_N:
+        return Plan("simt", 1, 1, Bz * H)
+    G = 2 if H % 2 == 0 and 4 * (Bz * H // 2) >= 3 * n_sm else 1
+    blocks = Bz * H // G
+    R = 2 if -(-Q // 64) >= 2 and 2 * blocks <= n_sm + n_sm // 8 else 1
+    return Plan("tc", G, R, blocks * R)
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.load("ssd_scan").ssd_scan_launch
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(route: str):
+    lib = _build.load("ssd_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 7 + [i] * 6 + [i, i, p]
+    if route == "tc":
+        fn = lib.ssd_scan_tc_launch
+        fn.argtypes = [p] * 7 + [i] * 9 + [p]
+    else:
+        fn = lib.ssd_scan_simt_launch
+        fn.argtypes = [p] * 7 + [i] * 6 + [i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, out_dtype=None,
-             return_state: bool = False):
+             return_state: bool = False, route=None):
     """Mamba2 SSD chunked scan.
 
     x: (Bz,S,H,P), dt: (Bz,S,H), A: (H,) float32, B/C: (Bz,S,N) with
@@ -139,10 +178,14 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, out_dtype=None,
 
     Returns y (Bz,S,H,P) in ``out_dtype`` (default x.dtype) and, with
     ``return_state``, also the final state (Bz,H,P,N) in float32. CPU
-    tensors take ``ssd_chunked_ref``; CUDA tensors launch the kernel.
+    tensors take ``ssd_chunked_ref``; CUDA tensors launch the kernel of the
+    route ``_plan`` picks, or of ``route`` ("tc" or "simt") where the caller
+    forces one (raising if that route does not take the shape).
     """
     _check(x, dt, A, B, C, chunk)
     out_dtype = x.dtype if out_dtype is None else out_dtype
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"ssd_scan: route is one of {ROUTES}, not {route!r}")
     if x.device.type == "cpu":
         y, h = ssd_chunked_ref(x, dt, A, B, C, chunk)
         y = y.to(out_dtype)
@@ -157,22 +200,42 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, out_dtype=None,
     if P > MAX_P or N > MAX_N or Q > MAX_Q:
         raise ValueError(f"ssd_scan kernel takes P <= {MAX_P}, N <= {MAX_N} "
                          f"and chunks <= {MAX_Q}: P={P}, N={N}, Q={Q}")
+    n_sm = _n_sm(x.device.index if x.device.index is not None
+                 else torch.cuda.current_device())
+    plan = _plan((Bz, S, H, P, N, Q, x.dtype), n_sm)
+    if route == "simt" and plan.route != "simt":
+        plan = Plan("simt", 1, 1, Bz * H)
+    elif route == "tc" and plan.route != "tc":
+        raise ValueError(f"ssd_scan: the tc route takes bf16 x/B/C with "
+                         f"P = {TC_P} and N in {TC_N}, not {x.dtype}, P={P}, "
+                         f"N={N}")
     x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
     dt = dt.float().contiguous()
     A = A.contiguous()
+    if plan.route == "tc" and any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_scan (tc route) takes x, B and C that start on "
+                         "16-byte boundaries")
     y = torch.empty((Bz, S, H, P), dtype=out_dtype, device=x.device)
     h = (torch.empty((Bz, H, P, N), dtype=torch.float32, device=x.device)
          if return_state else None)
-    err = _launcher()(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), h.data_ptr() if h is not None else None,
-        Bz, S, H, P, N, Q, int(x.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), h.data_ptr() if h is not None else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    if plan.route == "tc":
+        err = _launcher("tc")(*ptrs, Bz, S, H, P, N, Q, plan.G, plan.R,
+                              out_bf16, stream)
+    else:
+        err = _launcher("simt")(*ptrs, Bz, S, H, P, N, Q,
+                                int(x.dtype == torch.bfloat16), out_bf16,
+                                stream)
     if err:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan kernel launch failed ({plan.route} "
+                           f"route): CUDA error {err}")
     ssd_scan.launches += 1
+    ssd_scan.routes[plan.route] += 1
     return (y, h) if return_state else y
 
 
 ssd_scan.launches = 0
+ssd_scan.routes = dict.fromkeys(ROUTES, 0)

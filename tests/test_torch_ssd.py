@@ -10,10 +10,20 @@ reference's own: relative error (max |a - b| / max |b|) 3e-4 in f32 and
 6e-2 in bf16 — the same math summed in another order, and in bf16 one
 rounding of y on each side.
 
-The ``cuda`` tests hold the CUDA kernel against the plain version on the
-card, at the sweep and at the model's own shapes (bf16 x/B/C, f32 dt, y in
-f32 with the final state). JAX is imported in fixtures, not at module
-level, so that the file also runs where JAX is absent:
+``_emulate_tc`` repeats the tensor-core route's rounding points in plain
+PyTorch (C.B^T exact; the scores, the weighted inputs x w of the state
+update and the carried state each as two bf16 terms; the state stored as
+three): it must hold the f32 contract, and each of three controls that
+round one of those operands once to bf16 must fail it. ``_plan`` is held by
+shape alone: the route, the heads a block (G), the blocks a head group (R)
+and the block count.
+
+The ``cuda`` tests hold the CUDA kernels against the plain version on the
+card: every route in bf16 over the sweep, f32 on the simt route, the
+model's own shapes (bf16 x/B/C, f32 dt, y in f32 with the final state) on
+the tc route at 3e-4, a batch-1 and a 4,096-token scan, and a strong decay
+(dt x 10). JAX is imported in fixtures, not at module level, so that the
+file also runs where JAX is absent:
 ``python -m pytest --noconftest -m cuda tests/test_torch_ssd.py``.
 """
 import numpy as np
@@ -21,7 +31,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_ref, ssd_scan
+from repro_torch.kernels.ssd_scan import (_plan, ssd_chunked_ref, ssd_ref,
+                                          ssd_scan)
 
 # one intra-op thread: the suite runs many test processes side by side
 torch.set_num_threads(1)
@@ -52,6 +63,23 @@ def _inputs(Bz, S, H, P, N, dtype, seed=0, dt_dtype=None):
     C = r.standard_normal((Bz, S, N), np.float32)
     return [np.asarray(jnp.asarray(a, t)) for a, t in
             ((x, jd), (dt, dd), (A, jnp.float32), (B, jd), (C, jd))]
+
+
+def _np_inputs(Bz, S, H, P, N, seed=0):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((Bz, S, H, P), np.float32),
+            np.logaddexp(r.standard_normal((Bz, S, H), np.float32), 0),
+            -np.exp(0.3 * r.standard_normal((H,), np.float32)),
+            r.standard_normal((Bz, S, N), np.float32),
+            r.standard_normal((Bz, S, N), np.float32))
+
+
+def _model_inputs(dev, Bz, S, H, P, N, seed=0, dtype=torch.bfloat16,
+                  dt_scale=1.0):
+    """The model path's types: x, B, C in ``dtype`` (bf16), dt and A f32."""
+    x, dt, A, B, C = (torch.from_numpy(a).to(dev)
+                      for a in _np_inputs(Bz, S, H, P, N, seed))
+    return x.to(dtype), dt * dt_scale, A, B.to(dtype), C.to(dtype)
 
 
 def _torch(arrays, device="cpu"):
@@ -154,6 +182,108 @@ def test_model_dtypes_on_cpu():
     assert torch.equal(y, y32) and torch.equal(h, h32)
 
 
+def test_route_must_be_known():
+    x, dt, A, B, C = _torch(_inputs(1, 64, 2, 16, 8, "f32"))
+    with pytest.raises(ValueError, match="route"):
+        ssd_scan(x, dt, A, B, C, chunk=32, route="wgmma")
+
+
+# ---------------------------------------------------------------------------
+# What the tc route computes, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _terms(t, two: bool):
+    hi = _bf(t)
+    return (hi, _bf(t - hi)) if two else (hi,)
+
+
+def _emulate_tc(x, dt, A, B, C, chunk, *, scores2=True, update2=True,
+                state2=True):
+    """The tc kernel's rounding points: C.B^T from bf16 operands with f32
+    sums (exact products); the scores C.B^T exp(cum_q - cum_p) dt_p, the
+    update's x_p w_p and the carried state each split into bf16 hi + lo
+    (``*2=False``: rounded once to bf16 instead); the state kept between
+    chunks as hi + lo + lo2. Returns y and the final state, f32."""
+    Bz, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S)
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    h = torch.zeros(Bz, H, P, N)
+    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    ys = []
+    for c0 in range(0, S, Q):
+        xc, Bc, Cc = xf[:, c0:c0 + Q], Bf[:, c0:c0 + Q], Cf[:, c0:c0 + Q]
+        dc = dt[:, c0:c0 + Q].float()
+        cum = torch.cumsum(dc * A, dim=1)                       # (Bz,Q,H)
+        CB = torch.einsum("bqn,bpn->bqp", Cc, Bc)
+        L = torch.where(causal[None, :, :, None],
+                        torch.exp(cum[:, :, None] - cum[:, None]), 0.0)
+        sc = CB[..., None] * L * dc[:, None]                    # (Bz,Qq,Qp,H)
+        y = sum(torch.einsum("bqph,bphv->bqhv", s, xc)
+                for s in _terms(sc, scores2))
+        y = y + torch.exp(cum)[..., None] * sum(
+            torch.einsum("bqn,bhvn->bqhv", Cc, t) for t in _terms(h, state2))
+        xw = xc * (torch.exp(cum[:, -1:] - cum) * dc)[..., None]
+        h = torch.exp(cum[:, -1])[..., None, None] * h + sum(
+            torch.einsum("bqhv,bqn->bhvn", t, Bc)
+            for t in _terms(xw, update2))
+        if c0 + Q < S:                                          # stored
+            hi = _bf(h)
+            lo = _bf(h - hi)
+            h = (hi + lo) + _bf(h - hi - lo)
+        ys.append(y)
+    return torch.cat(ys, 1), h
+
+
+@pytest.mark.parametrize("single", [None, "scores2", "update2", "state2"])
+def test_tc_rounding_emulation(single):
+    """At (1, 512, 16, 64, 128, 256), two chunks: the two-term operands hold
+    the f32 contract (3e-4) on y and h against ``ssd_chunked_ref``; rounding
+    any one of the three f32 operands once to bf16 breaks it (y errors
+    ~3e-3 / 8e-4 / 5e-4, and h ~2e-3 for the update)."""
+    args = _model_inputs("cpu", 1, 512, 16, 64, 128, seed=0)
+    ry, rh = ssd_chunked_ref(*args, 256)
+    y, h = _emulate_tc(*args, 256, **({single: False} if single else {}))
+    ey, eh = _rel(y, ry), _rel(h, rh)
+    if single is None:
+        assert ey < 3e-5 and eh < 3e-5, (ey, eh)
+    else:
+        assert max(ey, eh) > TOL["f32"], (single, ey, eh)
+
+
+# (Bz, S, H, P, N, chunk), dtype -> (route, G, R, blocks) on 132 SMs
+PLANS = [
+    ((4, 512, 64, 64, 128, 256), "bf16", ("tc", 2, 1, 128)),   # mamba2-1.3b
+    ((4, 192, 64, 64, 128, 256), "bf16", ("tc", 2, 1, 128)),   # Q = S = 192
+    ((1, 512, 64, 64, 128, 256), "bf16", ("tc", 1, 2, 128)),   # batch 1
+    ((1, 4096, 64, 64, 128, 256), "bf16", ("tc", 1, 2, 128)),
+    ((2, 512, 64, 64, 128, 256), "bf16", ("tc", 1, 1, 128)),
+    ((4, 512, 112, 64, 64, 256), "bf16", ("tc", 2, 1, 224)),   # zamba2-7b
+    ((1, 200, 3, 64, 128, 100), "bf16", ("tc", 1, 2, 6)),      # H odd
+    ((1, 40, 2, 64, 64, 256), "bf16", ("tc", 1, 1, 2)),        # one tile
+    ((2, 256, 4, 64, 64, 128), "bf16", ("tc", 1, 2, 16)),      # the sweep
+    ((4, 512, 64, 64, 128, 256), "f32", ("simt", 1, 1, 256)),  # f32
+    ((1, 128, 2, 64, 32, 64), "bf16", ("simt", 1, 1, 2)),      # N 32
+    ((1, 192, 2, 32, 16, 64), "bf16", ("simt", 1, 1, 2)),      # P 32, N 16
+    ((1, 192, 2, 32, 16, 192), "bf16", ("simt", 1, 1, 2)),     # Q 192
+]
+
+
+@pytest.mark.parametrize("shape,dtype,want", PLANS)
+def test_plan_goes_by_shapes_alone(shape, dtype, want):
+    """The plan reads shapes, dtype and the SM count, never a tensor: two
+    heads a block where that leaves about one block an SM, two blocks a
+    head where one would leave half the card idle."""
+    Bz, S, H, P, N, chunk = shape
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    plan = _plan((Bz, S, H, P, N, min(chunk, S), dt), 132)
+    assert tuple(plan) == want
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -166,21 +296,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _np_inputs(Bz, S, H, P, N, seed=0):
-    r = np.random.default_rng(seed)
-    return (r.standard_normal((Bz, S, H, P), np.float32),
-            np.logaddexp(r.standard_normal((Bz, S, H), np.float32), 0),
-            -np.exp(0.3 * r.standard_normal((H,), np.float32)),
-            r.standard_normal((Bz, S, N), np.float32),
-            r.standard_normal((Bz, S, N), np.float32))
+# the sweep's shapes and the edges each route masks itself (Q = S < 64, a
+# ragged last tile, an odd head count), with the routes that take each
+CUDA_SHAPES = SWEEP + [(1, 7, 2, 8, 4, 256),           # Q = S, ragged tile
+                       (1, 200, 3, 16, 24, 100),
+                       (1, 40, 2, 64, 64, 256),         # tc: one short tile
+                       (1, 200, 3, 64, 128, 100)]       # tc: ragged, H odd
+ROUTE_CASES = [(shape, route) for shape in CUDA_SHAPES
+               for route in ("tc", "simt")
+               if route == "simt" or _plan((*shape[:5], min(shape[5], shape[1]),
+                                            torch.bfloat16), 132).route == "tc"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("Bz,S,H,P,N,chunk",
-                         SWEEP + [(1, 7, 2, 8, 4, 256),   # Q = S, ragged tile
-                                  (1, 200, 3, 16, 24, 100)])
+@pytest.mark.parametrize("Bz,S,H,P,N,chunk", CUDA_SHAPES)
 def test_cuda_kernel_matches_plain(cuda_device, dtype, Bz, S, H, P, N,
                                    chunk):
     x, dt, A, B, C = (torch.from_numpy(a).to(cuda_device)
@@ -198,15 +329,60 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, Bz, S, H, P, N,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", ROUTE_CASES,
+                         ids=[f"{r}-{'x'.join(map(str, s))}"
+                              for s, r in ROUTE_CASES])
+def test_cuda_every_route_bf16(cuda_device, shape, route):
+    """Every route, forced through the wrapper, in bf16 over the sweep and
+    the edges (6e-2, y in bf16); the route's count moves by one."""
+    Bz, S, H, P, N, chunk = shape
+    args = _model_inputs(cuda_device, Bz, S, H, P, N, seed=5)
+    before = dict(ssd_scan.routes)
+    y, h = ssd_scan(*args, chunk=chunk, return_state=True, route=route)
+    torch.cuda.synchronize()
+    assert ssd_scan.routes[route] == before[route] + 1
+    ry, rh = ssd_chunked_ref(*args, chunk)
+    assert _rel(y.float().cpu(), ry.to(y.dtype).float().cpu()) < 6e-2
+    assert _rel(h.cpu(), rh.cpu()) < 6e-2
+
+
+def _model_check(dev, shape, seed, dt_scale=1.0):
+    """The model path's call on the tc route: y f32 and h within 3e-4 of
+    the plain version, all finite."""
+    Bz, S, H, P, N, chunk = shape
+    args = _model_inputs(dev, Bz, S, H, P, N, seed=seed, dt_scale=dt_scale)
+    tc = ssd_scan.routes["tc"]
+    y, h = ssd_scan(*args, chunk=chunk, out_dtype=torch.float32,
+                    return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.routes["tc"] == tc + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    ry, rh = ssd_chunked_ref(*args, chunk)
+    assert _rel(y.cpu(), ry.cpu()) < 3e-4 and _rel(h.cpu(), rh.cpu()) < 3e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S", [512, 192])
 def test_cuda_kernel_model_shapes(cuda_device, S):
     """mamba2-1.3b's scan: H=64, P=64, N=128, chunk 256, bf16 x/B/C, f32
-    dt, y in f32 plus the final state."""
-    x, dt, A, B, C = (torch.from_numpy(a).to(cuda_device)
-                      for a in _np_inputs(4, S, 64, 64, 128, seed=S))
-    x, B, C = (t.to(torch.bfloat16) for t in (x, B, C))
-    y, h = ssd_scan(x, dt, A, B, C, chunk=256, out_dtype=torch.float32,
-                    return_state=True)
-    torch.cuda.synchronize()
-    ry, rh = ssd_chunked_ref(x, dt, A, B, C, 256)
-    assert _rel(y.cpu(), ry.cpu()) < 3e-4 and _rel(h.cpu(), rh.cpu()) < 3e-4
+    dt, y in f32 plus the final state, on the tc route."""
+    _model_check(cuda_device, (4, S, 64, 64, 128, 256), seed=S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 512, 64, 64, 128, 256),
+                                   (1, 4096, 64, 64, 128, 256),
+                                   (4, 512, 112, 64, 64, 256)],
+                         ids=["batch1", "long4096", "zamba2"])
+def test_cuda_tc_batch1_long_and_zamba2(cuda_device, shape):
+    """Batch 1 (two blocks a head), 16 chunks carried, and zamba2-7b's
+    width (H 112, N 64), at the f32 contract."""
+    _model_check(cuda_device, shape, seed=7)
+
+
+@pytest.mark.cuda
+def test_cuda_tc_strong_decay(cuda_device):
+    """dt x 10: exp(cum) underflows along the chunk; no NaN or inf, and
+    the f32 contract holds."""
+    _model_check(cuda_device, (4, 512, 64, 64, 128, 256), seed=9,
+                 dt_scale=10.0)
