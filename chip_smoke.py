@@ -28,8 +28,16 @@ non-zero:
             (tile) shapes and a long-context decode (4 x 4,096 rows, 67 MB
             of K/V), each bf16 output held within one bf16 rounding of the
             f32 answer, with a control that must fail that limit (slot 0's
-            last live page dropped). ssd_scan: the reference sweep
-            (tests/test_kernels.py, and a ragged tc shape) in f32 on its
+            last live page dropped); then the full-width decode and prefill
+            shapes of the families served below (gemma2-27b past its 4,096
+            window with softcap 50, gemma3-12b's D = 256 and 1,024 window,
+            stablelm-12b's D = 160, olmoe-1b-7b's G = 1) in f32 and bf16,
+            each route printed, each bf16 output held within one bf16
+            rounding of the f32 answer against controls that must fail that
+            limit (a dropped page; the window removed on the windowed
+            shapes), and the bf16 call timed. ssd_scan: the
+            reference sweep (tests/test_kernels.py, and a ragged tc shape)
+            in f32 on its
             planned route (relative error 3e-4) and in bf16 on every route
             that takes the shape (6e-2), y and the final state, each case's
             route printed (tc and simt must both run); a strong decay (dt x
@@ -82,7 +90,10 @@ non-zero:
             stay 0.
 6. lockstep from one set of params, paged_prefill + 4 paged_decode_step
             with kernel "paged" and with kernel "gather" on two copies of a
-            fresh pool: greedy tokens agree up to the first near-tie.
+            fresh pool (4 prompts of 128 tokens; 32-entry tables, as
+            ``serve``'s at capacity 512, with 9 live pages and a dead tail,
+            in a 128-page pool): greedy tokens agree up to the first
+            near-tie.
 7. profile  torch.profiler over full-width decode steps: host wall time,
             device busy share, the kernels that take the time, the paged
             kernels' share.
@@ -116,9 +127,31 @@ non-zero:
 11. profile-ssm  as 7, for a mamba2-1.3b decode step; then one 4 x 512
             prefill dispatch under the profiler: host wall, device busy,
             kernel count, the SSD kernels' device time and share.
+12. serve-window  ``serve`` with gemma2-27b at its published width (46
+            layers, d_model 4608, 32/16 heads of 128, d_ff 36864, vocab
+            256000; 27.2 B parameters): 2 slots of 4,608 rows, kernel
+            "paged"; prompts of 4,200 and 4,150 tokens in one ragged
+            prefill dispatch, decode past the 4,096 window, then prompts of
+            1,000 and 700; 16 generated each. 46 paged launches a prefill
+            dispatch (tile) and a decode step (split). profile-window: as 7.
+13. lockstep-window  as 6 with gemma3-12b at its published width (48
+            layers, 16/8 heads of 256, 1,024 window) and ragged prompts of
+            1,300, 900 and 300 tokens in one batch padded past the window
+            (tables of the live pages alone): the shape of the
+            gather-prefill fault the port repaired.
+14. serve-int8  ``serve`` with zamba2-7b at its published width (81 Mamba2
+            layers + 27 applications of one shared attention block, int8
+            KV): prompts of 512, 512, 256 and 192 tokens; every SSD launch
+            on tc, no paged launch (quantized leaves take the gather
+            route), int8 pool leaves. profile-int8: as 7.
+15. serve-moe  as 5 with olmoe-1b-7b at its published width (16 layers,
+            16 heads of 128, 64 experts top-8), capacity 1,024: 16 paged
+            launches a dispatch, a prefix hit. profile-moe: as 7.
 
-The last three lines: the card's name and power limit (nvidia-smi), the
-kernels' JSON record, and ``{"ok": true, "device": {...}}``.
+Every model's weights are freed before the next one is drawn; the script's
+total time is printed. The last three lines: the card's name and power
+limit (nvidia-smi), the kernels' JSON record, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -183,27 +216,34 @@ def device_ms(fn, names, reps=30, warmup=3):
     self device time of every kernel whose name holds one of ``names``,
     summed over ``reps`` calls with the L2 flushed before each (the loop of
     ``time_ms``), divided by ``reps``. Returns the total and the time per
-    name."""
+    name. The profiler's device trace now and then comes back without a
+    kernel's records although the kernel ran; such a loop is profiled again,
+    up to three times in all, and printed."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    per = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        for n in names:
-            if n in e.key:
-                per[n] += us / reps / 1e3
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        per = dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            if e.device_type.name != "CUDA":
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            for n in names:
+                if n in e.key:
+                    per[n] += us / reps / 1e3
+        if all(v > 0 for v in per.values()):
+            break
+        print(f"[profile] attempt {attempt} of 3: the profiler saw no device "
+              f"time for {per}")
     check(all(v > 0 for v in per.values()),
           f"the profiler saw no device time for {per}")
     return sum(per.values()), per
@@ -407,23 +447,8 @@ def phase_kernels(paged_attention, paged_attention_ref, card):
         err = (out.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                    rtol=1e-2)
-        # one rounding of the f32 answer for these bf16 inputs, and a
-        # control that must fail it: slot 0's last live page dropped
-        f32 = {n: (x.float() if x is not None and x.is_floating_point()
-                   else x) for n, x in a.items()}
-        exact = call(paged_attention_ref, f32)
-        err_exact = (out.float() - exact).abs().max().item()
-        torch.testing.assert_close(out.float(), exact, atol=FLASH_ATOL,
-                                   rtol=FLASH_RTOL,
-                                   msg=lambda m: f"{shape}: {m}")
-        dropped = dict(f32, tables=f32["tables"].clone())
-        dropped["tables"][0, kw["filled"][0] - 1] = -1
-        ctl = call(paged_attention_ref, dropped)
-        n_off = int((~torch.isclose(out.float(), ctl, atol=FLASH_ATOL,
-                                    rtol=FLASH_RTOL)).sum())
-        check(n_off > 0, f"{shape}: the one-rounding limit passes a dropped "
-                         "page")
-        del f32, exact, dropped, ctl
+        err_exact, offs = one_rounding_gate(paged_attention_ref, a, out, shape)
+        n_off = offs["page dropped"]
         r = rec[shape] = dict(route=route, max_abs_err=err,
                               max_abs_err_f32=err_exact, control_off=n_off,
                               **measure(paged_attention, paged_attention_ref,
@@ -449,7 +474,38 @@ def phase_kernels(paged_attention, paged_attention_ref, card):
     return rec
 
 
-def measure(paged_attention, paged_attention_ref, a, names):
+def one_rounding_gate(paged_attention_ref, a, out, name, **kw):
+    """Hold a bf16 paged output within one bf16 rounding of the plain
+    version run in f32 on the same inputs, and show that this limit fails
+    each control: slot 0's last live page dropped and, on a windowed
+    problem, the window removed. Returns the error against the f32 answer
+    and each control's count of elements over the limit."""
+    f32 = {n: (x.float() if x is not None and x.is_floating_point() else x)
+           for n, x in a.items()}
+    exact = call(paged_attention_ref, f32, **kw)
+    err = (out.float() - exact).abs().max().item()
+    torch.testing.assert_close(out.float(), exact, atol=FLASH_ATOL,
+                               rtol=FLASH_RTOL, msg=lambda m: f"{name}: {m}")
+    dropped = dict(f32, tables=f32["tables"].clone())
+    dropped["tables"][0, int((f32["tables"][0] >= 0).sum()) - 1] = -1
+    controls = {"page dropped": (dropped, kw)}
+    if kw.get("window") is not None:
+        controls["window removed"] = (f32, {**kw, "window": None})
+    offs = {}
+    for what, (inp, ckw) in controls.items():
+        ctl = call(paged_attention_ref, inp, **ckw)
+        offs[what] = int((~torch.isclose(out.float(), ctl, atol=FLASH_ATOL,
+                                         rtol=FLASH_RTOL)).sum())
+        check(offs[what] > 0, f"{name}: the one-rounding limit passes a "
+                              f"control ({what})")
+        del ctl
+    return err, offs
+
+
+def measure(paged_attention, paged_attention_ref, a, names, **kw):
+    """Times of one paged call (device, call), its plain version and SDPA
+    on the gathered view, and the bound from the (query, key) pairs the
+    mask keeps (``window`` included; ``kw`` are the call's mask keywords)."""
     q, k, v, kpos, tables, q_pos = (a[n] for n in ("q", "k", "v", "kpos",
                                                    "tables", "q_pos"))
     B, S, H, D = q.shape
@@ -460,6 +516,8 @@ def measure(paged_attention, paged_attention_ref, a, names):
     kp = torch.where((tables >= 0).repeat_interleave(ps, 1),
                      kpos[cl].reshape(B, -1), -1)
     vis = (kp[:, None, :] >= 0) & (kp[:, None, :] <= q_pos[:, :, None])
+    if kw.get("window") is not None:
+        vis &= (q_pos[:, :, None] - kp[:, None, :]) < kw["window"]
     live_rows = int((tables >= 0).sum()) * ps
     pairs = int(vis.sum())                       # (query, key) pairs needed
     n_bytes = (live_rows * K * (D + Dv) * item + live_rows * 4
@@ -473,15 +531,105 @@ def measure(paged_attention, paged_attention_ref, a, names):
     qh = q.transpose(1, 2)
     mask = vis[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    dev, parts = device_ms(lambda: call(paged_attention, a), names)
+    dev, parts = device_ms(lambda: call(paged_attention, a, **kw), names)
     return dict(
-        ms=time_ms(lambda: call(paged_attention, a)),
+        ms=time_ms(lambda: call(paged_attention, a, **kw)),
         device_ms=dev, device_parts=parts,
-        plain_ms=time_ms(lambda: call(paged_attention_ref, a)),
+        plain_ms=time_ms(lambda: call(paged_attention_ref, a, **kw)),
         sdpa_ms=time_ms(lambda: sdpa(qh, kd, vd, attn_mask=mask)),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         mbytes=n_bytes / 1e6)
+
+
+# the paged shapes of the families served since (16-row pages, the batch of
+# each one's phase below): (name, problem keywords, mask keywords, the bf16
+# route). gemma2-27b: a decode at 4,223 / 4,207 past its 4,096 window and a
+# 256-row prefill at 3,968-4,223, softcap 50; gemma3-12b: D = 256, window
+# 1,024; stablelm-12b: D = 160, 2.5 boxes of 64 columns; olmoe-1b-7b: G = 1
+FAMILY_SHAPES = [
+    ("gemma2-27b decode", dict(B=2, S=1, H=32, K=16, Dk=128, Dv=128, P=528,
+                               npps=264, filled=[264, 263]),
+     dict(window=4096, softcap=50.0), "split"),
+    ("gemma2-27b prefill", dict(B=2, S=256, H=32, K=16, Dk=128, Dv=128,
+                                P=528, npps=264, filled=[264, 264],
+                                q_from_zero=True),
+     dict(window=4096, softcap=50.0), "tile"),
+    ("gemma3-12b decode", dict(B=3, S=1, H=16, K=8, Dk=256, Dv=256, P=282,
+                               npps=94, filled=[94, 90, 60]),
+     dict(window=1024), "split"),
+    ("gemma3-12b prefill", dict(B=3, S=128, H=16, K=8, Dk=256, Dv=256, P=282,
+                                npps=94, filled=[94, 94, 94],
+                                q_from_zero=True), dict(window=1024), "tile"),
+    ("stablelm-12b decode", dict(B=4, S=1, H=32, K=8, Dk=160, Dv=160, P=128,
+                                 npps=32, filled=[9] * 4), {}, "split"),
+    ("stablelm-12b prefill", dict(B=4, S=128, H=32, K=8, Dk=160, Dv=160,
+                                  P=128, npps=32, filled=[8] * 4,
+                                  q_from_zero=True), {}, "tile"),
+    ("olmoe-1b-7b decode", dict(B=4, S=1, H=16, K=16, Dk=128, Dv=128, P=128,
+                                npps=32, filled=[9] * 4), {}, "split"),
+    ("olmoe-1b-7b prefill", dict(B=4, S=128, H=16, K=16, Dk=128, Dv=128,
+                                 P=128, npps=32, filled=[8] * 4,
+                                 q_from_zero=True), {}, "tile"),
+]
+
+
+def phase_family_kernels(paged_attention, paged_attention_ref, card):
+    """The new families' full-width paged shapes against the plain version:
+    f32 (atol = rtol = 2e-5; decode on split, prefill on general) and bf16
+    (atol 2e-2, rtol 1e-2; on the route the serving phases take), each
+    route printed. The bf16 output is also held within one bf16 rounding
+    of the plain version's f32 answer, against controls that must fail
+    that limit (a dropped page; the window removed where there is one),
+    and timed beside its bound, the plain version and SDPA on the
+    gathered view."""
+    print("[kernels] paged_attention at the windowed, D = 160 and G = 1 "
+          "families' full-width shapes")
+    rec = {}
+    for name, shape, kw, want in FAMILY_SHAPES:
+        for dtype, atol, rtol in ((torch.float32, 2e-5, 2e-5),
+                                  (torch.bfloat16, 2e-2, 1e-2)):
+            a = problem(17, dtype, ps=16, **shape)
+            out, route = route_of(paged_attention,
+                                  lambda: call(paged_attention, a, **kw))
+            if dtype == torch.bfloat16:
+                check(route == want, f"{name}: route {route}, not {want}")
+            torch.cuda.synchronize()
+            ref = call(paged_attention_ref, a, **kw)
+            err = (out.float() - ref.float()).abs().max().item()
+            torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                       rtol=rtol,
+                                       msg=lambda m: f"{name} {dtype}: {m}")
+            print(f"[kernels]   {str(dtype)[6:]:8s} {name:22s} "
+                  f"route={route:7s} max_abs_err={err:.3e} ok")
+            if dtype == torch.float32:
+                del a, out, ref
+                continue
+            err_exact, offs = one_rounding_gate(paged_attention_ref, a, out,
+                                                name, **kw)
+            r = rec[name] = dict(route=route, max_abs_err=err,
+                                 max_abs_err_f32=err_exact, control_off=offs,
+                                 **measure(paged_attention,
+                                           paged_attention_ref, a,
+                                           PAGED_KERNELS[route], **kw))
+            del a, out, ref
+            torch.cuda.empty_cache()
+            ctl = ", ".join(f"{n}: {c}" for n, c in offs.items())
+            print(f"[kernels] {name}: B={shape['B']} S={shape['S']} "
+                  f"H={shape['H']} K={shape['K']} D={shape['Dk']} ps=16 "
+                  f"npps={shape['npps']} live pages/slot={shape['filled']} "
+                  f"{kw or 'causal'} bf16 route={route}: {err_exact:.3e} "
+                  f"against its f32 answer (limit {FLASH_ATOL:g} + "
+                  f"{FLASH_RTOL:g}|ref|: one bf16 rounding); controls over "
+                  f"the limit ({ctl}), fail as they must; device="
+                  f"{r['device_ms']:.4f}ms call={r['ms']:.4f}ms (wrapper + "
+                  f"kernel) plain={r['plain_ms']:.4f}ms bound="
+                  f"{r['bound_ms']:.4f}ms ({r['bound_by']}: "
+                  f"{r['mbytes']:.1f} MB) "
+                  f"x{r['device_ms'] / r['bound_ms']:.1f} sdpa_on_gathered_view={r['sdpa_ms']:.4f}ms (yardstick; "
+                  "no softcap there)")
+    print(f"[kernels] paged_attention family times on {card}")
+    return rec
 
 
 SSD_SWEEP = [(1, 128, 2, 64, 32, 64),       # tests/test_kernels.py:60-64
@@ -858,7 +1006,7 @@ def phase_flash(flash_attention, attention_ref, attention, counters, card):
 # Phases 5, 6, 9 and 10: serve at full width, then the lockstep checks
 # ---------------------------------------------------------------------------
 
-def run_serve(cfg, params, waves, kernel_fn, **kw):
+def run_serve(cfg, params, waves, kernel_fn, tag="serve", **kw):
     """The main path: ``serve`` over ``waves`` with every kernel's launch
     count set to 0 just before and read just after (``kernel_fn``'s is
     returned; the others must stay 0); every prefill and decode call of the
@@ -895,7 +1043,7 @@ def run_serve(cfg, params, waves, kernel_fn, **kw):
                   if fn is not kernel_fn}
     finally:
         engine_mod.paged_prefill, engine_mod.paged_decode_step = saved
-    print(f"[serve] {cfg.name}: launches of the other kernels "
+    print(f"[{tag}] {cfg.name}: launches of the other kernels "
           f"{json.dumps(others)}")
     check(not any(others.values()), f"other kernels launched: {others}")
     check(all(r.done and len(r.out) == r.max_new for w in waves for r in w),
@@ -933,7 +1081,8 @@ def greedy(logits):
     return (logits.argmax(-1).cpu().numpy(),
             (top2[..., 0] - top2[..., 1]).cpu().numpy())
 
-def phase_serve(cfg, params, paged_attention, card):
+def phase_serve(cfg, params, paged_attention, card, capacity=512,
+                tag="serve"):
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(0)
     system = rng.integers(1, cfg.vocab, 64)
@@ -944,12 +1093,25 @@ def phase_serve(cfg, params, paged_attention, card):
         + [Request(rid=5 + i, prompt=rng.integers(1, cfg.vocab, 128),
                    max_new=16) for i in range(4)])
     eng, launches = run_serve(cfg, params, [first, wave], paged_attention,
-                              slots=4, capacity=512, page_size=16,
-                              kernel="paged", prefix_sharing=True)
+                              tag=tag, slots=4, capacity=capacity,
+                              page_size=16, kernel="paged",
+                              prefix_sharing=True)
+    routes = check_paged_routes(eng, launches, paged_attention, cfg, tag)
+    check(eng.stats["prefix_hits"] > 0, "no prefix hit")
+    out = serve_numbers(eng, wave, launches)
+    out["routes"] = routes
+    print_serve(tag, wave, out, card)
+    return out
+
+
+def check_paged_routes(eng, launches, paged_attention, cfg, tag):
+    """Every attention layer launched the paged kernel once a prefill
+    dispatch and once a decode step: every decode step on the split route,
+    every prefill dispatch on tile. Returns the routes."""
     st = eng.stats
     dispatches = st["prefill_dispatches"] + st["steps"]
     layers = cfg.n_layers
-    print(f"[serve] paged_attention launches={launches} = {layers} layers x "
+    print(f"[{tag}] paged_attention launches={launches} = {layers} layers x "
           f"({st['prefill_dispatches']} prefill dispatches "
           f"[{st['prefix_hits']} warm] + {st['steps']} decode steps)")
     check(launches == layers * dispatches,
@@ -957,29 +1119,37 @@ def phase_serve(cfg, params, paged_attention, card):
     routes = dict(paged_attention.routes)
     want = {"split": layers * st["steps"],
             "tile": layers * st["prefill_dispatches"], "general": 0}
-    print(f"[serve] paged_attention routes {json.dumps(routes)}: every "
+    print(f"[{tag}] paged_attention routes {json.dumps(routes)}: every "
           f"decode step on split, every prefill dispatch on tile")
     check(routes == want, f"routes {routes}, expected {want}")
-    check(st["prefix_hits"] > 0, "no prefix hit")
-    out = serve_numbers(eng, wave, launches)
-    out["routes"] = routes
-    print_serve("serve", wave, out, card)
-    return out
+    return routes
 
 
-def phase_lockstep(cfg, params):
+def phase_lockstep(cfg, params, lens=(128,) * 4, npps=32, P=128,
+                   tag="lockstep"):
+    """From one set of params, ``paged_prefill`` of one batch of prompts
+    (``lens``, right-padded to a whole page) + 4 greedy decode steps with
+    kernel "paged" and with kernel "gather", each into a fresh pool over
+    permuted page tables: greedy tokens agree up to the first near-tie.
+    Each slot holds its prompt's pages and one for the decode rows at the
+    head of an ``npps``-entry table (a dead tail of -1 entries past them,
+    as ``[serve]``'s 32-entry tables at capacity 512) in a pool of ``P``
+    pages; ``npps`` / ``P`` None size both to the live pages alone."""
     from repro_torch.models.lm import (paged_cache_init, paged_decode_step,
                                        paged_prefill)
-    B, ps, npps, P, S, steps = 4, 16, 32, 128, 128, 4
+    ps, steps = 16, 4
+    B, S = len(lens), -(-max(lens) // ps) * ps
+    live = S // ps + 1                    # one page for the decode rows
+    npps, P = npps or live, P or B * live
     r = np.random.default_rng(1)
     perm = r.permutation(P)
     tables = np.full((B, npps), -1, np.int32)
     for b in range(B):
-        tables[b, :9] = perm[9 * b:9 * (b + 1)]
+        tables[b, :live] = perm[live * b:live * (b + 1)]
     tables = torch.from_numpy(tables).to(DEV)
     toks = torch.from_numpy(r.integers(1, cfg.vocab, (B, S)).astype(
         np.int32)).to(DEV)
-    lens = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    lens = torch.tensor(lens, dtype=torch.int32, device=DEV)
     runs = {}
     for kernel in ("gather", "paged"):
         pool = paged_cache_init(cfg, B, P, ps, DEV)
@@ -1004,9 +1174,11 @@ def phase_lockstep(cfg, params):
             check(gaps[diff[0], s] < ULP_TIE,
                   f"slot {s}: tokens diverge at step {diff[0]} with top-2 "
                   f"gap {gaps[diff[0], s]:.4f} >= {ULP_TIE}")
-    print(f"[lockstep] paged vs gather, prefill + {steps} decode steps over "
-          f"{B} slots: tokens equal at {int((a == b).sum())}/{a.size} "
-          "positions (first divergence only at a near-tie); ok")
+    print(f"[{tag}] {cfg.name}: paged vs gather, prefill of prompts "
+          f"{lens.tolist()} (padded to {S}) + {steps} decode steps: tokens "
+          f"equal at {int((a == b).sum())}/{a.size} positions (first "
+          "divergence only at a near-tie); ok")
+    return dict(tokens_equal=int((a == b).sum()), tokens=int(a.size))
 
 
 def count_calls(module, name, calls):
@@ -1185,6 +1357,79 @@ def phase_serve_ssm(cfg, params, ssd_scan, card):
     out = serve_numbers(eng, wave, launches)
     out["routes"] = routes
     print_serve("serve-ssm", wave, out, card)
+    return out
+
+
+def phase_serve_window(cfg, params, paged_attention, card):
+    """gemma2-27b at full width: 2 slots of 4,608 rows. A first wave of two
+    prompts of 4,200 and 4,150 tokens (one ragged prefill dispatch padded
+    to 4,608) whose decode runs past the 4,096 window, then a wave of 1,000
+    and 700; 16 generated each. The local layers' window and every layer's
+    softcap run inside the paged kernel."""
+    from repro_torch.core.telemetry import class_summary
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(7)
+    waves = [[Request(rid=rid, prompt=rng.integers(1, cfg.vocab, n),
+                      max_new=16) for rid, n in ids]
+             for ids in (((0, 4200), (1, 4150)), ((2, 1000), (3, 700)))]
+    eng, launches = run_serve(cfg, params, waves, paged_attention,
+                              tag="serve-window", slots=2, capacity=4608,
+                              page_size=16, kernel="paged")
+    routes = check_paged_routes(eng, launches, paged_attention, cfg,
+                                "serve-window")
+    window = max(b.attn.window or 0 for g in cfg.groups for b in g.pattern)
+    last = max(len(r.prompt) + len(r.out) - 2 for r in waves[0])
+    check(last >= window, f"decode stopped at {last}, inside the window")
+    out = serve_numbers(eng, waves[1], launches)
+    out.update(routes=routes, last_decode_position=last,
+               first_wave_ttft_p50_s=class_summary(
+                   eng.records[:2])["interactive"]["p50_ttft_s"])
+    print(f"[serve-window] first wave: TTFT p50 "
+          f"{out['first_wave_ttft_p50_s'] * 1e3:.1f} ms (one ragged prefill "
+          f"dispatch of 2 x 4,608 tokens); decode ran to position {last}, "
+          f"past the {window}-row window")
+    print_serve("serve-window", waves[1], out, card)
+    return out
+
+
+def phase_serve_int8(cfg, params, ssd_scan, card):
+    """zamba2-7b at full width with its int8 KV cache: 4 slots of 1,024
+    rows, prompts of 512, 512, 256 and 192 tokens, 16 generated each (an
+    SSM prompt past one 256-token chunk must fill whole chunks: the SSD
+    scan asserts it in both packages). Exact-length prefill groups; every
+    SSD-scan launch on tc; quantized
+    pool leaves take the gather route (the paged kernel does not
+    dequantize, as in the reference), so no paged launch."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(8)
+    wave = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n), max_new=16)
+            for i, n in enumerate((512, 512, 256, 192))]
+    eng, launches = run_serve(cfg, params, [wave], ssd_scan, tag="serve-int8",
+                              slots=4, capacity=1024, page_size=16,
+                              kernel="auto")
+    st = eng.stats
+    layers = sum(1 for g in cfg.groups for b in g.pattern
+                 if b.ssm is not None for _ in range(g.repeats))
+    print(f"[serve-int8] ssd_scan launches={launches} = {layers} Mamba2 "
+          f"layers x {st['prefill_dispatches']} prefill dispatches; "
+          f"kernel={eng.kernel}; paged_attention launches 0: the int8 pool "
+          "leaves take the gather route")
+    check(launches == layers * st["prefill_dispatches"],
+          f"ssd_scan launches {launches} != {layers} x "
+          f"{st['prefill_dispatches']}")
+    routes = dict(ssd_scan.routes)
+    check(routes["tc"] == launches, f"ssd_scan routes {routes}")
+    leaves = [btree["attn"] for gtree in eng.kv for btree in gtree.values()
+              if "attn" in btree]
+    check(leaves and all(l["k"].dtype == l["v"].dtype == torch.int8
+                         and l["k_scale"].dtype == torch.bfloat16
+                         for l in leaves), "the pool's k/v are not int8")
+    print(f"[serve-int8] pool leaves: k/v {leaves[0]['k'].dtype} "
+          f"{tuple(leaves[0]['k'].shape)}, scales {leaves[0]['k_scale'].dtype}"
+          f"; ssd_scan routes {json.dumps(routes)}")
+    out = serve_numbers(eng, wave, launches)
+    out["routes"] = routes
+    print_serve("serve-int8", wave, out, card)
     return out
 
 
@@ -1418,6 +1663,24 @@ def phase_profile_prefill(cfg, params, B=4, S=512, tag="profile-ssm"):
                 ssd_ms=ssd_ms, ssd_launches=ssd_n, ssd_share=ssd_ms / busy)
 
 
+def draw(cfg, init_params, tag):
+    """Random bf16 weights of ``cfg`` drawn on the card from seed 0, with a
+    line naming the model's width."""
+    t0 = time.perf_counter()
+    params = init_params(cfg, DEV, seed=0)
+    torch.cuda.synchronize()
+    b = next(b for g in cfg.groups for b in g.pattern if b.attn is not None)
+    ffn = (f"{b.moe.n_experts} experts top-{b.moe.top_k} of d_ff "
+           f"{b.moe.d_ff}" if b.moe is not None else f"d_ff {b.mlp.d_ff}")
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {b.attn.n_heads}/{b.attn.n_kv_heads} heads of "
+          f"{b.attn.head_dim}, {ffn}, vocab {cfg.vocab}"
+          + (", int8 KV" if b.attn.kv_quant else "")
+          + f"; {cfg.param_count() / 1e9:.2f} B params drawn on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return params
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1437,6 +1700,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_scan
     from repro_torch.launch.serve import init_params
 
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1489,6 +1753,13 @@ def main() -> int:
           f"{split(5, 16, 128, 128, 2, 2):,} bytes (decode, 2 entries a "
           f"split), tile {tile(128, 128, 32, 16):,} bytes (32 table "
           f"entries); the general kernel sizes its own per launch")
+    limit = libs["paged_attention"].paged_attention_max_smem_bytes
+    limit.restype = ctypes.c_longlong
+    print(f"[build]   paged_attention: tile blocks of the new families: "
+          f"{tile(128, 128, 288, 16):,} bytes at gemma2-27b's D=128 and 288 "
+          f"table entries, {tile(256, 256, 94, 16):,} at gemma3-12b's D=256 "
+          f"(94 entries), {tile(160, 160, 32, 16):,} at stablelm-12b's "
+          f"D=160; the limit {limit():,}")
     smem = libs["flash_attention"].flash_attention_smem_bytes
     smem.restype = ctypes.c_longlong
     print(f"[build]   flash_attention: dynamic shared memory "
@@ -1497,6 +1768,8 @@ def main() -> int:
           f"232,448)")
 
     rec = phase_kernels(paged_attention, paged_attention_ref, card)
+    rec_family = phase_family_kernels(paged_attention, paged_attention_ref,
+                                      card)
     rec_ssd = phase_ssd(ssd_scan, ssd_chunked_ref, card)
     # before any weights are on the card: the plain version's score tensors
     # take up to ~26 GB at the largest shapes
@@ -1505,18 +1778,9 @@ def main() -> int:
         (paged_attention, ssd_scan, flash_attention), card)
 
     cfg = get_config("qwen3-14b")
-    g = cfg.groups[0].pattern[0]
-    t0 = time.perf_counter()
-    params = init_params(cfg, DEV, seed=0)
-    torch.cuda.synchronize()
-    n_params = cfg.param_count()
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {g.attn.n_heads}/{g.attn.n_kv_heads} heads, "
-          f"head_dim {g.attn.head_dim}, d_ff {g.mlp.d_ff}, vocab {cfg.vocab}"
-          f"; {n_params / 1e9:.2f} B params drawn on the card in "
-          f"{time.perf_counter() - t0:.1f}s")
+    params = draw(cfg, init_params, "serve")
     srv = phase_serve(cfg, params, paged_attention, card)
-    phase_lockstep(cfg, params)
+    srv["lockstep"] = phase_lockstep(cfg, params)
     srv["profile"] = phase_profile(cfg, params)
     blocked = phase_blocked(cfg, params, card)
     del params
@@ -1537,7 +1801,39 @@ def main() -> int:
     ssm["lockstep"] = phase_lockstep_ssm(cfg, params)
     ssm["profile"] = phase_profile(cfg, params, S=512, tag="profile-ssm")
     ssm["prefill_profile"] = phase_profile_prefill(cfg, params)
+    del params
+    torch.cuda.empty_cache()
 
+    cfg = get_config("gemma2-27b")
+    params = draw(cfg, init_params, "serve-window")
+    win = phase_serve_window(cfg, params, paged_attention, card)
+    win["profile"] = phase_profile(cfg, params, tag="profile-window")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("gemma3-12b")
+    params = draw(cfg, init_params, "lockstep-window")
+    lock_win = phase_lockstep(cfg, params, lens=(1300, 900, 300),
+                              npps=None, P=None, tag="lockstep-window")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("zamba2-7b")
+    params = draw(cfg, init_params, "serve-int8")
+    int8 = phase_serve_int8(cfg, params, ssd_scan, card)
+    int8["profile"] = phase_profile(cfg, params, tag="profile-int8")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("olmoe-1b-7b")
+    params = draw(cfg, init_params, "serve-moe")
+    moe = phase_serve(cfg, params, paged_attention, card, capacity=1024,
+                      tag="serve-moe")
+    moe["profile"] = phase_profile(cfg, params, tag="profile-moe")
+    del params
+    torch.cuda.empty_cache()
+
+    paged_phases = {"serve": srv, "serve-window": win, "serve-moe": moe}
     dec = rec["decode"]
     keep = ("route", "ms", "device_ms", "device_parts", "plain_ms",
             "bound_ms", "bound_by", "sdpa_ms", "max_abs_err",
@@ -1546,8 +1842,12 @@ def main() -> int:
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:107",
-        "launches": srv["launches"], "routes": srv["routes"],
-        "max_abs_err": max(r["max_abs_err"] for r in rec.values()),
+        "launches": sum(r["launches"] for r in paged_phases.values()),
+        "launches_by_phase": {n: r["launches"]
+                              for n, r in paged_phases.items()},
+        "routes_by_phase": {n: r["routes"] for n, r in paged_phases.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in (*rec.values(),
+                                                      *rec_family.values())),
         "ms": dec["ms"], "device_ms": dec["device_ms"],
         "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -1558,11 +1858,17 @@ def main() -> int:
         "sdpa_dense_view_ms": dec["sdpa_ms"],
         **{shape: {k: rec[shape][k] for k in keep}
            for shape in ("prefill", "long_decode")},
+        "families": {n: {k: r[k] for k in keep if k in r}
+                     for n, r in rec_family.items()},
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:63",
-        "launches": ssm["launches"], "routes": ssm["routes"],
+        "launches": ssm["launches"] + int8["launches"],
+        "launches_by_phase": {"serve-ssm": ssm["launches"],
+                              "serve-int8": int8["launches"]},
+        "routes_by_phase": {"serve-ssm": ssm["routes"],
+                            "serve-int8": int8["routes"]},
         **{k: rec_ssd["S512"][k] for k in (
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "simt_ms", "simt_device_ms", "plan")},
@@ -1584,6 +1890,12 @@ def main() -> int:
     print(f"[serve] summary {json.dumps(srv)}")
     print(f"[serve-ssm] summary {json.dumps(ssm)}")
     print(f"[blocked] summary {json.dumps(blocked)}")
+    print(f"[serve-window] summary {json.dumps(win)}")
+    print(f"[lockstep-window] summary {json.dumps(lock_win)}")
+    print(f"[serve-int8] summary {json.dumps(int8)}")
+    print(f"[serve-moe] summary {json.dumps(moe)}")
+    print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f}s "
+          "(build included)")
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,13 @@ keys, or ``KV_BLOCK`` with ``prefer_blocked``). The hand-written kernel of
 the same algorithm is ``kernels.flash_attention``; as in the reference, no
 model calls it.
 
-Not ported yet: MLA, the int8 KV cache and cross-attention; each raises
+int8 KV caches (``spec.kv_quant``) hold per-(token, head) symmetric int8
+rows with bf16 scales (``k_scale`` / ``v_scale``), in rings and in pool
+leaves alike; quantized pool leaves always take the gather route (the
+paged kernel reads raw pool leaves and does not dequantize), as in the
+reference.
+
+Not ported yet: MLA and cross-attention; each raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -160,6 +166,38 @@ def gqa_init(gen, d_model: int, spec: AttentionSpec, cfg: ModelConfig,
     return p
 
 
+def _kv_quantize(x: torch.Tensor):
+    """Per-(token, head) symmetric int8. x: (B,S,K,D) -> (int8, scale bf16).
+    Op for op as the reference: the scale in f32, round half to even."""
+    xf = x.float()
+    scale = xf.abs().amax(-1) / 127.0 + 1e-8
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """A bf16 x bf16 product, as the reference's."""
+    return q.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+
+
+def _kv_entries(k: torch.Tensor, v: torch.Tensor, quant: bool) -> dict:
+    """The rows a cache stores for fresh k/v: as they are, or int8 with
+    their scales."""
+    if not quant:
+        return {"k": k, "v": v}
+    kq, ks = _kv_quantize(k)
+    vq, vs = _kv_quantize(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _kv_read(cache: dict):
+    """A cache's k and v in bf16: dequantized where the rows are int8."""
+    if "k_scale" not in cache:
+        return cache["k"], cache["v"]
+    return (_kv_dequantize(cache["k"], cache["k_scale"]),
+            _kv_dequantize(cache["v"], cache["v_scale"]))
+
+
 def _ring_update(cache: dict, new: dict, positions: torch.Tensor) -> dict:
     """Write new entries into ring slots pos % capacity, in place.
 
@@ -239,20 +277,24 @@ def _paged_leaf_gather(cache: dict):
 
 def _paged_gqa(cache: dict, q, k, v, spec: AttentionSpec, cfg: ModelConfig,
                positions: torch.Tensor) -> torch.Tensor:
-    """GQA over a paged leaf: write fresh rows, attend through the table."""
-    if "k_scale" in cache:
-        raise NotImplementedError("int8 KV pool leaves are not ported yet")
-    cache = _paged_leaf_update(cache, {"k": k, "v": v}, positions)
+    """GQA over a paged leaf: write fresh rows, attend through the table.
+
+    int8-quantized leaves always take the gather route (the kernel reads
+    raw pool leaves and does not dequantize), as the reference's do."""
+    quant = "k_scale" in cache
+    cache = _paged_leaf_update(cache, _kv_entries(k, v, quant), positions)
     scale = 1.0 / (spec.head_dim ** 0.5)
-    if cfg.paged_kernel == "paged":
+    if cfg.paged_kernel == "paged" and not quant:
         return paged_attention(
             q.contiguous(), cache["k"], cache["v"], cache["pos"],
             cache["table"], positions, scale=scale, causal=spec.causal,
             window=spec.window, softcap=spec.logit_softcap)
     dense, kpos = _paged_leaf_gather(cache)
-    return attn_core(q, dense["k"], dense["v"], positions, kpos, scale=scale,
+    kd, vd = _kv_read(dense)
+    return attn_core(q, kd, vd, positions, kpos, scale=scale,
                      causal=spec.causal, window=spec.window,
-                     cap=spec.logit_softcap, n_kv=dense["k"].shape[2])
+                     cap=spec.logit_softcap, n_kv=kd.shape[2])
+
 
 
 def gqa_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
@@ -282,12 +324,11 @@ def gqa_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
     else:
         k_pos = positions
         if cache is not None:
-            if "k_scale" in cache:
-                raise NotImplementedError("int8 KV caches are not ported yet")
-            cache = _ring_update(cache, {"k": k, "v": v}, positions)
+            cache = _ring_update(cache, _kv_entries(k, v, "k_scale" in cache),
+                                 positions)
             if S == 1:
                 # decode: attend the ring contents
-                k, v, k_pos = cache["k"], cache["v"], cache["pos"]
+                (k, v), k_pos = _kv_read(cache), cache["pos"]
             # prefill: attend the fresh full-sequence k/v — early queries
             # need history a windowed ring no longer holds
         out = attn_core(q, k, v, positions, k_pos, scale=1.0 / (Dh ** 0.5),
@@ -301,17 +342,19 @@ def gqa_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
 
 def gqa_cache_init(batch: int, capacity: int, spec: AttentionSpec,
                    device) -> dict:
-    if spec.kv_quant:
-        raise NotImplementedError("int8 KV caches are not ported yet")
     K, Dh = spec.n_kv_heads, spec.head_dim
     cap = capacity if spec.window is None else min(capacity, spec.window)
-    return {
-        "k": torch.zeros((batch, cap, K, Dh), dtype=torch.bfloat16,
-                         device=device),
-        "v": torch.zeros((batch, cap, K, Dh), dtype=torch.bfloat16,
-                         device=device),
+    kv_dt = torch.int8 if spec.kv_quant else torch.bfloat16
+    c = {
+        "k": torch.zeros((batch, cap, K, Dh), dtype=kv_dt, device=device),
+        "v": torch.zeros((batch, cap, K, Dh), dtype=kv_dt, device=device),
         "pos": torch.full((batch, cap), -1, dtype=torch.int32, device=device),
     }
+    if spec.kv_quant:
+        for n in ("k_scale", "v_scale"):
+            c[n] = torch.zeros((batch, cap, K), dtype=torch.bfloat16,
+                               device=device)
+    return c
 
 
 # ---------------------------------------------------------------------------

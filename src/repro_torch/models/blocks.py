@@ -8,7 +8,10 @@ Blocks marked ``shared`` keep one un-stacked parameter set reused by every
 repeat. Caches are updated in place (see ``models.attention`` and
 ``models.ssm``).
 
-Not ported yet: MoE and cross-attention blocks (they raise).
+``block_apply`` and ``group_apply`` return the MoE load-balance loss beside
+the hidden states, summed over layers as the reference's scan sums it.
+
+Not ported yet: cross-attention blocks (they raise).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.models.attention import (attn_apply, attn_cache_init,
                                           attn_init)
 from repro_torch.models.layers import norm_apply, norm_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.spec import BlockSpec, ModelConfig, ScanGroup
 from repro_torch.models.ssm import ssm_apply, ssm_cache_init, ssm_init
 
@@ -29,9 +33,8 @@ _PER_CALL = ("table", "live")
 
 
 def _ported(b: BlockSpec) -> None:
-    for name in ("moe", "cross_attn"):
-        if getattr(b, name) is not None:
-            raise NotImplementedError(f"{name} blocks are not ported yet")
+    if b.cross_attn is not None:
+        raise NotImplementedError("cross_attn blocks are not ported yet")
 
 
 def tree_map(fn, *trees):
@@ -71,15 +74,19 @@ def block_init(gen, cfg: ModelConfig, b: BlockSpec, device) -> dict:
         if b.post_norms:
             p["post_mlp"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias,
                                       dt, device)
+    if b.moe is not None:
+        p["norm_moe"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dt,
+                                  device)
+        p["moe"] = moe_init(gen, cfg.d_model, b.moe, cfg, device)
     return p
 
 
 def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
-                positions: torch.Tensor,
-                cache: Optional[dict] = None) -> torch.Tensor:
-    """Returns the block's output; the cache is updated in place. (The
-    reference's aux loss comes from MoE blocks, which are not ported.)"""
+                positions: torch.Tensor, cache: Optional[dict] = None):
+    """Returns (the block's output, its MoE aux loss: 0.0 without MoE);
+    the cache is updated in place."""
     _ported(b)
+    aux = 0.0
     nk, ne = cfg.norm, cfg.norm_eps
     c_attn = cache.get("attn") if cache else None
     c_ssm = cache.get("ssm") if cache else None
@@ -87,7 +94,7 @@ def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
     if b.parallel_residual:
         h = norm_apply(p["norm_attn"], x, nk, ne)
         a = attn_apply(p["attn"], h, b.attn, cfg, positions, cache=c_attn)
-        return x + a + mlp_apply(p["mlp"], h, b.mlp)
+        return x + a + mlp_apply(p["mlp"], h, b.mlp), aux
 
     if b.attn is not None:
         h = norm_apply(p["norm_attn"], x, nk, ne)
@@ -106,7 +113,12 @@ def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
         if b.post_norms:
             m = norm_apply(p["post_mlp"], m, nk, ne)
         x = x + m
-    return x
+
+    if b.moe is not None:
+        h = norm_apply(p["norm_moe"], x, nk, ne)
+        m, aux = moe_apply(p["moe"], h, b.moe)
+        x = x + m
+    return x, aux
 
 
 def block_cache_init(cfg: ModelConfig, b: BlockSpec, batch: int,
@@ -161,14 +173,16 @@ def _repeat(tree: dict, r: int) -> dict:
 
 
 def group_apply(gp: dict, x: torch.Tensor, g: ScanGroup, cfg: ModelConfig,
-                positions: torch.Tensor,
-                caches: Optional[dict] = None) -> torch.Tensor:
-    """Walk the pattern over repeats; the caches are updated in place."""
+                positions: torch.Tensor, caches: Optional[dict] = None):
+    """Walk the pattern over repeats; the caches are updated in place.
+    Returns (x, the summed MoE aux loss)."""
     shared = gp["shared"]
+    aux = 0.0
     for r in range(g.repeats):
         for i, b in enumerate(g.pattern):
             pi = shared[str(i)] if b.shared else _repeat(gp["stacked"][str(i)],
                                                           r)
             ci = _repeat(caches[str(i)], r) if caches is not None else None
-            x = block_apply(pi, x, b, cfg, positions, cache=ci)
-    return x
+            x, a = block_apply(pi, x, b, cfg, positions, cache=ci)
+            aux = aux + a
+    return x, aux

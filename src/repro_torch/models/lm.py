@@ -2,7 +2,7 @@
 
 Public surface (plain functions on tensors; ``gen`` is a torch.Generator):
   lm_init(gen, cfg, device)                          -> params
-  lm_hidden(params, inputs, cfg, caches=None)        -> hidden
+  lm_hidden(params, inputs, cfg, caches=None)        -> (hidden, aux)
   lm_logits(params, hidden, cfg)                     -> logits
   prefill_batched(params, inputs, cfg, lengths, ...) -> (last_logits, caches)
   decode_step(params, caches, tokens, pos, cfg)      -> (logits, caches)
@@ -44,7 +44,7 @@ from repro_torch.models.blocks import (group_apply, group_cache_init,
 from repro_torch.models.layers import (embed_init, embed_logits, embed_lookup,
                                        norm_apply, norm_init, normal_init,
                                        softcap)
-from repro_torch.models.spec import ModelConfig
+from repro_torch.models.spec import ModelConfig, ScanGroup
 from repro_torch.models.ssm import ssm_cache_init
 
 SlotIds = Union[Sequence[int], torch.Tensor]
@@ -94,14 +94,19 @@ def _embed_inputs(params, inputs, cfg):
 
 
 def lm_hidden(params: dict, inputs: dict, cfg: ModelConfig,
-              caches: Optional[list] = None) -> torch.Tensor:
-    """Final hidden states; caches are updated in place. (The reference
-    also returns its caches and the MoE aux loss; MoE is not ported.)"""
+              caches: Optional[list] = None):
+    """(final hidden states, the MoE load-balance loss summed over layers:
+    0.0 without MoE), as the reference's hidden and aux; caches are updated
+    in place. Serving ignores the aux."""
     x, positions = _embed_inputs(params, inputs, cfg)
+    aux = 0.0
     for gi, g in enumerate(cfg.groups):
         c = caches[gi] if caches is not None else None
-        x = group_apply(params["groups"][gi], x, g, cfg, positions, caches=c)
-    return norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+        x, a = group_apply(params["groups"][gi], x, g, cfg, positions,
+                           caches=c)
+        aux = aux + a
+    h = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return h, aux
 
 
 def lm_logits(params: dict, hidden: torch.Tensor,
@@ -127,8 +132,8 @@ def cache_init(cfg: ModelConfig, batch: int, capacity: int, device) -> list:
 def decode_step(params: dict, caches: list, tokens: torch.Tensor,
                 pos: torch.Tensor, cfg: ModelConfig):
     """tokens: (B,1) int32, pos: (B,1) absolute position. One new token."""
-    h = lm_hidden(params, {"tokens": tokens, "positions": pos}, cfg,
-                  caches=caches)
+    h, _ = lm_hidden(params, {"tokens": tokens, "positions": pos}, cfg,
+                     caches=caches)
     return lm_logits(params, h, cfg), caches
 
 
@@ -166,6 +171,15 @@ def _zip_attn_subs(pool: list, dense: list, attn_fn, ssm_fn) -> list:
     return out
 
 
+def _unwindowed(g: ScanGroup) -> ScanGroup:
+    """``g`` with every attention spec's window dropped: for sizing caches
+    only (windows are enforced by the pos mask, not by ring truncation)."""
+    return dataclasses.replace(g, pattern=tuple(
+        dataclasses.replace(b, attn=dataclasses.replace(b.attn, window=None))
+        if b.attn is not None and b.attn.window is not None else b
+        for b in g.pattern))
+
+
 def prefill_batched(params: dict, inputs: dict, cfg: ModelConfig,
                     lengths: torch.Tensor, capacity: Optional[int] = None):
     """Multi-slot prefill of right-padded prompts in ONE forward.
@@ -175,7 +189,15 @@ def prefill_batched(params: dict, inputs: dict, cfg: ModelConfig,
     columns never influence real tokens. Returns (per-row last-REAL-token
     logits (B, 1, V), caches with every pad entry neutralized — ``pos``
     forced to -1 — so a later decode can never attend padding). Every row
-    starts from fresh zero SSM state.
+    starts from fresh zero SSM state. (MoE layers excepted from the
+    causality argument: pad rows take expert queue places, as in the
+    reference.)
+
+    Windowed layers get rings of the full ``capacity`` rows too (the mask
+    keeps the window): a ring of ``window`` rows would let the pad rows of
+    a shorter prompt in a batch padded past the window push that prompt's
+    own earliest real rows out before they are read back — a loss the
+    reference's ``prefill_batched`` still has.
 
     Only valid for attention-cached models: SSM/conv state is a recurrence
     over ALL processed tokens, pads included, so callers batching prompts
@@ -185,8 +207,9 @@ def prefill_batched(params: dict, inputs: dict, cfg: ModelConfig,
     capacity = max(capacity or S, S)
     caches = []
     for gi, g in enumerate(cfg.groups):
-        c = group_cache_init(cfg, g, B, capacity, x.device)
-        x = group_apply(params["groups"][gi], x, g, cfg, positions, caches=c)
+        c = group_cache_init(cfg, _unwindowed(g), B, capacity, x.device)
+        x, _ = group_apply(params["groups"][gi], x, g, cfg, positions,
+                           caches=c)
         caches.append(c)
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     idx = (lengths.long() - 1).clamp(0, S - 1)
@@ -221,12 +244,11 @@ def paged_cache_init(cfg: ModelConfig, slots: int, n_pages: int,
     caches = []
     for g in cfg.groups:
         per_block = {}
-        for i, b in enumerate(g.pattern):
+        for i, b in enumerate(_unwindowed(g).pattern):
             c: dict = {}
             if b.attn is not None:
-                spec = (b.attn if b.attn.window is None
-                        else dataclasses.replace(b.attn, window=None))
-                c["attn"] = attn_cache_init(n_pages, page_size, spec, device)
+                c["attn"] = attn_cache_init(n_pages, page_size, b.attn,
+                                            device)
             if b.ssm is not None:
                 c["ssm"] = ssm_cache_init(slots, cfg.d_model, b.ssm, device)
             per_block[str(i)] = c
@@ -440,8 +462,8 @@ def paged_prefill(params: dict, pool: list, tables: torch.Tensor,
     positions = torch.where(cols < lengths.to(torch.int32)[:, None],
                             st[:, None] + cols, -1)     # pad rows never write
     view = _paged_view(pool, tables, fresh_ssm=B)
-    h = lm_hidden(params, {"tokens": tokens, "positions": positions},
-                  cfg.replace(paged_kernel=kernel), caches=view)
+    h, _ = lm_hidden(params, {"tokens": tokens, "positions": positions},
+                     cfg.replace(paged_kernel=kernel), caches=view)
     idx = (lengths.long() - 1).clamp(0, S - 1)
     last = h[torch.arange(B, device=dev), idx][:, None]
     _zip_attn_subs(pool, view, lambda p, v: p,
@@ -471,9 +493,9 @@ def paged_decode_step(params: dict, pool: list, tables: torch.Tensor,
         dense = paged_gather(pool, tables)
         logits, dense = decode_step(params, dense, tokens, pos, cfg)
         return logits, paged_scatter(pool, dense, tables, pos, live=live)
-    h = lm_hidden(params, {"tokens": tokens, "positions": pos},
-                  cfg.replace(paged_kernel=kernel),
-                  caches=_paged_view(pool, tables, live=live))
+    h, _ = lm_hidden(params, {"tokens": tokens, "positions": pos},
+                     cfg.replace(paged_kernel=kernel),
+                     caches=_paged_view(pool, tables, live=live))
     return lm_logits(params, h, cfg), pool
 
 

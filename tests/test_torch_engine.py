@@ -3,7 +3,9 @@
 * The trace of ``tests/test_paged_attention.py::
   test_engine_tokens_identical_dense_gather_pallas`` through the port's
   ``PagedServeEngine`` (kernel "gather" and "paged") and the reference's
-  paged engine with ``kernel="gather"``. Contract: token streams are equal
+  paged engine with ``kernel="gather"``, on qwen3-14b-smoke and on
+  gemma2-27b-smoke (windows and softcaps; the prompts stay under the smoke
+  window of 64, since the reference's gather prefill loses rows past it). Contract: token streams are equal
   until the first near-tie — where they first differ, the port's own
   full-forward logits at that point must have a top-2 gap below the
   reference's ``_ULP_TIE`` (the two packages round bf16 activations at
@@ -39,12 +41,21 @@ torch.set_num_threads(1)
 KERNELS = ["gather", "paged"]
 
 
+_LOADED = {}
+
+
+def _load(arch):
+    if arch not in _LOADED:
+        jcfg = jget(arch, smoke=True)
+        jp = jlm_init(jax.random.PRNGKey(0), jcfg)
+        _LOADED[arch] = (jcfg, jp, get_config(arch, smoke=True),
+                         params_from_jax(jax.tree.map(np.asarray, jp)))
+    return _LOADED[arch]
+
+
 @pytest.fixture(scope="module")
 def qwen():
-    jcfg = jget("qwen3-14b", smoke=True)
-    jp = jlm_init(jax.random.PRNGKey(0), jcfg)
-    return (jcfg, jp, get_config("qwen3-14b", smoke=True),
-            params_from_jax(jax.tree.map(np.asarray, jp)))
+    return _load("qwen3-14b")
 
 
 def _engine(cfg, params, kernel, **kw):
@@ -54,7 +65,7 @@ def _engine(cfg, params, kernel, **kw):
 def _gap_at(cfg, params, tokens) -> float:
     """Top-2 logit gap of the port's full forward after ``tokens``."""
     toks = torch.as_tensor(np.asarray(tokens, np.int32))[None]
-    h = lm_hidden(params, {"tokens": toks}, cfg)
+    h, _ = lm_hidden(params, {"tokens": toks}, cfg)
     top2 = torch.topk(lm_logits(params, h[:, -1:], cfg).float()[0, 0], 2)[0]
     return float(top2[0] - top2[1])
 
@@ -75,19 +86,26 @@ def _trace(cls, vocab):
             for i in range(3)]
 
 
-@pytest.fixture(scope="module")
-def reference_trace(qwen):
-    jcfg, jp, _, _ = qwen
-    t = _trace(JRequest, jcfg.vocab)
-    JEngine(jcfg, jp, slots=2, page_size=4, pages_per_slot=4,
-            kernel="gather").run(t, max_steps=500)
-    assert all(r.done for r in t)
-    return [r.prompt for r in t], [r.out for r in t]
+_TRACES = {}
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
-def test_engine_trace_matches_reference(qwen, reference_trace, kernel):
-    _, _, cfg, params = qwen
+def _reference_trace(arch):
+    if arch not in _TRACES:
+        jcfg, jp, _, _ = _load(arch)
+        t = _trace(JRequest, jcfg.vocab)
+        JEngine(jcfg, jp, slots=2, page_size=4, pages_per_slot=4,
+                kernel="gather").run(t, max_steps=500)
+        assert all(r.done for r in t)
+        _TRACES[arch] = [r.prompt for r in t], [r.out for r in t]
+    return _TRACES[arch]
+
+
+# qwen3-14b's cases keep their ids from before gemma2-27b's
+@pytest.mark.parametrize("arch,kernel", [
+    pytest.param("qwen3-14b", k, id=k) for k in KERNELS] + [
+    pytest.param("gemma2-27b", k, id=f"gemma2-27b-{k}") for k in KERNELS])
+def test_engine_trace_matches_reference(arch, kernel):
+    _, _, cfg, params = _load(arch)
     t = _trace(Request, cfg.vocab)
     launches = paged_attention.launches
     eng = _engine(cfg, params, kernel, slots=2, page_size=4,
@@ -96,7 +114,7 @@ def test_engine_trace_matches_reference(qwen, reference_trace, kernel):
     assert all(r.done for r in t)
     assert paged_attention.launches == launches       # CPU: plain version
     assert eng.stats["compile_sources"]["step"] == "eager"
-    prompts, ref_outs = reference_trace
+    prompts, ref_outs = _reference_trace(arch)
     _assert_match_modulo_ties(cfg, params, prompts, ref_outs,
                               [r.out for r in t])
 

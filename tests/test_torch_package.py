@@ -34,7 +34,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 BUILDABLE = ("qwen3-14b", "gemma2-27b", "gemma3-12b", "stablelm-12b",
-             "mamba2-1.3b", "zamba2-7b")
+             "mamba2-1.3b", "zamba2-7b", "olmoe-1b-7b")
 
 
 def _fields(cfg):
@@ -134,6 +134,29 @@ def test_ssm_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch,
     eng = serve(cfg, params, [reqs], device="cpu", slots=2, capacity=32)
     assert eng.device.type == "cpu" and not eng._prefix_ok
     assert all(r.done and len(r.out) == 3 for r in reqs)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma2-27b"])
+def test_moe_and_windowed_entry_points_need_the_card_unless_asked_for_cpu(
+        monkeypatch, arch):
+    """MoE (olmoe) and windowed (gemma2) configs follow the same rule, and
+    their engine serves on the CPU when asked (smoke width; gemma2's
+    prompts pass its smoke window of 64)."""
+    from repro_torch.launch.serve import init_params, serve
+    from repro_torch.serve.engine import PagedServeEngine, Request
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.get_config(arch, smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, None)
+    params = init_params(cfg, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedServeEngine(cfg, params, slots=2)
+    reqs = [Request(rid=i, prompt=np.arange(1, 60 + 9 * i), max_new=3)
+            for i in range(3)]
+    eng = serve(cfg, params, [reqs], device="cpu", slots=2, capacity=96)
+    assert eng.device.type == "cpu" and eng.kernel == "gather"
+    assert all(r.done and len(r.out) == 3 for r in reqs)
+    eng.pool.check()
 
 
 def test_serve_entry_point_waves_share_prefixes(capsys):

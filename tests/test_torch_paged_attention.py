@@ -339,6 +339,9 @@ TILE_SHAPES = [
     ("prefill_long_keys", dict(B=1, S=64, H=4, K=4, Dk=64, Dv=64, P=40,
                                ps=16, npps=40, filled=[40],
                                q_from_zero=True), {}),
+    # stablelm-12b's head dim: 2.5 boxes of 64 columns
+    ("prefill_d160", dict(B=2, S=32, H=8, K=2, Dk=160, Dv=160, P=24, ps=16,
+                          npps=12, filled=[6, 12], q_from_zero=True), {}),
 ]
 
 
@@ -556,6 +559,13 @@ ROUTE_SHAPES = [
     ("tile_d112_ps8", dict(B=2, S=48, H=8, K=2, Dk=112, Dv=112, P=40, ps=8,
                            npps=19, filled=[9, 19], q_from_zero=True),
      "tile"),
+    # stablelm-12b's D = 160 (2.5 boxes) on both routes, and olmoe's G = 1
+    ("tile_d160", dict(B=2, S=64, H=8, K=2, Dk=160, Dv=160, P=24, ps=16,
+                       npps=12, filled=[6, 12], q_from_zero=True), "tile"),
+    ("split_d160", dict(B=4, S=1, H=32, K=8, Dk=160, Dv=160, P=40, ps=16,
+                        npps=10, filled=[9, 10, 3, 7]), "split"),
+    ("tile_g1", dict(B=2, S=64, H=4, K=4, Dk=128, Dv=128, P=24, ps=16,
+                     npps=12, filled=[5, 12], q_from_zero=True), "tile"),
 ]
 
 
