@@ -35,7 +35,15 @@ non-zero:
             each route printed, each bf16 output held within one bf16
             rounding of the f32 answer against controls that must fail that
             limit (a dropped page; the window removed on the windowed
-            shapes), and the bf16 call timed. ssd_scan: the
+            shapes), and the bf16 call timed; then deepseek-v2's absorbed
+            MLA shapes (H 128 over one latent head, Dk 512 + Dk2 64, Dv
+            512; decode over 9 pages, a 128-row prefill over 8, a decode
+            over 256), every call on the general route, f32 within 2e-5,
+            bf16 within one bf16 rounding of the f32 answer against two
+            controls that must fail it (the q2.k2 term dropped; the
+            kernel's default scale 1/sqrt(576) for MLA's 1/sqrt(192)),
+            timed beside SDPA on the gathered view with the backend that
+            took it. ssd_scan: the
             reference sweep (tests/test_kernels.py, and a ragged tc shape)
             in f32 on its
             planned route (relative error 3e-4) and in bf16 on every route
@@ -147,6 +155,23 @@ non-zero:
 15. serve-moe  as 5 with olmoe-1b-7b at its published width (16 layers,
             16 heads of 128, 64 experts top-8), capacity 1,024: 16 paged
             launches a dispatch, a prefix hit. profile-moe: as 7.
+16. serve-mla  as 5 with deepseek-v2-236b at its published width (d_model
+            5120, MLA with 128 heads, q_lora 1536, kv_lora 512, rope 64; 160
+            experts of 1,536 top-6 and 2 shared; vocab 102,400), depth cut
+            to the dense first layer and 4 of the 59 MoE layers (34.5 GB):
+            5 paged launches a prefill dispatch and a decode step, all on
+            the general route (the absorbed form, q2/k2).
+17. lockstep-mla  as 6 with that model.
+18. profile-mla  as 7, with the MoE layers' device time a step beside the
+            least time that reading every expert's weights takes.
+19. encdec  whisper-base at full width and depth (6 + 6 layers): 4 x 1,500
+            seeded stub frames through encoder_apply, prefill of a 64-token
+            prompt, 16 decode steps, held against the full forward (rel <
+            0.05); no kernel of the port runs there, as in the reference.
+20. vlm     internvl2-76b at full width, depth cut to 16 of 80 layers: 2 x
+            (256 seeded patch embeddings + 128 tokens) through prefill into
+            int8 KV rings, 8 decode steps at positions offset by the
+            embeddings, held against the full forward (rel < 0.05).
 
 Every model's weights are freed before the next one is drawn; the script's
 total time is printed. The last three lines: the card's name and power
@@ -156,6 +181,7 @@ limit (nvidia-smi), the kernels' JSON record, and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -165,6 +191,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -632,6 +659,158 @@ def phase_family_kernels(paged_attention, paged_attention_ref, card):
     return rec
 
 
+# deepseek-v2's absorbed MLA at full head counts: 4 slots, 128 query heads
+# over one latent head, q.ckv (Dk 512) + q_rope.kr (Dk2 64), values the
+# same ckv pool (Dv 512), 16-row pages; R = S * 128 >= 64 rows and q2/k2
+# leave split and tile out, so every shape takes the general route
+MLA_SCALE = 1.0 / math.sqrt(128 + 64)           # 1/sqrt(dn + dr)
+MLA_SHAPES = [
+    ("decode", dict(S=1, filled=[9] * 4, P=128, npps=32)),
+    ("prefill", dict(S=128, filled=[8] * 4, P=128, npps=32,
+                     q_from_zero=True)),
+    ("long_decode", dict(S=1, filled=[256] * 4, P=1024, npps=256)),
+]
+
+
+def mla_problem(dtype, **kw):
+    """A paged MLA problem: k = v = one ckv pool tensor, k2 the rope keys."""
+    a = problem(23, dtype, B=4, H=128, K=1, Dk=512, Dv=512, ps=16,
+                q2dim=64, **kw)
+    a["v"] = a["k"]
+    return a
+
+
+def sdpa_backend_ms(q, k, v, mask):
+    """SDPA on a gathered view: the first backend of flash, efficient,
+    cuDNN and math that takes the inputs, and its call time."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            # a refusing backend warns why before it raises
+            with warnings.catch_warnings(), sdpa_kernel([be]):
+                warnings.simplefilter("ignore", UserWarning)
+                sdpa(q, k, v, attn_mask=mask, scale=MLA_SCALE)
+                torch.cuda.synchronize()
+                return be.name.lower(), time_ms(
+                    lambda: sdpa(q, k, v, attn_mask=mask, scale=MLA_SCALE))
+        except RuntimeError:
+            continue
+    return None, None
+
+
+def mla_measure(paged_attention, paged_attention_ref, a):
+    """Times of one MLA paged call (device, call), its plain version and
+    SDPA on the gathered view (q and k as [q_abs | q_rope] and [ckv | kr],
+    576 columns, v the 512 ckv columns), and the bound: the live ckv and kr
+    rows read once (k = v is one tensor), kpos, tables, q, q2, q_pos and
+    the output, against 2 * pairs * H * (Dk + Dk2 + Dv) flops."""
+    q, q2, k, k2, kpos, tables, q_pos = (a[n] for n in (
+        "q", "q2", "k", "k2", "kpos", "tables", "q_pos"))
+    B, S, H, Dk = q.shape
+    Dk2, ps, item = q2.shape[-1], k.shape[1], q.element_size()
+    cl = tables.clamp(min=0).long()
+    kp = torch.where((tables >= 0).repeat_interleave(ps, 1),
+                     kpos[cl].reshape(B, -1), -1)
+    vis = (kp[:, None, :] >= 0) & (kp[:, None, :] <= q_pos[:, :, None])
+    live_rows = int((tables >= 0).sum()) * ps
+    pairs = int(vis.sum())
+    n_bytes = (live_rows * ((Dk + Dk2) * item + 4) + tables.numel() * 4
+               + (q.numel() + q2.numel()) * item + q_pos.numel() * 4
+               + B * S * H * Dk * item)
+    flops = 2 * pairs * H * (Dk + Dk2 + Dk)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    kd = torch.cat([k[cl], k2[cl]], dim=-1).reshape(B, -1, Dk + Dk2)
+    qh = torch.cat([q, q2], dim=-1).transpose(1, 2)         # (B, H, S, 576)
+    kh = kd[:, None].expand(B, H, *kd.shape[1:])
+    vh = kd[:, None, :, :Dk].expand(B, H, kd.shape[1], Dk)
+    backend, sdpa_ms = sdpa_backend_ms(qh, kh, vh, vis[:, None])
+    dev, parts = device_ms(lambda: call(paged_attention, a, scale=MLA_SCALE),
+                           PAGED_KERNELS["general"])
+    return dict(
+        ms=time_ms(lambda: call(paged_attention, a, scale=MLA_SCALE)),
+        device_ms=dev, device_parts=parts,
+        plain_ms=time_ms(lambda: call(paged_attention_ref, a,
+                                      scale=MLA_SCALE), reps=10),
+        sdpa_ms=sdpa_ms, sdpa_backend=backend,
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        mbytes=n_bytes / 1e6)
+
+
+def phase_mla_kernels(paged_attention, paged_attention_ref, card):
+    """deepseek-v2's paged shapes (``MLA_SHAPES``) against the plain
+    version: f32 within 2e-5; bf16 within one bf16 rounding of the f32
+    answer, where two controls must fail that limit: the q2.k2 term dropped
+    and the kernel's default scale 1/sqrt(Dk + Dk2) = 1/sqrt(576). Every
+    call on the general route; the bf16 call timed."""
+    print("[kernels] paged_attention at deepseek-v2's absorbed MLA shapes "
+          "(H 128, K 1, Dk 512 + Dk2 64, Dv 512, 16-row pages)")
+    rec = {}
+    for name, kw in MLA_SHAPES:
+        a = mla_problem(torch.float32, **kw)
+        out, route = route_of(paged_attention, lambda: call(
+            paged_attention, a, scale=MLA_SCALE))
+        check(route == "general", f"mla {name} f32: route {route}")
+        torch.cuda.synchronize()
+        ref = call(paged_attention_ref, a, scale=MLA_SCALE)
+        err32 = (out - ref).abs().max().item()
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5,
+                                   msg=lambda m: f"mla {name} f32: {m}")
+        del a, out, ref
+        b = mla_problem(torch.bfloat16, **kw)
+        out, route = route_of(paged_attention, lambda: call(
+            paged_attention, b, scale=MLA_SCALE))
+        check(route == "general", f"mla {name} bf16: route {route}")
+        torch.cuda.synchronize()
+        # the exact answer for the bf16 inputs: the plain version in f32
+        f32 = {n: (x.float() if x is not None and x.is_floating_point()
+                   else x) for n, x in b.items()}
+        exact = call(paged_attention_ref, f32, scale=MLA_SCALE)
+        err = (out.float() - exact).abs().max().item()
+        torch.testing.assert_close(out.float(), exact, atol=FLASH_ATOL,
+                                   rtol=FLASH_RTOL,
+                                   msg=lambda m: f"mla {name} bf16: {m}")
+        controls = {
+            "q2.k2 dropped": call(paged_attention_ref,
+                                  dict(f32, q2=None, k2=None),
+                                  scale=MLA_SCALE),
+            "scale 1/sqrt(576)": call(paged_attention_ref, f32)}
+        offs = {}
+        for what, ctl in controls.items():
+            offs[what] = int((~torch.isclose(out.float(), ctl,
+                                             atol=FLASH_ATOL,
+                                             rtol=FLASH_RTOL)).sum())
+            check(offs[what] > 0, f"mla {name}: the one-rounding limit "
+                                  f"passes a control ({what})")
+        del controls, f32, exact, out
+        torch.cuda.empty_cache()
+        r = rec[name] = dict(route=route, max_abs_err=err32,
+                             max_abs_err_f32=err, control_off=offs,
+                             **mla_measure(paged_attention,
+                                           paged_attention_ref, b))
+        del b
+        torch.cuda.empty_cache()
+        ctl = ", ".join(f"{n}: {c}" for n, c in offs.items())
+        sdpa = (f"{r['sdpa_ms']:.4f}ms ({r['sdpa_backend']})"
+                if r["sdpa_ms"] is not None else "null (refused)")
+        print(f"[kernels] mla {name}: B=4 S={kw['S']} H=128 K=1 Dk=512+64 "
+              f"Dv=512 ps=16 npps={kw['npps']} live pages/slot="
+              f"{kw['filled'][0]} route={route}: f32 max_abs_err="
+              f"{err32:.3e} against the plain version; bf16 {err:.3e} "
+              f"against its f32 answer (limit {FLASH_ATOL:g} + "
+              f"{FLASH_RTOL:g}|ref|: one bf16 rounding); controls over the "
+              f"limit ({ctl}), fail as they must; device="
+              f"{r['device_ms']:.4f}ms call={r['ms']:.4f}ms (wrapper + "
+              f"kernel) plain={r['plain_ms']:.4f}ms bound="
+              f"{r['bound_ms']:.4f}ms ({r['bound_by']}: {r['mbytes']:.1f} "
+              f"MB) x{r['device_ms'] / r['bound_ms']:.1f} "
+              f"sdpa_on_gathered_view={sdpa} (yardstick only)")
+    print(f"[kernels] paged_attention MLA times on {card}")
+    return rec
+
+
 SSD_SWEEP = [(1, 128, 2, 64, 32, 64),       # tests/test_kernels.py:60-64
              (2, 256, 4, 64, 64, 128),
              (1, 192, 2, 32, 16, 64),
@@ -1082,7 +1261,7 @@ def greedy(logits):
             (top2[..., 0] - top2[..., 1]).cpu().numpy())
 
 def phase_serve(cfg, params, paged_attention, card, capacity=512,
-                tag="serve"):
+                tag="serve", routes=("split", "tile")):
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(0)
     system = rng.integers(1, cfg.vocab, 64)
@@ -1096,7 +1275,8 @@ def phase_serve(cfg, params, paged_attention, card, capacity=512,
                               tag=tag, slots=4, capacity=capacity,
                               page_size=16, kernel="paged",
                               prefix_sharing=True)
-    routes = check_paged_routes(eng, launches, paged_attention, cfg, tag)
+    routes = check_paged_routes(eng, launches, paged_attention, cfg, tag,
+                                *routes)
     check(eng.stats["prefix_hits"] > 0, "no prefix hit")
     out = serve_numbers(eng, wave, launches)
     out["routes"] = routes
@@ -1104,10 +1284,11 @@ def phase_serve(cfg, params, paged_attention, card, capacity=512,
     return out
 
 
-def check_paged_routes(eng, launches, paged_attention, cfg, tag):
+def check_paged_routes(eng, launches, paged_attention, cfg, tag,
+                       decode="split", prefill="tile"):
     """Every attention layer launched the paged kernel once a prefill
-    dispatch and once a decode step: every decode step on the split route,
-    every prefill dispatch on tile. Returns the routes."""
+    dispatch and once a decode step: every decode step on the ``decode``
+    route, every prefill dispatch on ``prefill``. Returns the routes."""
     st = eng.stats
     dispatches = st["prefill_dispatches"] + st["steps"]
     layers = cfg.n_layers
@@ -1117,10 +1298,11 @@ def check_paged_routes(eng, launches, paged_attention, cfg, tag):
     check(launches == layers * dispatches,
           f"launches {launches} != {layers} x {dispatches}")
     routes = dict(paged_attention.routes)
-    want = {"split": layers * st["steps"],
-            "tile": layers * st["prefill_dispatches"], "general": 0}
+    want = dict.fromkeys(routes, 0)
+    want[decode] += layers * st["steps"]
+    want[prefill] += layers * st["prefill_dispatches"]
     print(f"[{tag}] paged_attention routes {json.dumps(routes)}: every "
-          f"decode step on split, every prefill dispatch on tile")
+          f"decode step on {decode}, every prefill dispatch on {prefill}")
     check(routes == want, f"routes {routes}, expected {want}")
     return routes
 
@@ -1549,11 +1731,50 @@ def phase_lockstep_ssm(cfg, params, B=4, S=512, steps=4):
     return out
 
 
-def phase_profile(cfg, params, steps=3, S=128, tag="profile"):
+def moe_weight_bytes(params) -> int:
+    """Bytes of every MoE layer's weights (router, experts, shared)."""
+    total = 0
+
+    def walk(tree, inside):
+        nonlocal total
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, inside or k == "moe")
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v, inside)
+        elif inside:
+            total += tree.numel() * tree.element_size()
+
+    walk(params, False)
+    return total
+
+
+def phase_profile(cfg, params, steps=3, S=128, tag="profile", moe=False):
     """Where a full-width decode step's time goes: ``torch.profiler`` over
     ``steps`` steps of 4 slots after an S-token prefill and a warm-up step
     (attention: 9 live pages a slot); device busy share = summed kernel
-    time / host wall time."""
+    time / host wall time. With ``moe``, every ``moe_apply`` call runs in a
+    ``record_function`` range, and the kernels launched inside it are
+    summed: the MoE layers' device time a step, beside the least time that
+    reading every expert's weights takes (the dense dispatch does)."""
+    from torch.profiler import record_function
+    from repro_torch.models import blocks
+    saved = blocks.moe_apply
+
+    def annotated(*args, **kw):
+        with record_function("moe_apply"):
+            return saved(*args, **kw)
+
+    if moe:
+        blocks.moe_apply = annotated
+    try:
+        return _profile_steps(cfg, params, steps, S, tag, moe)
+    finally:
+        blocks.moe_apply = saved
+
+
+def _profile_steps(cfg, params, steps, S, tag, moe):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.lm import (paged_cache_init, paged_decode_step,
                                        paged_prefill)
@@ -1587,8 +1808,13 @@ def phase_profile(cfg, params, steps=3, S=128, tag="profile"):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps
-    kern = {}
+    kern, moe_ms = {}, 0.0
     for e in prof.key_averages():
+        if e.key == "moe_apply":             # the range, not a kernel
+            if e.device_type.name == "CPU":
+                moe_ms = getattr(e, "device_time_total", getattr(
+                    e, "cuda_time_total", 0)) / steps / 1e3
+            continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
         if dev_us > 0 and e.device_type.name == "CUDA":
@@ -1606,8 +1832,20 @@ def phase_profile(cfg, params, steps=3, S=128, tag="profile"):
     print(f"[{tag}] paged-attention kernels: {paged_ms:.3f} ms of device "
           f"time a step in {sum(n for _, n in paged.values()):.0f} launches")
     check(busy > 0, "the profiler saw no device time")
-    return dict(wall_ms=wall * 1e3, busy_ms=busy, kernels=n_kernels,
-                paged_ms=paged_ms)
+    out = dict(wall_ms=wall * 1e3, busy_ms=busy, kernels=n_kernels,
+               paged_ms=paged_ms)
+    if moe:
+        floor = moe_weight_bytes(params) / HBM_BYTES_PER_S * 1e3
+        print(f"[{tag}] MoE layers (router, dense one-hot dispatch, every "
+              f"expert's products): {moe_ms:.3f} ms of device time a step "
+              f"({moe_ms / busy:.1%} of busy"
+              + ("; not measured: the profiler attributed no kernel to the "
+                 "range" if moe_ms == 0 else "")
+              + f"); reading every expert's weights once "
+              f"({moe_weight_bytes(params) / 1e9:.2f} GB) takes at least "
+              f"{floor:.3f} ms at 3.35 TB/s")
+        out.update(moe_ms=moe_ms, moe_weight_floor_ms=floor)
+    return out
 
 
 def phase_profile_prefill(cfg, params, B=4, S=512, tag="profile-ssm"):
@@ -1663,22 +1901,148 @@ def phase_profile_prefill(cfg, params, B=4, S=512, tag="profile-ssm"):
                 ssd_ms=ssd_ms, ssd_launches=ssd_n, ssd_share=ssd_ms / busy)
 
 
-def draw(cfg, init_params, tag):
+def draw(cfg, init_params, tag, note=""):
     """Random bf16 weights of ``cfg`` drawn on the card from seed 0, with a
-    line naming the model's width."""
+    line naming the model's width (and ``note``: a cut in depth)."""
     t0 = time.perf_counter()
     params = init_params(cfg, DEV, seed=0)
     torch.cuda.synchronize()
     b = next(b for g in cfg.groups for b in g.pattern if b.attn is not None)
-    ffn = (f"{b.moe.n_experts} experts top-{b.moe.top_k} of d_ff "
-           f"{b.moe.d_ff}" if b.moe is not None else f"d_ff {b.mlp.d_ff}")
-    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {b.attn.n_heads}/{b.attn.n_kv_heads} heads of "
-          f"{b.attn.head_dim}, {ffn}, vocab {cfg.vocab}"
-          + (", int8 KV" if b.attn.kv_quant else "")
+    a = b.attn
+    moe = next((b.moe for g in cfg.groups for b in g.pattern
+                if b.moe is not None), None)
+    ffn = (f"{moe.n_experts} experts top-{moe.top_k} of d_ff {moe.d_ff}"
+           + (f", {moe.n_shared} shared" if moe.n_shared else "")
+           if moe is not None else f"d_ff {b.mlp.d_ff}")
+    heads = (f"MLA {a.n_heads} heads, q_lora {a.q_lora_rank}, kv_lora "
+             f"{a.kv_lora_rank}, rope {a.qk_rope_head_dim}"
+             if a.kind == "mla" else
+             f"{a.n_heads}/{a.n_kv_heads} heads of {a.head_dim}")
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers{note}, d_model "
+          f"{cfg.d_model}, {heads}, {ffn}, vocab {cfg.vocab}"
+          + (", int8 KV" if a.kv_quant else "")
           + f"; {cfg.param_count() / 1e9:.2f} B params drawn on the card in "
           f"{time.perf_counter() - t0:.1f}s")
     return params
+
+
+def cut_depth(cfg, repeats):
+    """``cfg`` with its last scan group cut to ``repeats`` repeats (the
+    widths and every other group as published)."""
+    *head, last = cfg.groups
+    return cfg.replace(groups=(*head, dataclasses.replace(
+        last, repeats=repeats)))
+
+
+def decode_vs_full(params, cfg, inputs, prompt, steps, enc_out=None,
+                   off=0):
+    """``prefill`` of the first ``prompt`` tokens (after ``off`` patch
+    embeddings), then the next ``steps`` tokens through ``decode_step``
+    one at a time, against the full forward over all of them
+    (tests/test_consistency.py): (relative error, times in s of the
+    prefill and of all decode steps, the decode logits, the caches)."""
+    from repro_torch.models.lm import (decode_step, lm_hidden, lm_logits,
+                                       prefill)
+    toks = inputs["tokens"]
+    B = toks.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = prefill(params, dict(inputs, tokens=toks[:, :prompt]), cfg,
+                         enc_out=enc_out, capacity=off + prompt + steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = [lg]
+    for i in range(prompt, prompt + steps):
+        lg, caches = decode_step(params, caches, toks[:, i:i + 1],
+                                 torch.full((B, 1), off + i,
+                                            dtype=torch.int32, device=DEV),
+                                 cfg, enc_out=enc_out)
+        outs.append(lg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    h, _ = lm_hidden(params, inputs, cfg, enc_out=enc_out)
+    full = lm_logits(params, h[:, off + prompt - 1:off + prompt + steps - 1],
+                     cfg).float()
+    dec = torch.cat(outs[:-1], dim=1).float()
+    check(bool(torch.isfinite(dec).all()), "non-finite decode logits")
+    err = float((dec - full).abs().max() / (full.abs().max() + 1e-9))
+    return err, t1 - t0, t2 - t1, caches
+
+
+def phase_encdec(cfg, params, card, counters, B=4, prompt=64, steps=16):
+    """whisper-base at full width and depth: 4 x 1,500 seeded stub frames
+    through ``encoder_apply``, ``prefill`` of a 64-token prompt over its
+    output, 16 ``decode_step``s, each step's logits against the full
+    forward's (relative error < 0.05, tests/test_consistency.py:80). The
+    path runs no kernel of the port (``attn_core``, as the reference);
+    every count is set to 0 before and must stay 0. A first pass warms
+    cuBLAS; the second is timed."""
+    from repro_torch.models.lm import encoder_apply
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    frames = (0.02 * torch.randn((B, cfg.encoder.seq_len, cfg.d_model),
+                                 generator=gen, device=DEV)).to(
+        torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (B, prompt + steps), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    for fn in counters:
+        fn.launches = 0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encoder_apply(params, frames, cfg)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        err, t_pre, t_dec, _ = decode_vs_full(params, cfg, {"tokens": toks},
+                                              prompt, steps, enc_out=enc)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(not any(launches.values()), f"kernels launched: {launches}")
+    check(err < 0.05, f"whisper decode/full mismatch rel={err:.3e}")
+    print(f"[encdec] {cfg.name}: encoder over {B} x {cfg.encoder.seq_len} "
+          f"frames {t_enc * 1e3:.2f} ms, prefill of {B} x {prompt} tokens "
+          f"{t_pre * 1e3:.2f} ms, {steps} decode steps "
+          f"{t_dec / steps * 1e3:.2f} ms a step; decode logits against the "
+          f"full forward rel={err:.3e} (< 0.05); kernel launches "
+          f"{json.dumps(launches)}: no kernel of the port runs on this path "
+          f"(attention by attn_core, as in the reference); on {card}")
+    return dict(encoder_ms=t_enc * 1e3, prefill_ms=t_pre * 1e3,
+                decode_ms_per_step=t_dec / steps * 1e3, rel_err=err,
+                launches=launches)
+
+
+def phase_vlm(cfg, params, card, counters, B=2, text=128, steps=8):
+    """internvl2-76b at full width, depth cut: 2 x (256 seeded patch
+    embeddings + 128 tokens) through ``prefill`` into int8 KV rings, then 8
+    ``decode_step``s at positions offset by the 256 embeddings, each
+    step's logits against the full forward's (relative error < 0.05). No
+    kernel of the port runs (ring caches; the paged engine is not on this
+    path). A first pass warms cuBLAS; the second is timed."""
+    n_img = cfg.frontend_len
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    embeds = (0.02 * torch.randn((B, n_img, cfg.d_model), generator=gen,
+                                 device=DEV)).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (B, text + steps), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    for fn in counters:
+        fn.launches = 0
+    for _ in range(2):
+        err, t_pre, t_dec, caches = decode_vs_full(
+            params, cfg, {"tokens": toks, "embeds": embeds}, text, steps,
+            off=n_img)
+    ring = caches[0]["0"]["attn"]
+    check(ring["k"].dtype == torch.int8 and
+          int(ring["pos"].max()) == n_img + text + steps - 1,
+          f"rings: {ring['k'].dtype}, last position {int(ring['pos'].max())}")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(not any(launches.values()), f"kernels launched: {launches}")
+    check(err < 0.05, f"internvl2 decode/full mismatch rel={err:.3e}")
+    print(f"[vlm] {cfg.name}: prefill of {B} x ({n_img} patch embeddings + "
+          f"{text} tokens) {t_pre * 1e3:.2f} ms, {steps} decode steps at "
+          f"positions {n_img + text}-{n_img + text + steps - 1} "
+          f"{t_dec / steps * 1e3:.2f} ms a step, int8 KV rings; decode "
+          f"logits against the full forward rel={err:.3e} (< 0.05); kernel "
+          f"launches {json.dumps(launches)}; on {card}")
+    return dict(prefill_ms=t_pre * 1e3, decode_ms_per_step=t_dec / steps
+                * 1e3, rel_err=err, launches=launches)
 
 
 def main() -> int:
@@ -1770,6 +2134,9 @@ def main() -> int:
     rec = phase_kernels(paged_attention, paged_attention_ref, card)
     rec_family = phase_family_kernels(paged_attention, paged_attention_ref,
                                       card)
+    t0 = time.perf_counter()
+    rec_mla = phase_mla_kernels(paged_attention, paged_attention_ref, card)
+    print(f"[kernels] mla shapes: {time.perf_counter() - t0:.1f}s")
     rec_ssd = phase_ssd(ssd_scan, ssd_chunked_ref, card)
     # before any weights are on the card: the plain version's score tensors
     # take up to ~26 GB at the largest shapes
@@ -1833,7 +2200,44 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    paged_phases = {"serve": srv, "serve-window": win, "serve-moe": moe}
+    # deepseek-v2-236b is 439 GiB: its first (dense) layer and 4 of its 59
+    # MoE layers, every width as published
+    counters = (paged_attention, ssd_scan, flash_attention)
+    cfg = cut_depth(get_config("deepseek-v2-236b"), 4)
+    t0 = time.perf_counter()
+    params = draw(cfg, init_params, "serve-mla", note=" (depth cut from "
+                  "60: the dense layer + 4 of 59 MoE layers)")
+    mla = phase_serve(cfg, params, paged_attention, card, tag="serve-mla",
+                      routes=("general", "general"))
+    print(f"[serve-mla] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    mla["lockstep"] = phase_lockstep(cfg, params, tag="lockstep-mla")
+    print(f"[lockstep-mla] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    mla["profile"] = phase_profile(cfg, params, tag="profile-mla", moe=True)
+    print(f"[profile-mla] phase wall {time.perf_counter() - t0:.1f}s")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("whisper-base")
+    t0 = time.perf_counter()
+    params = draw(cfg, init_params, "encdec", note=" (+ 6 encoder layers)")
+    encdec = phase_encdec(cfg, params, card, counters)
+    print(f"[encdec] phase wall {time.perf_counter() - t0:.1f}s")
+    del params
+    torch.cuda.empty_cache()
+
+    # internvl2-76b is 131 GiB: 16 of its 80 layers
+    cfg = cut_depth(get_config("internvl2-76b"), 16)
+    t0 = time.perf_counter()
+    params = draw(cfg, init_params, "vlm", note=" (depth cut from 80)")
+    vlm = phase_vlm(cfg, params, card, counters)
+    print(f"[vlm] phase wall {time.perf_counter() - t0:.1f}s")
+    del params
+    torch.cuda.empty_cache()
+
+    paged_phases = {"serve": srv, "serve-window": win, "serve-moe": moe,
+                    "serve-mla": mla}
     dec = rec["decode"]
     keep = ("route", "ms", "device_ms", "device_parts", "plain_ms",
             "bound_ms", "bound_by", "sdpa_ms", "max_abs_err",
@@ -1846,8 +2250,8 @@ def main() -> int:
         "launches_by_phase": {n: r["launches"]
                               for n, r in paged_phases.items()},
         "routes_by_phase": {n: r["routes"] for n, r in paged_phases.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in (*rec.values(),
-                                                      *rec_family.values())),
+        "max_abs_err": max(r["max_abs_err"] for r in (
+            *rec.values(), *rec_family.values(), *rec_mla.values())),
         "ms": dec["ms"], "device_ms": dec["device_ms"],
         "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -1860,6 +2264,8 @@ def main() -> int:
            for shape in ("prefill", "long_decode")},
         "families": {n: {k: r[k] for k in keep if k in r}
                      for n, r in rec_family.items()},
+        "mla": {n: {k: r[k] for k in (*keep, "sdpa_backend") if k in r}
+                for n, r in rec_mla.items()},
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1894,6 +2300,9 @@ def main() -> int:
     print(f"[lockstep-window] summary {json.dumps(lock_win)}")
     print(f"[serve-int8] summary {json.dumps(int8)}")
     print(f"[serve-moe] summary {json.dumps(moe)}")
+    print(f"[serve-mla] summary {json.dumps(mla)}")
+    print(f"[encdec] summary {json.dumps(encdec)}")
+    print(f"[vlm] summary {json.dumps(vlm)}")
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f}s "
           "(build included)")
     print(f"[card] {card}")

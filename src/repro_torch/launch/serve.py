@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
         --smoke --requests 8 --gen-len 16 [--device cpu]
 
-Port of ``repro.launch.serve`` (paged engine only). Runs on the card unless
-``--device cpu`` is given, and fails without one. Weights are random, drawn
+Port of ``repro.launch.serve`` (paged engine only; every architecture but
+whisper's encoder-decoder). Runs on the card unless ``--device cpu`` is
+given, and fails without one. Weights are random, drawn
 on the device from a seeded ``torch.Generator``. ``--batch-frac`` marks a
 fraction of the trace as batch-class filler so the priority split shows up
 in the per-class TTFT/TPOT table. ``serve()`` is the entry point the CLI
@@ -83,7 +84,9 @@ def serve(cfg: ModelConfig, params: dict, waves: Sequence[List[Request]], *,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCHS, required=True)
+    # the paged engine serves decoder-only models (no encoder output)
+    ap.add_argument("--arch", required=True, choices=[
+        a for a in ARCHS if get_config(a).encoder is None])
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")

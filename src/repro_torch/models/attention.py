@@ -1,7 +1,7 @@
-"""Attention, GQA half (qk-norm / softcap / sliding window). Port of
-``repro.models.attention``.
+"""Attention: GQA (qk-norm / softcap / sliding window / cross) and MLA.
+Port of ``repro.models.attention``.
 
-One flat-head core serves every GQA variant: kv heads are never repeated up
+One flat-head core serves every variant: kv heads are never repeated up
 to H; queries are grouped (B,Q,K,G,D) against (B,S,K,D) keys.
 
 Caches are fixed-capacity ring buffers ``{k, v, pos}`` where ``pos`` holds
@@ -26,8 +26,15 @@ leaves alike; quantized pool leaves always take the gather route (the
 paged kernel reads raw pool leaves and does not dequantize), as in the
 reference.
 
-Not ported yet: MLA and cross-attention; each raises
-``NotImplementedError``.
+Cross-attention (enc-dec decoders) attends encoder keys/values without a
+mask or rope; its k/v come from ``gqa_encoder_kv`` on every call.
+
+MLA (DeepSeek-V2) keeps a compressed cache ``{ckv, kr, pos}``: a prefill
+without a pool runs the decompressed form; a ring decode and every call on
+a pool leaf run the weight-absorbed form, which is MQA against the
+compressed rows (K = 1; scores q_abs.ckv + q_rope.kr, values ckv). On a
+pool leaf that form goes to the paged kernel with k = v = the ckv pool and
+the second score term q2/k2 = q_rope/kr.
 """
 from __future__ import annotations
 
@@ -296,20 +303,33 @@ def _paged_gqa(cache: dict, q, k, v, spec: AttentionSpec, cfg: ModelConfig,
                      cap=spec.logit_softcap, n_kv=kd.shape[2])
 
 
-
 def gqa_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
               cfg: ModelConfig, positions: torch.Tensor,
-              cache: Optional[dict] = None) -> torch.Tensor:
+              cache: Optional[dict] = None,
+              encoder_out: Optional[dict] = None) -> torch.Tensor:
     """x: (B,S,D) -> y (B,S,D); ``cache`` (ring or paged leaf) is updated
-    in place."""
+    in place. With ``encoder_out`` ({k, v} from ``gqa_encoder_kv``) this is
+    cross-attention: static keys, no rope, no mask, no cache."""
     Dh = spec.head_dim
     S = x.shape[1]
 
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
+
+    if encoder_out is not None:                  # cross-attention
+        k, v = encoder_out["k"], encoder_out["v"]
+        if spec.qk_norm:
+            q = head_rmsnorm(params["q_norm"], q)
+        out = attn_core(q, k, v, positions,
+                        torch.zeros(k.shape[:2], dtype=torch.int32,
+                                    device=k.device),
+                        scale=1.0 / (Dh ** 0.5), causal=False, window=None,
+                        cap=spec.logit_softcap, n_kv=k.shape[2])
+        return _out_proj(params, out)
+
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if "bk" in params:
         k, v = k + params["bk"], v + params["bv"]
     if spec.qk_norm:
@@ -334,10 +354,24 @@ def gqa_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
         out = attn_core(q, k, v, positions, k_pos, scale=1.0 / (Dh ** 0.5),
                         causal=spec.causal, window=spec.window,
                         cap=spec.logit_softcap, n_kv=k.shape[2])
+    return _out_proj(params, out)
+
+
+def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     if "bo" in params:
         y = y + params["bo"]
     return y
+
+
+def gqa_encoder_kv(params: dict, enc: torch.Tensor,
+                   spec: AttentionSpec) -> dict:
+    """Cross-attention k/v from encoder output (no rope)."""
+    k = torch.einsum("bsd,dhk->bshk", enc, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc, params["wv"])
+    if "bk" in params:
+        k, v = k + params["bk"], v + params["bv"]
+    return {"k": k, "v": v}
 
 
 def gqa_cache_init(batch: int, capacity: int, spec: AttentionSpec,
@@ -358,22 +392,144 @@ def gqa_cache_init(batch: int, capacity: int, spec: AttentionSpec,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
 
-def _gqa_only(spec: AttentionSpec) -> None:
-    if spec.kind != "gqa":
-        raise NotImplementedError(f"{spec.kind} attention is not ported yet")
+def mla_init(gen, d_model: int, spec: AttentionSpec, cfg: ModelConfig,
+             device) -> dict:
+    H = spec.n_heads
+    ql, kl = spec.q_lora_rank, spec.kv_lora_rank
+    dn, dr, dv = spec.qk_nope_head_dim, spec.qk_rope_head_dim, spec.v_head_dim
+    dt = torch.bfloat16
+    return {
+        "w_dq": fan_in_init(gen, (d_model, ql), d_model, dt, device),
+        "q_norm": torch.ones((ql,), dtype=dt, device=device),
+        "w_uq": fan_in_init(gen, (ql, H, dn + dr), ql, dt, device),
+        "w_dkv": fan_in_init(gen, (d_model, kl + dr), d_model, dt, device),
+        "kv_norm": torch.ones((kl,), dtype=dt, device=device),
+        "w_uk": fan_in_init(gen, (kl, H, dn), kl, dt, device),
+        "w_uv": fan_in_init(gen, (kl, H, dv), kl, dt, device),
+        "wo": fan_in_init(gen, (H, dv, d_model), H * dv, dt, device),
+    }
 
+
+def mla_cache_init(batch: int, capacity: int, spec: AttentionSpec,
+                   device) -> dict:
+    dt = torch.bfloat16
+    return {
+        "ckv": torch.zeros((batch, capacity, spec.kv_lora_rank), dtype=dt,
+                           device=device),
+        "kr": torch.zeros((batch, capacity, spec.qk_rope_head_dim),
+                          dtype=dt, device=device),
+        "pos": torch.full((batch, capacity), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def _mla_compress(params, x, spec, positions):
+    """x -> (ckv (B,S,kl) normalized, kr (B,S,dr) roped)."""
+    kl = spec.kv_lora_rank
+    dkv = torch.einsum("bsd,dr->bsr", x, params["w_dkv"])
+    ckv = head_rmsnorm(params["kv_norm"], dkv[..., :kl])
+    kr = apply_rope(dkv[..., kl:], positions, spec.rope_theta)
+    return ckv, kr
+
+
+def _mla_queries(params, x, spec, positions):
+    dn = spec.qk_nope_head_dim
+    cq = head_rmsnorm(params["q_norm"],
+                      torch.einsum("bsd,dq->bsq", x, params["w_dq"]))
+    q = torch.einsum("bsq,qhk->bshk", cq, params["w_uq"])
+    return q[..., :dn], apply_rope(q[..., dn:], positions, spec.rope_theta)
+
+
+def _mla_mqa(q_abs, q_rope, ckv, kr, q_pos, k_pos, scale):
+    """The absorbed form through ``attn_core``: q and k concatenated to
+    kl + dr columns over one kv head, values the ckv rows."""
+    q_cat = torch.cat([q_abs, q_rope], dim=-1)
+    k_cat = torch.cat([ckv, kr], dim=-1)[:, :, None, :].to(q_cat.dtype)
+    return attn_core(q_cat, k_cat, ckv[:, :, None, :].to(q_cat.dtype),
+                     q_pos, k_pos, scale=scale, causal=True, window=None,
+                     cap=None, n_kv=1)
+
+
+def _paged_mla(cache: dict, q_abs, q_rope, cfg: ModelConfig, positions,
+               scale) -> torch.Tensor:
+    """The absorbed form over a pool leaf (fresh rows already written):
+    the paged kernel with k = v = the ckv pool (one tensor, twice, no copy
+    in the model's bf16) and q2/k2 = q_rope/kr, or a dense gather."""
+    if cfg.paged_kernel == "paged":
+        ckv = cache["ckv"][:, :, None, :].to(q_abs.dtype)
+        return paged_attention(
+            q_abs.contiguous(), ckv, ckv, cache["pos"], cache["table"],
+            positions, q2=q_rope.contiguous(),
+            k2=cache["kr"][:, :, None, :].to(q_abs.dtype), scale=scale,
+            causal=True)
+    dense, kpos = _paged_leaf_gather(cache)
+    return _mla_mqa(q_abs, q_rope, dense["ckv"], dense["kr"], positions,
+                    kpos, scale)
+
+
+def mla_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
+              cfg: ModelConfig, positions: torch.Tensor,
+              cache: Optional[dict] = None) -> torch.Tensor:
+    """x: (B,S,D) -> y (B,S,D); ``cache`` is updated in place. The scale is
+    1/sqrt(dn + dr), the decompressed head's: not the paged kernel's
+    default over the absorbed widths (kl + dr)."""
+    B, S, _ = x.shape
+    H = spec.n_heads
+    dn, dr = spec.qk_nope_head_dim, spec.qk_rope_head_dim
+    scale = 1.0 / ((dn + dr) ** 0.5)
+
+    q_nope, q_rope = _mla_queries(params, x, spec, positions)
+    ckv, kr = _mla_compress(params, x, spec, positions)
+
+    if cache is not None and ("table" in cache or S == 1):
+        # weight-absorbed form: exact, and for ANY S on a pool leaf, so a
+        # warm-prefix suffix prefill attends shared pages directly
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"])
+        if "table" in cache:                         # paged pool leaf
+            cache = _paged_leaf_update(cache, {"ckv": ckv, "kr": kr},
+                                       positions)
+            ctx = _paged_mla(cache, q_abs, q_rope, cfg, positions, scale)
+        else:                                        # ring decode
+            cache = _ring_update(cache, {"ckv": ckv, "kr": kr}, positions)
+            ctx = _mla_mqa(q_abs, q_rope, cache["ckv"], cache["kr"],
+                           positions, cache["pos"], scale)
+        out = torch.einsum("bshr,rhv->bshv", ctx, params["w_uv"])
+        return torch.einsum("bshv,hvd->bsd", out, params["wo"])
+
+    # train / prefill: the full (decompressed) form; a ring is written from
+    # row 0, as the reference's dynamic_update_slice at offset 0
+    if cache is not None:
+        for name, rows in (("ckv", ckv), ("kr", kr), ("pos", positions)):
+            cache[name][:, :S] = rows.to(cache[name].dtype)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["w_uk"])
+    v = torch.einsum("bsr,rhv->bshv", ckv, params["w_uv"])
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, dr).to(
+        k_nope.dtype)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = attn_core(q, k, v, positions, positions, scale=scale, causal=True,
+                    window=None, cap=spec.logit_softcap, n_kv=H,
+                    prefer_blocked=spec.prefer_blocked)
+    return torch.einsum("bshv,hvd->bsd", out, params["wo"])
+
+
+# ---------------------------------------------------------------------------
 
 def attn_init(gen, d_model, spec, cfg, device):
-    _gqa_only(spec)
-    return gqa_init(gen, d_model, spec, cfg, device)
+    init = mla_init if spec.kind == "mla" else gqa_init
+    return init(gen, d_model, spec, cfg, device)
 
 
-def attn_apply(params, x, spec, cfg, positions, cache=None):
-    _gqa_only(spec)
-    return gqa_apply(params, x, spec, cfg, positions, cache=cache)
+def attn_apply(params, x, spec, cfg, positions, cache=None,
+               encoder_out=None):
+    if spec.kind == "mla":
+        return mla_apply(params, x, spec, cfg, positions, cache=cache)
+    return gqa_apply(params, x, spec, cfg, positions, cache=cache,
+                     encoder_out=encoder_out)
 
 
 def attn_cache_init(batch, capacity, spec, device):
-    _gqa_only(spec)
-    return gqa_cache_init(batch, capacity, spec, device)
+    init = mla_cache_init if spec.kind == "mla" else gqa_cache_init
+    return init(batch, capacity, spec, device)

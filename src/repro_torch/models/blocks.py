@@ -10,8 +10,8 @@ repeat. Caches are updated in place (see ``models.attention`` and
 
 ``block_apply`` and ``group_apply`` return the MoE load-balance loss beside
 the hidden states, summed over layers as the reference's scan sums it.
-
-Not ported yet: cross-attention blocks (they raise).
+Cross-attention blocks (enc-dec decoders) take the encoder output
+``enc_out`` and recompute its k/v on every call, as the reference does.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.attention import (attn_apply, attn_cache_init,
-                                          attn_init)
+                                          attn_init, gqa_encoder_kv)
 from repro_torch.models.layers import norm_apply, norm_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.models.moe import moe_apply, moe_init
@@ -30,11 +30,6 @@ from repro_torch.models.ssm import ssm_apply, ssm_cache_init, ssm_init
 # cache entries one tensor serves for every repeat of a group (a paged
 # leaf's page table, an SSM cache's stall mask): never indexed by repeat
 _PER_CALL = ("table", "live")
-
-
-def _ported(b: BlockSpec) -> None:
-    if b.cross_attn is not None:
-        raise NotImplementedError("cross_attn blocks are not ported yet")
 
 
 def tree_map(fn, *trees):
@@ -52,7 +47,6 @@ def tree_map(fn, *trees):
 # ---------------------------------------------------------------------------
 
 def block_init(gen, cfg: ModelConfig, b: BlockSpec, device) -> dict:
-    _ported(b)
     dt = torch.bfloat16
     p: dict = {}
     if b.attn is not None:
@@ -66,6 +60,10 @@ def block_init(gen, cfg: ModelConfig, b: BlockSpec, device) -> dict:
         p["norm_ssm"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dt,
                                   device)
         p["ssm"] = ssm_init(gen, cfg.d_model, b.ssm, cfg, device)
+    if b.cross_attn is not None:
+        p["norm_cross"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dt,
+                                    device)
+        p["cross"] = attn_init(gen, cfg.d_model, b.cross_attn, cfg, device)
     if b.mlp is not None:
         if not b.parallel_residual:
             p["norm_mlp"] = norm_init(cfg.d_model, cfg.norm, cfg.use_bias,
@@ -82,10 +80,11 @@ def block_init(gen, cfg: ModelConfig, b: BlockSpec, device) -> dict:
 
 
 def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
-                positions: torch.Tensor, cache: Optional[dict] = None):
+                positions: torch.Tensor, cache: Optional[dict] = None,
+                enc_out: Optional[torch.Tensor] = None):
     """Returns (the block's output, its MoE aux loss: 0.0 without MoE);
-    the cache is updated in place."""
-    _ported(b)
+    the cache is updated in place. A cross-attention block needs
+    ``enc_out`` (B, S_enc, D)."""
     aux = 0.0
     nk, ne = cfg.norm, cfg.norm_eps
     c_attn = cache.get("attn") if cache else None
@@ -107,6 +106,15 @@ def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
         h = norm_apply(p["norm_ssm"], x, nk, ne)
         x = x + ssm_apply(p["ssm"], h, b.ssm, cfg, positions, cache=c_ssm)
 
+    if b.cross_attn is not None:
+        if enc_out is None:
+            raise ValueError(f"{cfg.name}: a cross-attention block needs "
+                             "the encoder output (enc_out)")
+        h = norm_apply(p["norm_cross"], x, nk, ne)
+        kv = gqa_encoder_kv(p["cross"], enc_out, b.cross_attn)
+        x = x + attn_apply(p["cross"], h, b.cross_attn, cfg, positions,
+                           encoder_out=kv)
+
     if b.mlp is not None:
         h = norm_apply(p["norm_mlp"], x, nk, ne)
         m = mlp_apply(p["mlp"], h, b.mlp)
@@ -123,7 +131,6 @@ def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
 
 def block_cache_init(cfg: ModelConfig, b: BlockSpec, batch: int,
                      capacity: int, device) -> dict:
-    _ported(b)
     c: dict = {}
     if b.attn is not None:
         c["attn"] = attn_cache_init(batch, capacity, b.attn, device)
@@ -173,7 +180,8 @@ def _repeat(tree: dict, r: int) -> dict:
 
 
 def group_apply(gp: dict, x: torch.Tensor, g: ScanGroup, cfg: ModelConfig,
-                positions: torch.Tensor, caches: Optional[dict] = None):
+                positions: torch.Tensor, caches: Optional[dict] = None,
+                enc_out: Optional[torch.Tensor] = None):
     """Walk the pattern over repeats; the caches are updated in place.
     Returns (x, the summed MoE aux loss)."""
     shared = gp["shared"]
@@ -183,6 +191,7 @@ def group_apply(gp: dict, x: torch.Tensor, g: ScanGroup, cfg: ModelConfig,
             pi = shared[str(i)] if b.shared else _repeat(gp["stacked"][str(i)],
                                                           r)
             ci = _repeat(caches[str(i)], r) if caches is not None else None
-            x, a = block_apply(pi, x, b, cfg, positions, cache=ci)
+            x, a = block_apply(pi, x, b, cfg, positions, cache=ci,
+                               enc_out=enc_out)
             aux = aux + a
     return x, aux

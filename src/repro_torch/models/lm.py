@@ -1,12 +1,22 @@
-"""Decoder-only LM and its paged serving path. Port of ``repro.models.lm``.
+"""Full models: decoder-only LM (dense/MoE/SSM/hybrid/VLM) and enc-dec, and
+the paged serving path. Port of ``repro.models.lm``.
 
 Public surface (plain functions on tensors; ``gen`` is a torch.Generator):
   lm_init(gen, cfg, device)                          -> params
-  lm_hidden(params, inputs, cfg, caches=None)        -> (hidden, aux)
+  encoder_apply(params, frames, cfg)                 -> enc_out
+  lm_hidden(params, inputs, cfg, caches=None, ...)   -> (hidden, aux)
   lm_logits(params, hidden, cfg)                     -> logits
+  prefill(params, inputs, cfg, enc_out, capacity)    -> (last_logits, caches)
   prefill_batched(params, inputs, cfg, lengths, ...) -> (last_logits, caches)
   decode_step(params, caches, tokens, pos, cfg)      -> (logits, caches)
   cache_init(cfg, batch, capacity, device)           -> caches
+
+``inputs`` holds ``tokens`` (B, S) and optionally ``positions`` (B, S) and,
+for the ``vlm_patch`` frontend, ``embeds`` (B, frontend_len, D): patch
+embeddings placed before the token embeddings, so positions count them
+and decode positions are offset by ``frontend_len``. Enc-dec configs
+(whisper) run ``encoder_apply`` on stubbed frame embeddings and pass its
+output as ``enc_out`` to every decoder call.
 
 Paged KV (the shared-pool serving path — ``repro_torch.serve``):
   paged_cache_init(cfg, slots, n_pages, page_size, device) -> pool caches
@@ -25,10 +35,10 @@ a copied pool per step would double its memory.
 SSM state (conv windows and the recurrent state) is O(1) per slot and stays
 slot-dense in the pool: leaves of shape (repeats, slots, ...). A prefill
 writes it at ``slot_ids``; a decode step advances every slot but the
-stalled ones (``live`` False).
+stalled ones (``live`` False). The paged path serves decoder-only
+configs (the engine takes no encoder output).
 
-Not ported yet: ``lm_loss``, ``prefill``, the encoder, learned positions,
-frontends.
+Not ported yet: ``lm_loss``.
 """
 from __future__ import annotations
 
@@ -50,19 +60,12 @@ from repro_torch.models.ssm import ssm_cache_init
 SlotIds = Union[Sequence[int], torch.Tensor]
 
 
-def _ported(cfg: ModelConfig) -> None:
-    if cfg.encoder is not None or cfg.learned_pos or cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: encoders, learned positions "
-                                  "and frontends are not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 def lm_init(gen: Optional[torch.Generator], cfg: ModelConfig,
             device) -> dict:
-    _ported(cfg)
     dt = torch.bfloat16
     p: dict = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, device),
@@ -73,6 +76,18 @@ def lm_init(gen: Optional[torch.Generator], cfg: ModelConfig,
     if not cfg.tie_embeddings:
         p["lm_head"] = {"lm_head": normal_init(
             gen, (cfg.d_model, cfg.vocab), 0.02, dt, device)}
+    if cfg.learned_pos:
+        p["pos"] = {"pos_embed": normal_init(
+            gen, (cfg.max_pos, cfg.d_model), 0.02, dt, device)}
+    if cfg.encoder is not None:
+        enc = cfg.encoder
+        p["encoder"] = {
+            "groups": [group_init(gen, cfg, g, device) for g in enc.groups],
+            "final_norm": norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dt,
+                                    device),
+            "pos": {"pos_embed": normal_init(
+                gen, (enc.seq_len, cfg.d_model), 0.02, dt, device)},
+        }
     return p
 
 
@@ -80,21 +95,37 @@ def lm_init(gen: Optional[torch.Generator], cfg: ModelConfig,
 # Forward
 # ---------------------------------------------------------------------------
 
+def encoder_apply(params: dict, frames: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, S_enc, D) stubbed frontend embeddings -> enc_out."""
+    enc = params["encoder"]
+    x = frames + enc["pos"]["pos_embed"][None, :frames.shape[1]]
+    pos = torch.arange(frames.shape[1], dtype=torch.int32,
+                       device=frames.device)[None].expand(frames.shape[:2])
+    for gi, g in enumerate(cfg.encoder.groups):
+        x, _ = group_apply(enc["groups"][gi], x, g, cfg, pos)
+    return norm_apply(enc["final_norm"], x, cfg.norm, cfg.norm_eps)
+
+
 def _embed_inputs(params, inputs, cfg):
-    _ported(cfg)
     tokens = inputs["tokens"]
     x = embed_lookup(params["embed"], tokens)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
+    if cfg.frontend == "vlm_patch" and "embeds" in inputs:
+        x = torch.cat([inputs["embeds"].to(x.dtype), x], dim=1)
     positions = inputs.get("positions")
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)[None].expand(x.shape[:2])
+    if cfg.learned_pos:
+        x = x + params["pos"]["pos_embed"][positions.long()]
     return x, positions
 
 
 def lm_hidden(params: dict, inputs: dict, cfg: ModelConfig,
-              caches: Optional[list] = None):
+              caches: Optional[list] = None,
+              enc_out: Optional[torch.Tensor] = None):
     """(final hidden states, the MoE load-balance loss summed over layers:
     0.0 without MoE), as the reference's hidden and aux; caches are updated
     in place. Serving ignores the aux."""
@@ -103,7 +134,7 @@ def lm_hidden(params: dict, inputs: dict, cfg: ModelConfig,
     for gi, g in enumerate(cfg.groups):
         c = caches[gi] if caches is not None else None
         x, a = group_apply(params["groups"][gi], x, g, cfg, positions,
-                           caches=c)
+                           caches=c, enc_out=enc_out)
         aux = aux + a
     h = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return h, aux
@@ -129,11 +160,34 @@ def cache_init(cfg: ModelConfig, batch: int, capacity: int, device) -> list:
             for g in cfg.groups]
 
 
+def prefill(params: dict, inputs: dict, cfg: ModelConfig,
+            enc_out: Optional[torch.Tensor] = None,
+            capacity: Optional[int] = None):
+    """Full-sequence forward; returns (last-token logits, filled caches).
+
+    ``capacity`` sizes the KV rings (>= prompt + planned decode length;
+    with a ``vlm_patch`` frontend the prompt counts its embeds); defaults
+    to the prompt length. Windowed layers keep rings of min(capacity,
+    window) rows, as the reference's do: one prompt has no pad rows."""
+    x, positions = _embed_inputs(params, inputs, cfg)
+    B, S = x.shape[:2]
+    capacity = max(capacity or S, S)
+    caches = []
+    for gi, g in enumerate(cfg.groups):
+        c = group_cache_init(cfg, g, B, capacity, x.device)
+        x, _ = group_apply(params["groups"][gi], x, g, cfg, positions,
+                           caches=c, enc_out=enc_out)
+        caches.append(c)
+    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return lm_logits(params, x[:, -1:], cfg), caches
+
+
 def decode_step(params: dict, caches: list, tokens: torch.Tensor,
-                pos: torch.Tensor, cfg: ModelConfig):
+                pos: torch.Tensor, cfg: ModelConfig,
+                enc_out: Optional[torch.Tensor] = None):
     """tokens: (B,1) int32, pos: (B,1) absolute position. One new token."""
     h, _ = lm_hidden(params, {"tokens": tokens, "positions": pos}, cfg,
-                     caches=caches)
+                     caches=caches, enc_out=enc_out)
     return lm_logits(params, h, cfg), caches
 
 
@@ -181,7 +235,9 @@ def _unwindowed(g: ScanGroup) -> ScanGroup:
 
 
 def prefill_batched(params: dict, inputs: dict, cfg: ModelConfig,
-                    lengths: torch.Tensor, capacity: Optional[int] = None):
+                    lengths: torch.Tensor,
+                    enc_out: Optional[torch.Tensor] = None,
+                    capacity: Optional[int] = None):
     """Multi-slot prefill of right-padded prompts in ONE forward.
 
     ``inputs["tokens"]`` is (B, S) with row b's real prompt in columns
@@ -209,7 +265,7 @@ def prefill_batched(params: dict, inputs: dict, cfg: ModelConfig,
     for gi, g in enumerate(cfg.groups):
         c = group_cache_init(cfg, _unwindowed(g), B, capacity, x.device)
         x, _ = group_apply(params["groups"][gi], x, g, cfg, positions,
-                           caches=c)
+                           caches=c, enc_out=enc_out)
         caches.append(c)
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     idx = (lengths.long() - 1).clamp(0, S - 1)

@@ -245,6 +245,10 @@ class PagedServeEngine(_EngineBase):
                  prefix_sharing: bool = False,
                  prefix_min_tokens: Optional[int] = None,
                  device=None):
+        if cfg.encoder is not None:
+            raise ValueError(f"{cfg.name}: the paged engine serves "
+                             "decoder-only models (it takes no encoder "
+                             "output)")
         super().__init__(cfg, params, slots, scheduler, device)
         if pool_pages is None:
             pool_pages = slots * pages_per_slot

@@ -2,8 +2,10 @@
 
 * Its config copies equal the reference's, field for field, for all ten
   architectures, full and smoke (``paged_kernel`` exempt: the port names its
-  own kernels), and its parameter count equals the reference's for every
-  architecture it can build.
+  own kernels), its parameter count equals the reference's for all ten,
+  and the full configs fall in the published ranges of
+  ``tests/test_models.py``. ``lm_init`` builds all ten at smoke width with
+  JAX blocked.
 * It imports with JAX blocked, and no file of it — nor ``chip_smoke.py`` —
   imports ``jax`` or the reference package ``repro``.
 * Its entry points run on the card unless asked for the CPU, and raise
@@ -33,8 +35,11 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-BUILDABLE = ("qwen3-14b", "gemma2-27b", "gemma3-12b", "stablelm-12b",
-             "mamba2-1.3b", "zamba2-7b", "olmoe-1b-7b")
+# tests/test_models.py::test_param_counts_full_configs, the three families
+# this slice brings to the port
+PUBLISHED = {"deepseek-v2-236b": (220e9, 250e9),
+             "internvl2-76b": (69e9, 72e9),
+             "whisper-base": (5e7, 1.2e8)}
 
 
 def _fields(cfg):
@@ -52,11 +57,37 @@ def test_config_copies_match_reference(arch, smoke):
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
-@pytest.mark.parametrize("arch", BUILDABLE)
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
 def test_param_count_matches_reference(arch, smoke):
     jcfg, tcfg = (m.get_config(arch, smoke) for m in (jconfigs, tconfigs))
     assert t_count_params(tcfg) == j_count_params(jcfg)
     assert tcfg.param_count() == t_count_params(tcfg)
+
+
+@pytest.mark.parametrize("arch", sorted(PUBLISHED))
+def test_param_count_in_published_range(arch):
+    lo, hi = PUBLISHED[arch]
+    assert lo <= t_count_params(tconfigs.get_config(arch)) <= hi
+
+
+def test_every_architecture_builds_with_jax_blocked():
+    """``lm_init`` of all ten smoke configs on the CPU, in a process where
+    ``import jax`` fails."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import torch\n"
+            "from repro_torch.configs import ARCHS, get_config\n"
+            "from repro_torch.models.lm import lm_init\n"
+            "for a in ARCHS:\n"
+            "    p = lm_init(torch.Generator().manual_seed(0),\n"
+            "                get_config(a, smoke=True), 'cpu')\n"
+            "    assert p['embed']['embedding'].device.type == 'cpu', a\n"
+            "print(len(ARCHS))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["10"]
 
 
 def _modules():
@@ -136,10 +167,12 @@ def test_ssm_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch,
     assert all(r.done and len(r.out) == 3 for r in reqs)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma2-27b",
+                                  "deepseek-v2-236b", "internvl2-76b"])
 def test_moe_and_windowed_entry_points_need_the_card_unless_asked_for_cpu(
         monkeypatch, arch):
-    """MoE (olmoe) and windowed (gemma2) configs follow the same rule, and
+    """MoE (olmoe), windowed (gemma2), MLA (deepseek-v2) and patch-frontend
+    (internvl2, served on tokens alone) configs follow the same rule, and
     their engine serves on the CPU when asked (smoke width; gemma2's
     prompts pass its smoke window of 64)."""
     from repro_torch.launch.serve import init_params, serve
@@ -157,6 +190,17 @@ def test_moe_and_windowed_entry_points_need_the_card_unless_asked_for_cpu(
     assert eng.device.type == "cpu" and eng.kernel == "gather"
     assert all(r.done and len(r.out) == 3 for r in reqs)
     eng.pool.check()
+
+
+def test_engine_refuses_encoder_decoder_configs():
+    """The paged engine takes no encoder output, so whisper raises at
+    construction, not at its first cross-attention."""
+    from repro_torch.launch.serve import init_params
+    from repro_torch.serve.engine import PagedServeEngine
+    cfg = tconfigs.get_config("whisper-base", smoke=True)
+    with pytest.raises(ValueError, match="decoder-only"):
+        PagedServeEngine(cfg, init_params(cfg, "cpu"), slots=2,
+                         device="cpu")
 
 
 def test_serve_entry_point_waves_share_prefixes(capsys):
