@@ -84,6 +84,25 @@ non-zero:
             time) and its call time's ratios to the library's and (in the
             printed line only) to the CUDA-core design's
             (``FLASH_EARLIER_MS``).
+4a. launch the paper's headline: 16,384 instances of app(x) = (x*x).sum()
+            over (16,384, 64) f32 through ``LLMapReduce`` on the array
+            backend (two waves of 8,192: one captured CUDA graph of the
+            vmapped app, replayed per wave), the pipelined backend (depth
+            2: each wave on its own stream with its own graph) and
+            autoscaled waves, each cold (a fresh compile cache) and warm
+            (the same cache: every wave "memory"), and the serial VM
+            baseline (a new executable and capture per instance) on 256:
+            every output within 1e-5 (relative) of numpy's and on the
+            card; instances/s, t_schedule and ``LaunchRecord.levels()``
+            printed. The app launches none of the port's kernels.
+4b. wine    all ten architectures at smoke width, prefill and decode,
+            through one ``WineAdapter``: each app's first step is the
+            warm-up of its capture, its second a replay, held against the
+            eager translation on the same inputs (within 3e-2, the port's
+            bf16 limit; decode: against two eager ``decode_step`` calls);
+            the SSD-scan launches over the mamba2 / zamba2 prefill replays
+            must be > 0; a second adapter on the same cache reads "memory"
+            for all twenty.
 5. serve    ``repro_torch.launch.serve.serve`` with qwen3-14b at its full
             published width (40 layers, d_model 5120, 40/8 heads, head_dim
             128, d_ff 17408, vocab 151936), random bf16 weights drawn on the
@@ -95,7 +114,14 @@ non-zero:
             of both waves is counted: 40 per prefill dispatch and per
             decode step, every decode step on the split route and every
             prefill dispatch on the tile route; the other kernels' counts
-            stay 0.
+            stay 0. This phase runs the decode step eagerly (the baseline);
+            every other serve phase replays it from a captured CUDA graph.
+5a. serve-graph  as 5 with the decode step captured once and replayed
+            (every replay counted on split); TTFT, TPOT, tokens/s and peak
+            memory beside 5's, capture time, served tokens beside 5's; the
+            gate: 8 greedy steps of the captured step against eager
+            ``paged_decode_step`` calls from one prefill, tokens equal up
+            to the first near-tie (logits' largest difference printed).
 6. lockstep from one set of params, paged_prefill + 4 paged_decode_step
             with kernel "paged" and with kernel "gather" on two copies of a
             fresh pool (4 prompts of 128 tokens; 32-entry tables, as
@@ -104,7 +130,9 @@ non-zero:
             near-tie.
 7. profile  torch.profiler over full-width decode steps: host wall time,
             device busy share, the kernels that take the time, the paged
-            kernels' share.
+            kernels' share; then the same step captured and replayed: host
+            wall, device busy, kernels on the card and launch calls from
+            the host, beside the eager step's (every profile-* phase).
 8. blocked  the model's blocked attention path at qwen3-14b's width: (a)
             ``attn_core`` at one layer's shape (Q = S = 8,448: past the
             8,192 threshold, the last 1,024-block padded) against the flat
@@ -1185,11 +1213,18 @@ def phase_flash(flash_attention, attention_ref, attention, counters, card):
 # Phases 5, 6, 9 and 10: serve at full width, then the lockstep checks
 # ---------------------------------------------------------------------------
 
-def run_serve(cfg, params, waves, kernel_fn, tag="serve", **kw):
+def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
+              **kw):
     """The main path: ``serve`` over ``waves`` with every kernel's launch
     count set to 0 just before and read just after (``kernel_fn``'s is
-    returned; the others must stay 0); every prefill and decode call of the
-    engine is watched for non-finite logits."""
+    returned; the others must stay 0); every prefill dispatch and decode
+    step of the engine is watched for non-finite logits (a decode step's
+    after its replay, outside the graph). The decode step is captured
+    (``capture_step``, the engine's default) or run eagerly, on a compile
+    cache of its own (freed with the engine); ``eng.capture`` notes the
+    step's source and the cache's capture and replay counts."""
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1197,17 +1232,21 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", **kw):
     from repro_torch.serve import engine as engine_mod
     counters = (paged_attention, ssd_scan, flash_attention)
     finite = []
-    saved = engine_mod.paged_prefill, engine_mod.paged_decode_step
+    saved = engine_mod.paged_prefill, engine_mod.PagedServeEngine._decode
 
-    def watched(fn):
-        def wrapper(*args, **kw):
-            logits, pool = fn(*args, **kw)
-            finite.append(bool(torch.isfinite(logits).all()))
-            return logits, pool
-        return wrapper
+    def prefill(*args, **kw):
+        logits, pool = saved[0](*args, **kw)
+        finite.append(bool(torch.isfinite(logits).all()))
+        return logits, pool
 
-    engine_mod.paged_prefill, engine_mod.paged_decode_step = map(watched,
-                                                                 saved)
+    def decode(self, *args, **kw):
+        logits = saved[1](self, *args, **kw)
+        finite.append(bool(torch.isfinite(logits).all()))
+        return logits
+
+    engine_mod.paged_prefill, engine_mod.PagedServeEngine._decode = (
+        prefill, decode)
+    backend = ArrayBackend(cache=CompileCache())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -1215,15 +1254,27 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", **kw):
             fn.launches = 0
         paged_attention.routes = dict.fromkeys(paged_attention.routes, 0)
         ssd_scan.routes = dict.fromkeys(ssd_scan.routes, 0)
-        eng = serve(cfg, params, waves, device=DEV, **kw)
+        eng = serve(cfg, params, waves, device=DEV, backend=backend,
+                    capture_step=capture_step, **kw)
         torch.cuda.synchronize()
         launches = kernel_fn.launches
         others = {fn.__name__: fn.launches for fn in counters
                   if fn is not kernel_fn}
     finally:
-        engine_mod.paged_prefill, engine_mod.paged_decode_step = saved
-    print(f"[{tag}] {cfg.name}: launches of the other kernels "
-          f"{json.dumps(others)}")
+        engine_mod.paged_prefill, engine_mod.PagedServeEngine._decode = saved
+    st = backend.cache.stats
+    eng.capture = dict(source=eng.stats["compile_sources"]["step"],
+                       captures=st["captures"], replays=st["replays"],
+                       t_capture_s=st["t_capture_s"])
+    print(f"[{tag}] {cfg.name}: decode step {eng.capture['source']}"
+          + (f", {st['captures']} capture ({st['t_capture_s']:.2f}s with "
+             f"its warm-up step), {st['replays']} replays of "
+             f"{eng.stats['steps']} steps" if capture_step else "")
+          + f"; launches of the other kernels {json.dumps(others)}")
+    if capture_step:
+        check(eng.capture["source"] == "compiled" and st["captures"] == 1
+              and st["replays"] == eng.stats["steps"] - 1,
+              f"decode step not replayed from one graph: {eng.capture}")
     check(not any(others.values()), f"other kernels launched: {others}")
     check(all(r.done and len(r.out) == r.max_new for w in waves for r in w),
           "a request did not finish")
@@ -1242,7 +1293,8 @@ def serve_numbers(eng, wave, launches):
                 tokens=n_tok, tokens_per_s=n_tok / st["wall_s"],
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 prefix_hits=st["prefix_hits"], steps=st["steps"],
-                prefill_dispatches=st["prefill_dispatches"])
+                prefill_dispatches=st["prefill_dispatches"],
+                step=getattr(eng, "capture", None))
 
 
 def print_serve(tag, wave, out, card):
@@ -1261,7 +1313,7 @@ def greedy(logits):
             (top2[..., 0] - top2[..., 1]).cpu().numpy())
 
 def phase_serve(cfg, params, paged_attention, card, capacity=512,
-                tag="serve", routes=("split", "tile")):
+                tag="serve", routes=("split", "tile"), capture_step=True):
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(0)
     system = rng.integers(1, cfg.vocab, 64)
@@ -1274,12 +1326,12 @@ def phase_serve(cfg, params, paged_attention, card, capacity=512,
     eng, launches = run_serve(cfg, params, [first, wave], paged_attention,
                               tag=tag, slots=4, capacity=capacity,
                               page_size=16, kernel="paged",
-                              prefix_sharing=True)
+                              prefix_sharing=True, capture_step=capture_step)
     routes = check_paged_routes(eng, launches, paged_attention, cfg, tag,
                                 *routes)
     check(eng.stats["prefix_hits"] > 0, "no prefix hit")
     out = serve_numbers(eng, wave, launches)
-    out["routes"] = routes
+    out.update(routes=routes, outs=[list(r.out) for r in first + wave])
     print_serve(tag, wave, out, card)
     return out
 
@@ -1308,18 +1360,23 @@ def check_paged_routes(eng, launches, paged_attention, cfg, tag,
 
 
 def phase_lockstep(cfg, params, lens=(128,) * 4, npps=32, P=128,
-                   tag="lockstep"):
+                   tag="lockstep", graph=False):
     """From one set of params, ``paged_prefill`` of one batch of prompts
     (``lens``, right-padded to a whole page) + 4 greedy decode steps with
     kernel "paged" and with kernel "gather", each into a fresh pool over
     permuted page tables: greedy tokens agree up to the first near-tie.
+    With ``graph``: 8 steps, both on kernel "paged", the engine's decode
+    step run eagerly and captured (one graph, replayed), the logits'
+    largest difference printed.
     Each slot holds its prompt's pages and one for the decode rows at the
     head of an ``npps``-entry table (a dead tail of -1 entries past them,
     as ``[serve]``'s 32-entry tables at capacity 512) in a pool of ``P``
     pages; ``npps`` / ``P`` None size both to the live pages alone."""
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
     from repro_torch.models.lm import (paged_cache_init, paged_decode_step,
                                        paged_prefill)
-    ps, steps = 16, 4
+    ps, steps = 16, (8 if graph else 4)
     B, S = len(lens), -(-max(lens) // ps) * ps
     live = S // ps + 1                    # one page for the decode rows
     npps, P = npps or live, P or B * live
@@ -1332,35 +1389,263 @@ def phase_lockstep(cfg, params, lens=(128,) * 4, npps=32, P=128,
     toks = torch.from_numpy(r.integers(1, cfg.vocab, (B, S)).astype(
         np.int32)).to(DEV)
     lens = torch.tensor(lens, dtype=torch.int32, device=DEV)
-    runs = {}
-    for kernel in ("gather", "paged"):
+    runs, stacks = {}, {}
+    live = torch.ones((B,), dtype=torch.bool, device=DEV)
+    modes = ("eager", "graph") if graph else ("gather", "paged")
+    for mode in modes:
+        kernel = "paged" if graph else mode
+
+        def step_fn(p, kv, tb, t, po, lv):
+            return paged_decode_step(p, kv, tb, t, po, cfg, live=lv,
+                                     kernel=kernel)[0]
+
         pool = paged_cache_init(cfg, B, P, ps, DEV)
         lg, pool = paged_prefill(params, pool, tables, toks, lens, cfg,
                                  kernel=kernel)
         logits = [lg[:, 0].float()]
         pos = lens[:, None].clone()
+        step = step_fn
+        if mode == "graph":
+            step, _ = ArrayBackend(cache=CompileCache()).compile(
+                step_fn, (params, pool, tables, pos, pos, live),
+                bind_argnums=(0, 1))
         for _ in range(steps):
             t = torch.argmax(logits[-1], -1)[:, None].to(torch.int32)
-            lg, pool = paged_decode_step(params, pool, tables, t, pos, cfg,
-                                         kernel=kernel)
+            lg = step(params, pool, tables, t, pos, live)
             logits.append(lg[:, 0].float())
             pos = pos + 1
         lg = torch.stack(logits)                            # (steps+1, B, V)
-        check(bool(torch.isfinite(lg).all()), f"{kernel}: non-finite logits")
-        runs[kernel] = greedy(lg)
+        check(bool(torch.isfinite(lg).all()), f"{mode}: non-finite logits")
+        runs[mode] = greedy(lg)
+        stacks[mode] = lg
+        if mode == "graph":
+            check(step.replays == steps - 1,
+                  f"{tag}: {step.replays} replays of {steps} steps")
         del pool
-    (a, gaps), (b, _) = runs["gather"], runs["paged"]
+    (a, gaps), (b, _) = runs[modes[0]], runs[modes[1]]
+    d = float((stacks[modes[0]] - stacks[modes[1]]).abs().max())
     for s in range(B):
         diff = np.nonzero(a[:, s] != b[:, s])[0]
         if diff.size:
             check(gaps[diff[0], s] < ULP_TIE,
                   f"slot {s}: tokens diverge at step {diff[0]} with top-2 "
                   f"gap {gaps[diff[0], s]:.4f} >= {ULP_TIE}")
-    print(f"[{tag}] {cfg.name}: paged vs gather, prefill of prompts "
-          f"{lens.tolist()} (padded to {S}) + {steps} decode steps: tokens "
-          f"equal at {int((a == b).sum())}/{a.size} positions (first "
-          "divergence only at a near-tie); ok")
-    return dict(tokens_equal=int((a == b).sum()), tokens=int(a.size))
+    print(f"[{tag}] {cfg.name}: {modes[1]} vs {modes[0]}, prefill of "
+          f"prompts {lens.tolist()} (padded to {S}) + {steps} decode steps: "
+          f"tokens equal at {int((a == b).sum())}/{a.size} positions (first "
+          f"divergence only at a near-tie); logits max |diff| {d:.3e}; ok")
+    return dict(tokens_equal=int((a == b).sum()), tokens=int(a.size),
+                logits_max_abs_diff=d)
+
+
+# ---------------------------------------------------------------------------
+# The launch path: LLMapReduce, its backends, the Wine ABI
+# ---------------------------------------------------------------------------
+
+LAUNCH_N, LAUNCH_WAVE, LAUNCH_SERIAL = 16384, 8192, 256
+
+
+def launch_app(x):
+    """The launched application: one instance's (64,) item -> a scalar."""
+    return (x * x).sum()
+
+
+def phase_launch(card, counters):
+    """The paper's headline on the card: 16,384 instances of ``launch_app``
+    over (16,384, 64) f32 through ``LLMapReduce`` — the array backend (two
+    waves of 8,192), the pipelined backend (depth 2) and autoscaled waves,
+    each cold (a fresh compile cache: capture) and then warm (the same
+    cache: replays, every wave ``memory``); the serial VM baseline (a new
+    executable, warm-up and capture per instance) on 256. Every output is
+    held against numpy's float64 answer (relative 1e-5) and must come back
+    from the card."""
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.llmr import LLMapReduce
+    x = np.random.default_rng(0).standard_normal((LAUNCH_N, 64)).astype(
+        np.float32)
+    want = (x.astype(np.float64) ** 2).sum(-1)
+    runs = (("array", dict(scheduler="array", wave_size=LAUNCH_WAVE),
+             LAUNCH_N),
+            ("pipelined", dict(scheduler="pipelined", wave_size=LAUNCH_WAVE),
+             LAUNCH_N),
+            ("auto", dict(scheduler="array", wave_size="auto"), LAUNCH_N),
+            ("serial", dict(scheduler="serial"), LAUNCH_SERIAL))
+    for fn in counters:
+        fn.launches = 0
+    out = {}
+    for name, kw, n in runs:
+        cache = CompileCache()
+        reads = []
+        for when in ("cold", "warm"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, report = LLMapReduce(cache=cache, **kw).map_reduce(
+                launch_app, x[:n])
+            got = torch.stack(res) if isinstance(res, list) else res
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(got.device.type == "cuda" and got.shape == (n,),
+                  f"[launch] {name}: outputs {tuple(got.shape)} on "
+                  f"{got.device}")
+            err = float(np.max(np.abs(got.cpu().double().numpy() - want[:n])
+                               / np.abs(want[:n])))
+            check(err <= 1e-5, f"[launch] {name}: relative error {err:.2e}")
+            levels = {k: sum(r.levels()[k] for r in report.records)
+                      for k in ("sched", "node", "core")}
+            reads.append(dict(
+                wall_s=wall, instances_per_s=n / wall, waves=report.waves,
+                t_schedule_s=sum(r.t_schedule for r in report.records),
+                sources=[r.extra.get("compile_source")
+                         for r in report.records],
+                levels=levels, max_rel_err=err))
+            r = reads[-1]
+            print(f"[launch] {name} {when}: {n} instances in {wall:.4f}s "
+                  f"({r['instances_per_s']:.0f} instances/s), {r['waves']} "
+                  f"waves, t_schedule {r['t_schedule_s']:.4f}s, sources "
+                  f"{sorted(set(map(str, r['sources'])))}, levels "
+                  f"{json.dumps({k: round(v, 6) for k, v in levels.items()})}"
+                  f", max rel err {err:.2e}")
+        if name != "serial":
+            check(all(s == "memory" for s in reads[1]["sources"]),
+                  f"[launch] {name}: the warm launch compiled again: "
+                  f"{reads[1]['sources']}")
+        out[name] = dict(n=n, cold=reads[0], warm=reads[1],
+                         captures=cache.stats["captures"])
+    others = {fn.__name__: fn.launches for fn in counters}
+    check(not any(others.values()), f"[launch] kernels launched: {others}")
+    print(f"[launch] warm array launch: {out['array']['warm']['wall_s']:.4f}s"
+          f" for {LAUNCH_N} instances (cold {out['array']['cold']['wall_s']:.4f}"
+          f"s, t_schedule {out['array']['cold']['t_schedule_s']:.4f}s cold -> "
+          f"{out['array']['warm']['t_schedule_s']:.4f}s warm); serial "
+          f"{out['serial']['warm']['instances_per_s']:.0f} instances/s; the "
+          f"app launches none of the port's kernels; on {card}")
+    return out
+
+
+def _wine_batch(specs, vocab, r, position):
+    """One seeded step of inputs for ``specs`` on the card."""
+    batch = {}
+    for k, v in specs.items():
+        if k == "positions":
+            batch[k] = torch.full(v.shape, position, dtype=v.dtype)
+        elif v.dtype == torch.int32:
+            batch[k] = torch.from_numpy(r.integers(1, vocab, v.shape).astype(
+                np.int32))
+        else:
+            batch[k] = torch.from_numpy(r.standard_normal(v.shape).astype(
+                np.float32)).to(v.dtype)
+    return {k: t.to(DEV) for k, t in batch.items()}
+
+
+WINE_LOGIT_ATOL = 3e-2          # tests/test_torch_lm.py: LOGIT_ATOL
+
+
+def phase_wine(card, counters):
+    """Every architecture (smoke width) loaded in the prefill and the
+    decode mode through one ``WineAdapter`` and run two steps: the first
+    is the warm-up of the capture, the second a replay of the graph. Each
+    replay's logits are finite and held against the eager translation on
+    the same inputs (decode: two eager ``decode_step`` calls on a copy of
+    the instance's rings) within the port's bf16 limit; the SSD-scan
+    kernel's launches over the mamba2 / zamba2 prefill replays must be
+    > 0. A second adapter on the same cache reads ``memory`` for all
+    twenty apps."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.wine import WineAdapter, WineApp
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import tree_map
+    cache = CompileCache()
+    adapter = WineAdapter(backend=ArrayBackend(cache=cache))
+    r = np.random.default_rng(4)
+    apps = [WineApp(arch=a, mode=m, shape=f"{m}_32k", smoke=True)
+            for a in ARCHS for m in ("prefill", "decode")]
+    for fn in counters:
+        fn.launches = 0
+    rows, ssd_replay = {}, {}
+    for app in apps:
+        t0 = time.perf_counter()
+        inst = adapter.load(app)
+        specs = adapter.input_specs(app)
+        b = [_wine_batch(specs, inst.cfg.vocab, r, i) for i in range(2)]
+        if app.mode == "decode":
+            params, rings = inst.state
+            rings = tree_map(lambda t: t.clone(), rings)
+        inst.run(b[0])
+        n0 = ssd_scan.launches
+        got = inst.run(b[1])
+        torch.cuda.synchronize()
+        n_ssd = ssd_scan.launches - n0
+        if app.mode == "prefill":
+            got = got[0]
+            want = inst.raw_fn(inst.state, b[1])[0]
+        else:
+            for step in b:
+                want, rings = lm.decode_step(params, rings, step["tokens"],
+                                             step["positions"], inst.cfg,
+                                             enc_out=step.get("enc_out"))
+        diff = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got.float()).all()),
+              f"[wine] {app.arch} {app.mode}: non-finite logits")
+        check(diff <= WINE_LOGIT_ATOL, f"[wine] {app.arch} {app.mode}: "
+              f"replay vs eager max |diff| {diff:.3e}")
+        check(inst.step_fn.replays == 1, f"[wine] {app.arch} {app.mode}: "
+              f"{inst.step_fn.replays} replays")
+        if app.mode == "prefill" and app.arch in ("mamba2-1.3b",
+                                                  "zamba2-7b"):
+            ssd_replay[app.arch] = n_ssd
+        rows[f"{app.arch}/{app.mode}"] = dict(
+            source=inst.load_report["compile_source"], max_abs_diff=diff,
+            ssd_launches_in_replay=n_ssd,
+            wall_s=time.perf_counter() - t0)
+        print(f"[wine] {app.arch:17s} {app.mode:7s} {tuple(got.shape)}: "
+              f"{inst.load_report['compile_source']}, replay vs eager max "
+              f"|diff| {diff:.3e}, SSD launches in the replay {n_ssd}, "
+              f"{time.perf_counter() - t0:.2f}s")
+    check(all(v > 0 for v in ssd_replay.values()) and len(ssd_replay) == 2,
+          f"[wine] SSD launches over the SSM prefill replays {ssd_replay}")
+    second = WineAdapter(backend=ArrayBackend(cache=cache))
+    sources = [second.load(app).load_report["compile_source"] for app in apps]
+    check(sources == ["memory"] * len(apps),
+          f"[wine] second adapter: {sources}")
+    counts = {fn.__name__: fn.launches for fn in counters}
+    print(f"[wine] {len(apps)} apps: every replay finite and within "
+          f"{WINE_LOGIT_ATOL} of the eager step; SSD launches over the "
+          f"mamba2 / zamba2 prefill replays {json.dumps(ssd_replay)}; a "
+          f"second adapter on the cache read memory for all {len(apps)}; "
+          f"launches {json.dumps(counts)}; {cache.stats['captures']} "
+          f"captures in {cache.stats['t_capture_s']:.2f}s; on {card}")
+    return dict(apps=rows, ssd_launches_in_prefill_replays=ssd_replay,
+                second_adapter_sources=sorted(set(sources)),
+                captures=cache.stats["captures"],
+                t_capture_s=cache.stats["t_capture_s"])
+
+
+def phase_serve_graph(cfg, params, paged_attention, card, eager):
+    """``[serve]``'s traffic again with the decode step captured (one graph
+    for the run, replayed every step): every replayed step counted on the
+    split route, its numbers beside the eager ``[serve]`` reading of the
+    same run, its tokens beside ``[serve]``'s, and the gate: a lockstep of
+    the captured step against eager ``paged_decode_step`` calls."""
+    out = phase_serve(cfg, params, paged_attention, card, tag="serve-graph")
+    same = sum(a == b for x, y in zip(out["outs"], eager["outs"])
+               for a, b in zip(x, y))
+    total = sum(len(x) for x in out["outs"])
+    print(f"[serve-graph] {cfg.name}: graph vs eager step (one run): TTFT "
+          f"p50 {out['ttft_p50_s'] * 1e3:.1f} vs "
+          f"{eager['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{out['tpot_p50_s'] * 1e3:.2f} vs {eager['tpot_p50_s'] * 1e3:.2f} "
+          f"ms, {out['tokens_per_s']:.1f} vs {eager['tokens_per_s']:.1f} "
+          f"tokens/s; capture {out['step']['t_capture_s']:.2f}s (with its "
+          f"warm-up step); peak memory {out['peak_bytes'] / 2**30:.2f} vs "
+          f"{eager['peak_bytes'] / 2**30:.2f} GiB; served tokens equal to "
+          f"[serve]'s at {same}/{total}")
+    out["tokens_equal_to_eager_serve"] = [same, total]
+    out["lockstep"] = phase_lockstep(cfg, params, tag="lockstep-graph",
+                                     graph=True)
+    return out
 
 
 def count_calls(module, name, calls):
@@ -1521,7 +1806,8 @@ def phase_serve_ssm(cfg, params, ssd_scan, card):
     wave = [Request(rid=i, prompt=rng.integers(1, cfg.vocab,
                                                512 if i % 2 == 0 else 192),
                     max_new=16) for i in range(8)]
-    eng, launches = run_serve(cfg, params, [wave], ssd_scan, slots=4,
+    eng, launches = run_serve(cfg, params, [wave], ssd_scan, tag="serve-ssm",
+                              slots=4,
                               capacity=1024, page_size=16, kernel="auto")
     st = eng.stats
     layers = cfg.n_layers
@@ -1774,8 +2060,44 @@ def phase_profile(cfg, params, steps=3, S=128, tag="profile", moe=False):
         blocks.moe_apply = saved
 
 
-def _profile_steps(cfg, params, steps, S, tag, moe):
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                     "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+                     "cuLaunchKernelEx", "cudaLaunchKernelExC")
+
+
+def _profile(step, steps):
+    """``torch.profiler`` over ``steps`` calls of ``step``: (host wall a
+    step in s, {kernel: (device ms a step, launches a step)}, the CPU-side
+    runtime calls that put work on the card a step (kernel and graph
+    launches, async copies and sets), the moe_apply range's device ms)."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    kern, host, moe_ms = {}, 0.0, 0.0
+    for e in prof.key_averages():
+        if e.key == "moe_apply":             # the range, not a kernel
+            if e.device_type.name == "CPU":
+                moe_ms = getattr(e, "device_time_total", getattr(
+                    e, "cuda_time_total", 0)) / steps / 1e3
+            continue
+        if e.device_type.name == "CPU" and e.key in HOST_LAUNCH_CALLS:
+            host += e.count / steps
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0 and e.device_type.name == "CUDA":
+            kern[e.key] = (dev_us / steps / 1e3, e.count / steps)
+    return wall, kern, host, moe_ms
+
+
+def _profile_steps(cfg, params, steps, S, tag, moe):
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
     from repro_torch.models.lm import (paged_cache_init, paged_decode_step,
                                        paged_prefill)
     B, ps, npps, P = 4, 16, 32, 128
@@ -1790,61 +2112,74 @@ def _profile_steps(cfg, params, steps, S, tag, moe):
                              kernel="paged")
     t = torch.argmax(lg[:, 0], -1)[:, None].to(torch.int32)
     pos = lens[:, None].clone()
+    live = torch.ones((B,), dtype=torch.bool, device=DEV)
 
-    def step():
-        nonlocal t, pos, pool
-        lg, pool = paged_decode_step(params, pool, tables, t, pos, cfg,
-                                     kernel="paged")
-        t = torch.argmax(lg[:, 0], -1)[:, None].to(torch.int32)
-        pos = pos + 1
-        t.cpu()                              # the engine reads every token
+    def step_fn(p, kv, tb, tt, po, lv):
+        return paged_decode_step(p, kv, tb, tt, po, cfg, live=lv,
+                                 kernel="paged")[0]
 
-    step()                                   # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps
-    kern, moe_ms = {}, 0.0
-    for e in prof.key_averages():
-        if e.key == "moe_apply":             # the range, not a kernel
-            if e.device_type.name == "CPU":
-                moe_ms = getattr(e, "device_time_total", getattr(
-                    e, "cuda_time_total", 0)) / steps / 1e3
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0 and e.device_type.name == "CUDA":
-            kern[e.key] = (dev_us / steps / 1e3, e.count / steps)
-    busy = sum(ms for ms, _ in kern.values())
-    n_kernels = sum(n for _, n in kern.values())
-    print(f"[{tag}] {cfg.name} decode step at full width ({B} slots after "
-          f"a {S}-token prefill, kernel paged): host wall "
-          f"{wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
-          f"({busy / (wall * 1e3):.1%}), {n_kernels:.0f} kernels a step")
-    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"[{tag}]   {ms:8.3f} ms {n:6.0f}x  {name[:90]}")
-    paged = {n: v for n, v in kern.items() if "paged_" in n}
-    paged_ms = sum(ms for ms, _ in paged.values())
-    print(f"[{tag}] paged-attention kernels: {paged_ms:.3f} ms of device "
-          f"time a step in {sum(n for _, n in paged.values()):.0f} launches")
-    check(busy > 0, "the profiler saw no device time")
-    out = dict(wall_ms=wall * 1e3, busy_ms=busy, kernels=n_kernels,
-               paged_ms=paged_ms)
-    if moe:
-        floor = moe_weight_bytes(params) / HBM_BYTES_PER_S * 1e3
-        print(f"[{tag}] MoE layers (router, dense one-hot dispatch, every "
-              f"expert's products): {moe_ms:.3f} ms of device time a step "
-              f"({moe_ms / busy:.1%} of busy"
-              + ("; not measured: the profiler attributed no kernel to the "
-                 "range" if moe_ms == 0 else "")
-              + f"); reading every expert's weights once "
-              f"({moe_weight_bytes(params) / 1e9:.2f} GB) takes at least "
-              f"{floor:.3f} ms at 3.35 TB/s")
-        out.update(moe_ms=moe_ms, moe_weight_floor_ms=floor)
+    # the engine's step: eager, then captured once and replayed
+    graph, _ = ArrayBackend(cache=CompileCache()).compile(
+        step_fn, (params, pool, tables, t, pos, live), bind_argnums=(0, 1))
+
+    def stepper(fn):
+        def step():
+            nonlocal t, pos
+            lg = fn(params, pool, tables, t, pos, live)
+            t = torch.argmax(lg[:, 0], -1)[:, None].to(torch.int32)
+            pos = pos + 1
+            t.cpu()                          # the engine reads every token
+        return step
+
+    out = {}
+    for mode, fn in (("eager", step_fn), ("graph", graph)):
+        step = stepper(fn)
+        step()                               # warm-up (graph: the capture)
+        step()
+        wall, kern, host, moe_ms = _profile(step, steps)
+        busy = sum(ms for ms, _ in kern.values())
+        n_kernels = sum(n for _, n in kern.values())
+        print(f"[{tag}] {cfg.name} decode step at full width ({B} slots "
+              f"after a {S}-token prefill, kernel paged), {mode}: host wall "
+              f"{wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
+              f"({busy / (wall * 1e3):.1%}), {n_kernels:.0f} kernels a step "
+              f"on the card, {host:.0f} launch calls a step from the host")
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])
+        for name, (ms, n) in top[:8 if mode == "eager" else 3]:
+            print(f"[{tag}]   {ms:8.3f} ms {n:6.0f}x  {name[:90]}")
+        paged = {n: v for n, v in kern.items() if "paged_" in n}
+        paged_ms = sum(ms for ms, _ in paged.values())
+        print(f"[{tag}] paged-attention kernels ({mode}): {paged_ms:.3f} ms "
+              f"of device time a step in "
+              f"{sum(n for _, n in paged.values()):.0f} launches")
+        r = dict(wall_ms=wall * 1e3, busy_ms=busy, kernels=n_kernels,
+                 host_launch_calls=host, paged_ms=paged_ms)
+        if mode == "eager":
+            check(busy > 0, "the profiler saw no device time")
+            out.update(r)
+            if moe:
+                floor = moe_weight_bytes(params) / HBM_BYTES_PER_S * 1e3
+                print(f"[{tag}] MoE layers (router, dense one-hot dispatch, "
+                      f"every expert's products): {moe_ms:.3f} ms of device "
+                      f"time a step ({moe_ms / busy:.1%} of busy"
+                      + ("; not measured: the profiler attributed no kernel "
+                         "to the range" if moe_ms == 0 else "")
+                      + f"); reading every expert's weights once "
+                      f"({moe_weight_bytes(params) / 1e9:.2f} GB) takes at "
+                      f"least {floor:.3f} ms at 3.35 TB/s")
+                out.update(moe_ms=moe_ms, moe_weight_floor_ms=floor)
+        else:
+            check(graph.replays >= steps + 1,
+                  f"[{tag}] the graph replayed {graph.replays} times")
+            out["graph"] = r
+    g = out["graph"]
+    print(f"[{tag}] replayed vs eager step: host wall {g['wall_ms']:.2f} vs "
+          f"{out['wall_ms']:.2f} ms, device busy {g['busy_ms']:.2f} vs "
+          f"{out['busy_ms']:.2f} ms"
+          + (" (the profiler saw no kernel inside the replays: busy not "
+             "measured)" if g["busy_ms"] == 0 else "")
+          + f", host launch calls {g['host_launch_calls']:.0f} vs "
+          f"{out['host_launch_calls']:.0f} a step")
     return out
 
 
@@ -2140,13 +2475,22 @@ def main() -> int:
     rec_ssd = phase_ssd(ssd_scan, ssd_chunked_ref, card)
     # before any weights are on the card: the plain version's score tensors
     # take up to ~26 GB at the largest shapes
+    counters = (paged_attention, ssd_scan, flash_attention)
     flash_launches, rec_flash = phase_flash(
-        flash_attention, attention_ref, ops.attention,
-        (paged_attention, ssd_scan, flash_attention), card)
+        flash_attention, attention_ref, ops.attention, counters, card)
+    t0 = time.perf_counter()
+    launch = phase_launch(card, counters)
+    print(f"[launch] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    wine = phase_wine(card, counters)
+    print(f"[wine] phase wall {time.perf_counter() - t0:.1f}s")
 
     cfg = get_config("qwen3-14b")
     params = draw(cfg, init_params, "serve")
-    srv = phase_serve(cfg, params, paged_attention, card)
+    srv = phase_serve(cfg, params, paged_attention, card, capture_step=False)
+    t0 = time.perf_counter()
+    graph = phase_serve_graph(cfg, params, paged_attention, card, srv)
+    print(f"[serve-graph] phase wall {time.perf_counter() - t0:.1f}s")
     srv["lockstep"] = phase_lockstep(cfg, params)
     srv["profile"] = phase_profile(cfg, params)
     blocked = phase_blocked(cfg, params, card)
@@ -2202,7 +2546,6 @@ def main() -> int:
 
     # deepseek-v2-236b is 439 GiB: its first (dense) layer and 4 of its 59
     # MoE layers, every width as published
-    counters = (paged_attention, ssd_scan, flash_attention)
     cfg = cut_depth(get_config("deepseek-v2-236b"), 4)
     t0 = time.perf_counter()
     params = draw(cfg, init_params, "serve-mla", note=" (depth cut from "
@@ -2236,8 +2579,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    paged_phases = {"serve": srv, "serve-window": win, "serve-moe": moe,
-                    "serve-mla": mla}
+    paged_phases = {"serve": srv, "serve-graph": graph,
+                    "serve-window": win, "serve-moe": moe, "serve-mla": mla}
+    for r in (srv, graph, moe, mla):
+        r.pop("outs", None)
     dec = rec["decode"]
     keep = ("route", "ms", "device_ms", "device_parts", "plain_ms",
             "bound_ms", "bound_by", "sdpa_ms", "max_abs_err",
@@ -2293,7 +2638,10 @@ def main() -> int:
             "bound_by", "library_ms", "shape")},
         "shapes": {n: r for n, r in rec_flash.items() if n != "qwen3-14b"},
     }]
+    print(f"[launch] summary {json.dumps(launch)}")
+    print(f"[wine] summary {json.dumps(wine)}")
     print(f"[serve] summary {json.dumps(srv)}")
+    print(f"[serve-graph] summary {json.dumps(graph)}")
     print(f"[serve-ssm] summary {json.dumps(ssm)}")
     print(f"[blocked] summary {json.dumps(blocked)}")
     print(f"[serve-window] summary {json.dumps(win)}")

@@ -9,7 +9,9 @@ given, and fails without one. Weights are random, drawn
 on the device from a seeded ``torch.Generator``. ``--batch-frac`` marks a
 fraction of the trace as batch-class filler so the priority split shows up
 in the per-class TTFT/TPOT table. ``serve()`` is the entry point the CLI
-and ``chip_smoke.py`` share.
+and ``chip_smoke.py`` share. The engine's decode step is compiled through
+one ``ArrayBackend`` (on the card: a captured CUDA graph, replayed every
+step). The last line names the compile cache's sources and counters.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.core.backend import ArrayBackend
 from repro_torch.core.telemetry import (class_summary, serve_table,
                                         slo_attainment)
 from repro_torch.kernels.ops import resolve_device
@@ -43,17 +46,30 @@ def serve(cfg: ModelConfig, params: dict, waves: Sequence[List[Request]], *,
           page_size: int = 16, pool_pages: Optional[int] = None,
           batched_prefill: bool = True, kernel: str = "auto",
           prefix_sharing: bool = False,
-          target_first_result_s: Optional[float] = None) -> PagedServeEngine:
+          target_first_result_s: Optional[float] = None,
+          backend: Optional[ArrayBackend] = None,
+          capture_step: bool = True) -> PagedServeEngine:
     """Serve each wave of requests to completion, in order, on ONE engine
     (a later wave finds the prefixes an earlier one registered), print the
-    last wave's report, and return the engine."""
-    sched = AdmissionScheduler(target_first_result_s=target_first_result_s)
+    last wave's report and the compile cache's line, and return the
+    engine. ``backend`` (default: a new ``ArrayBackend`` on ``device`` over
+    the process-wide cache) compiles the decode step; ``capture_step=False``
+    runs it eagerly."""
+    if backend is None:
+        # the SLO knob is set ONCE, on the shared backend: the admission
+        # scheduler preempts against it, and any LLMapReduce built over
+        # this backend hands it to its WaveController
+        backend = ArrayBackend(device=device,
+                               target_first_result_s=target_first_result_s)
+    sched = AdmissionScheduler(
+        target_first_result_s=backend.target_first_result_s)
     pages_per_slot = max(1, -(-capacity // page_size))
     eng = PagedServeEngine(cfg, params, slots=slots, page_size=page_size,
                            pages_per_slot=pages_per_slot,
                            pool_pages=pool_pages, scheduler=sched,
                            batched_prefill=batched_prefill, kernel=kernel,
-                           prefix_sharing=prefix_sharing, device=device)
+                           prefix_sharing=prefix_sharing, device=device,
+                           backend=backend, capture_step=capture_step)
     for wave in waves:
         before, n_rec = dict(eng.stats), len(eng.records)
         stats = eng.run(wave)
@@ -79,6 +95,10 @@ def serve(cfg: ModelConfig, params: dict, waves: Sequence[List[Request]], *,
           f"alloc_failures={ps['alloc_failures']} "
           f"prefix_hits={stats['prefix_hits']}")
     print(serve_table(recs, title=f"{cfg.name} paged"))
+    src = stats["compile_sources"]
+    print(f"compile cache: step={src.get('step')} "
+          f"prefills={sorted(v for k, v in src.items() if k != 'step')} "
+          f"stats={backend.cache.stats}")
     return eng
 
 

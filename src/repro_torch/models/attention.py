@@ -245,24 +245,72 @@ def _ring_update(cache: dict, new: dict, positions: torch.Tensor) -> dict:
 # ("paged"). Row -> page mapping matches ``models.lm.paged_scatter``:
 # virtual row v = pos % vcap lives in page table[v // ps] at offset v % ps.
 # A -1 table entry (stalled/dead slot) or -1 position (pad row) drops the
-# write: such rows are filtered out before the indexed store (a clamped
-# page 0 is never written).
+# write with no host sync, so a decode step can be captured in a CUDA
+# graph: a dropped row is sent to the leaf's SINK page, one page past its
+# last, which no table maps. Dropped rows may collide with each other
+# there, never with a kept row, so a real page only ever receives kept rows
+# — and a clamped page 0 is never written. Pool leaves carry their sink
+# page from ``models.lm.paged_cache_init`` (``sink`` set in the leaf);
+# a leaf made elsewhere gets one in place on its first write.
+
+def with_sink(leaf: torch.Tensor, axis: int = 0,
+              known: bool = False) -> torch.Tensor:
+    """``leaf``, pages on ``axis`` (0: one leaf; 1: a stack of repeats),
+    seen with one page more on that axis — its sink page — in the same
+    storage. Unless ``known``, a leaf without room for one is first moved,
+    in place (``Tensor.set_``: the same tensor object, new storage), into
+    storage that has it; never inside a CUDA graph capture, where that
+    would allocate from the graph's memory."""
+    P = leaf.shape[axis]
+    shape = list(leaf.shape)
+    shape[axis] = P + 1
+    if not known and not _has_sink(leaf, axis):
+        if leaf.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged leaf without a sink page inside a "
+                               "capture: build pools with paged_cache_init")
+        full = torch.empty(shape, dtype=leaf.dtype, device=leaf.device)
+        full.narrow(axis, P, 1).zero_()
+        view = full.narrow(axis, 0, P).copy_(leaf)
+        leaf.set_(full.untyped_storage(), view.storage_offset(), view.shape,
+                  view.stride())
+    return leaf.as_strided(shape, leaf.stride(), leaf.storage_offset())
+
+
+def _has_sink(leaf: torch.Tensor, axis: int) -> bool:
+    """Whether the page past ``leaf``'s last on ``axis`` is its own: the
+    pages are dense, a stack's repeats are P + 1 pages apart, and the
+    storage holds the last repeat's extra page."""
+    page = leaf.stride(axis)
+    P = leaf.shape[axis]
+    inner = leaf.select(axis, 0).select(0, 0) if axis else leaf[0]
+    if page != inner.numel() or not inner.is_contiguous():
+        return False
+    span = (P + 1) * page
+    if axis == 1:
+        if leaf.stride(0) != span:
+            return False
+        span += (leaf.shape[0] - 1) * leaf.stride(0)
+    return (leaf.device.type == "meta"
+            or (leaf.storage_offset() + span) * leaf.element_size()
+            <= leaf.untyped_storage().nbytes())
+
 
 def _paged_leaf_update(cache: dict, entries: dict,
                        positions: torch.Tensor) -> dict:
     """Scatter fresh (B,S) rows into the pool pages mapped by the table,
-    in place."""
+    in place; dropped rows land in the sink page."""
     table = cache["table"]                                    # (B, npps)
-    ps = cache["pos"].shape[1]
+    P, ps = cache["pos"].shape
     vcap = table.shape[1] * ps
     valid = positions >= 0
     v = torch.where(valid, positions % vcap, 0)
     page = torch.gather(table, 1, (v // ps).long())           # (B, S)
-    keep = (valid & (page >= 0)).nonzero(as_tuple=True)       # one sync
-    pg, off = page[keep].long(), (v % ps)[keep].long()
-    for k, rows in entries.items():
-        cache[k][pg, off] = rows[keep].to(cache[k].dtype)
-    cache["pos"][pg, off] = positions[keep].to(cache["pos"].dtype)
+    keep = valid & (page >= 0)
+    pg = torch.where(keep, page, P).long()                    # P: the sink
+    off = torch.where(keep, v % ps, 0).long()
+    known = bool(cache.get("sink"))
+    for k, rows in (*entries.items(), ("pos", positions)):
+        with_sink(cache[k], known=known)[pg, off] = rows.to(cache[k].dtype)
     return cache
 
 
@@ -276,7 +324,8 @@ def _paged_leaf_gather(cache: dict):
     def g(leaf):
         return leaf[cl].reshape(B, npps * ps, *leaf.shape[2:])
 
-    dense = {k: g(v) for k, v in cache.items() if k not in ("table", "pos")}
+    dense = {k: g(v) for k, v in cache.items()
+             if k not in ("table", "sink", "pos")}
     kpos = torch.where((table >= 0).repeat_interleave(ps, dim=1),
                        g(cache["pos"]), -1)
     return dense, kpos

@@ -27,9 +27,10 @@ from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.spec import BlockSpec, ModelConfig, ScanGroup
 from repro_torch.models.ssm import ssm_apply, ssm_cache_init, ssm_init
 
-# cache entries one tensor serves for every repeat of a group (a paged
-# leaf's page table, an SSM cache's stall mask): never indexed by repeat
-_PER_CALL = ("table", "live")
+# cache entries one value serves for every repeat of a group (a paged
+# leaf's page table and sink flag, an SSM cache's stall mask): never
+# indexed by repeat
+_PER_CALL = ("table", "sink", "live")
 
 
 def tree_map(fn, *trees):

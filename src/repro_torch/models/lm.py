@@ -30,7 +30,13 @@ Paged KV (the shared-pool serving path — ``repro_torch.serve``):
 
 Caches and the pool are updated IN PLACE; the functions return the same
 tree so call sites read like the reference's functional ones. At full width
-a copied pool per step would double its memory.
+a copied pool per step would double its memory, and a captured decode step
+(``core.compile_cache``) reads and writes the pool at the addresses it was
+captured with. Every attention leaf of a pool has one extra SINK page past
+its P pages (the tree shows the P pages; ``_paged_view`` flags the leaves
+``sink`` for the model's writes): a write that must be dropped — a pad row,
+a stalled slot, an unallocated page — lands there instead of being
+filtered out on the host, so no pool write needs a host sync.
 
 SSM state (conv windows and the recurrent state) is O(1) per slot and stays
 slot-dense in the pool: leaves of shape (repeats, slots, ...). A prefill
@@ -48,7 +54,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from repro_torch.models.attention import attn_cache_init
+from repro_torch.models.attention import attn_cache_init, with_sink
 from repro_torch.models.blocks import (group_apply, group_cache_init,
                                        group_init, tree_map)
 from repro_torch.models.layers import (embed_init, embed_logits, embed_lookup,
@@ -296,21 +302,26 @@ def paged_cache_init(cfg: ModelConfig, slots: int, n_pages: int,
                      page_size: int, device) -> list:
     """Pool caches: attention leaves paged over ``n_pages`` x ``page_size``
     (windowed layers use full pages too — windows are enforced by the pos
-    mask, not by ring truncation); SSM state stays per-slot dense."""
+    mask, not by ring truncation), each with its sink page behind it; SSM
+    state stays per-slot dense."""
     caches = []
     for g in cfg.groups:
         per_block = {}
         for i, b in enumerate(_unwindowed(g).pattern):
             c: dict = {}
             if b.attn is not None:
-                c["attn"] = attn_cache_init(n_pages, page_size, b.attn,
+                c["attn"] = attn_cache_init(n_pages + 1, page_size, b.attn,
                                             device)
             if b.ssm is not None:
                 c["ssm"] = ssm_cache_init(slots, cfg.d_model, b.ssm, device)
             per_block[str(i)] = c
-        caches.append(tree_map(
+        tree = tree_map(
             lambda a: a[None].expand((g.repeats,) + a.shape).clone(),
-            per_block))
+            per_block)
+        caches.append({bi: {kind: ({k: v[:, :n_pages] for k, v in
+                                    sub.items()} if kind == "attn" else sub)
+                            for kind, sub in btree.items()}
+                       for bi, btree in tree.items()})
     return caches
 
 
@@ -382,7 +393,7 @@ def paged_scatter(pool: list, dense: list, tables: torch.Tensor,
     A row is written only when the dense cache actually HOLDS its claimed
     position (``dense pos == claim`` — ring wrap and pad neutralization
     both make this false) and the target page is allocated; every other
-    row is filtered out before the store. SSM state is slot-dense, not
+    row goes to the leaf's sink page. SSM state is slot-dense, not
     paged: it is written at the ``slot_ids`` (B,) rows of the pool's slot
     axis (host ids; out-of-range ids drop, which is how dummy batch rows
     are discarded), or, when ``slot_ids`` is None (the decode path, where
@@ -394,16 +405,17 @@ def paged_scatter(pool: list, dense: list, tables: torch.Tensor,
         vcap = tables.shape[1] * ps
         v = torch.where(claim >= 0, claim % vcap, 0)
         page = torch.gather(tables, 1, (v // ps).long())         # (B, W)
-        off = v % ps
         cap_leaf = dense_sub["pos"].shape[2]
         j = torch.where(claim >= 0, claim % cap_leaf, 0)
         held = _rows_at(dense_sub["pos"], j)[0]                   # (B, W)
-        ok = ((claim >= 0) & (held == claim) & (page >= 0)).nonzero(
-            as_tuple=True)
-        pg, of = page[ok].long(), off[ok].long()
+        ok = (claim >= 0) & (held == claim) & (page >= 0)
+        # filtered rows go to the sink page (no host sync)
+        sink = pool_sub["pos"].shape[1]
+        pg = torch.where(ok, page, sink).long()
+        of = torch.where(ok, v % ps, 0).long()
         for k, leaf in pool_sub.items():
             rows = _rows_at(dense_sub[k], j)                      # (R,B,W,…)
-            leaf[:, pg, of] = rows[:, ok[0], ok[1]].to(leaf.dtype)
+            with_sink(leaf, axis=1)[:, pg, of] = rows.to(leaf.dtype)
         return pool_sub
 
     def ssm_fn(pool_sub, dense_sub):
@@ -462,7 +474,8 @@ def _paged_view(pool: list, tables: torch.Tensor,
                 fresh_ssm: Optional[int] = None,
                 live: Optional[torch.Tensor] = None) -> list:
     """Cache tree for the leaf-level paged path: every attention leaf
-    carries the pool pages plus ``table`` — one (B, npps) tensor that every
+    carries the pool pages (their sink page behind them: ``sink``) plus
+    ``table`` — one (B, npps) tensor that every
     repeat reads (``blocks.group_apply`` does not index it by repeat). SSM
     leaves pass through slot-dense (decode; with ``live``, stalled slots
     keep their state) or are replaced with fresh zero state for a
@@ -473,7 +486,12 @@ def _paged_view(pool: list, tables: torch.Tensor,
                     for k, v in sub.items()}
         return sub if live is None else {**sub, "live": live}
 
-    return _map_attn_subs(pool, lambda sub: {**sub, "table": tables}, ssm_fn)
+    def attn_fn(sub):
+        for v in sub.values():
+            with_sink(v, axis=1)            # the pool's leaves have one
+        return {**sub, "table": tables, "sink": True}
+
+    return _map_attn_subs(pool, attn_fn, ssm_fn)
 
 
 def paged_prefill(params: dict, pool: list, tables: torch.Tensor,

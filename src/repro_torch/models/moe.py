@@ -6,7 +6,10 @@ Tokens are routed through a dispatch tensor built from one-hot products
 per token with renormalized gates, each (token, choice) ranked in its
 expert's queue token-major, and a choice past the expert's ``capacity``
 dropped (Switch/GShard). The expert products are plain ``einsum``s, as the
-reference's are; the router product runs in float32.
+reference's are; the router product runs in float32. On the CPU a bf16
+product is summed in float32 and rounded once (``_einsum``), as XLA's CPU
+dot does: torch's own CPU bf16 GEMM sums in an order that depends on the
+host's ISA (AVX512-BF16 or not), so its roundings differ between machines.
 
 Two details the reference gets from JAX and the port must state:
   * ``jax.lax.top_k`` puts the lower index first on ties; ``torch.topk``
@@ -23,6 +26,16 @@ import torch.nn.functional as F
 from repro_torch.models.layers import fan_in_init
 from repro_torch.models.mlp import _act
 from repro_torch.models.spec import ModelConfig, MoeSpec
+
+
+def _einsum(sub: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum``; on the CPU, low-precision operands are summed in
+    float32 and the result rounded once to their dtype. On the card the
+    product stays in the operands' dtype (float32 accumulation there)."""
+    dt = ops[0].dtype
+    if ops[0].device.type != "cpu" or dt == torch.float32:
+        return torch.einsum(sub, *ops)
+    return torch.einsum(sub, *(o.float() for o in ops)).to(dt)
 
 
 def moe_init(gen, d_model: int, spec: MoeSpec, cfg: ModelConfig,
@@ -83,9 +96,9 @@ def dispatch_tensors(onehot: torch.Tensor, gate_w: torch.Tensor,
     choice axis (the 5-d one-hot product is never built)."""
     slot_oh = F.one_hot(kept.long(), C + 1)[..., :C].to(dtype)  # (G,gs,k,C)
     sel_oh = onehot.to(dtype)
-    dispatch = torch.einsum("gtke,gtkc->gtec", sel_oh, slot_oh)
-    combine = torch.einsum("gtke,gtkc->gtec",
-                           sel_oh * gate_w[..., None].to(dtype), slot_oh)
+    dispatch = _einsum("gtke,gtkc->gtec", sel_oh, slot_oh)
+    combine = _einsum("gtke,gtkc->gtec",
+                      sel_oh * gate_w[..., None].to(dtype), slot_oh)
     return dispatch, combine
 
 
@@ -106,17 +119,18 @@ def moe_apply(params: dict, x: torch.Tensor, spec: MoeSpec):
     probs, gate_w, _, kept, onehot = route(params, xg, spec)
     dispatch, combine = dispatch_tensors(onehot, gate_w, kept, C, xg.dtype)
 
-    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)            # (G,E,C,D)
-    h = torch.einsum("gecd,edf->gecf", xe, params["we_up"])
-    g = torch.einsum("gecd,edf->gecf", xe, params["we_gate"])
+    xe = _einsum("gtec,gtd->gecd", dispatch, xg)                 # (G,E,C,D)
+    h = _einsum("gecd,edf->gecf", xe, params["we_up"])
+    g = _einsum("gecd,edf->gecf", xe, params["we_gate"])
     h = _act(spec.activation)(g) * h
-    ye = torch.einsum("gecf,efd->gecd", h, params["we_down"])
-    y = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
+    ye = _einsum("gecf,efd->gecd", h, params["we_down"])
+    y = _einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
 
     if spec.n_shared:
-        hs = xg @ params["ws_up"]
-        gsh = xg @ params["ws_gate"]
-        y = y + (_act(spec.activation)(gsh) * hs) @ params["ws_down"]
+        hs = _einsum("gtd,df->gtf", xg, params["ws_up"])
+        gsh = _einsum("gtd,df->gtf", xg, params["ws_gate"])
+        hsh = _act(spec.activation)(gsh) * hs
+        y = y + _einsum("gtf,fd->gtd", hsh, params["ws_down"])
 
     # load-balance auxiliary loss (Switch-style)
     frac_tokens = onehot.sum(2).mean(1)                          # (G,E)

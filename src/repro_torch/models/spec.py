@@ -158,3 +158,34 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Shape cells assigned to this paper (seq_len, global_batch, mode)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                         # "train" | "prefill" | "decode"
+
+
+SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """A (shape, dtype) stand-in for a tensor that is not allocated: the
+    port's ``jax.ShapeDtypeStruct``. ``configs.input_specs`` returns them,
+    and ``core.compile_cache`` keys executables on them."""
+    shape: Tuple[int, ...]
+    dtype: object                     # a torch.dtype

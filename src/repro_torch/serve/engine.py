@@ -27,11 +27,19 @@ request requeued) when interactive work needs the pool or the slots.
   state at the divergence point is not in the pool, so prefix sharing is
   off for them; a stalled slot's state does not advance (``live``).
 
-PyTorch runs eagerly: the engine calls ``paged_prefill`` and
-``paged_decode_step`` directly, with the page tables as device tensors, and
-``stats["compile_sources"]`` reports ``"eager"`` for every shape. The pool
-tensors are updated in place. Entry points run on the card unless the
-caller passes ``device="cpu"``; without a card they raise.
+The decode step goes through ``backend.compile`` (a ``LaunchBackend``,
+default an ``ArrayBackend`` on the engine's device and the process-wide
+compile cache): on the card it is a CUDA graph captured on the first step
+and replayed after — one graph per (slots, pool shape, kernel) — and
+``stats["compile_sources"]["step"]`` reads ``"compiled"``, or ``"memory"``
+for a second engine on the same cache. The step always takes a static
+``live`` mask (all true when nothing is stalled) and the page tables,
+tokens and positions are copied into the graph's inputs; the weights and
+the pool are read and written in place at their own addresses.
+``capture_step=False`` runs the step eagerly (source ``"eager"``), the
+baseline the graph is measured against. Prefill and warm admission stay
+eager (``"eager"`` sources). Entry points run on the card unless the caller
+passes ``device="cpu"``; without a card they raise.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.backend import ArrayBackend
 from repro_torch.core.telemetry import (RequestRecord, class_summary,
                                         slo_attainment)
 from repro_torch.kernels.ops import resolve_device
@@ -244,7 +253,9 @@ class PagedServeEngine(_EngineBase):
                  kernel: str = "auto",
                  prefix_sharing: bool = False,
                  prefix_min_tokens: Optional[int] = None,
-                 device=None):
+                 device=None,
+                 backend: Optional[ArrayBackend] = None,
+                 capture_step: bool = True):
         if cfg.encoder is not None:
             raise ValueError(f"{cfg.name}: the paged engine serves "
                              "decoder-only models (it takes no encoder "
@@ -275,7 +286,25 @@ class PagedServeEngine(_EngineBase):
                                   else prefix_min_tokens)
         self._admit_order = 0                  # preemption recency clock
         self._admit_seq: List[int] = [0] * slots
-        self.stats["compile_sources"]["step"] = "eager"
+        self.backend = (backend if backend is not None
+                        else ArrayBackend(device=self.device))
+
+        def step_fn(p, kv, tables, t, po, live):
+            logits, _ = paged_decode_step(p, kv, tables, t, po, cfg,
+                                          live=live, kernel=kernel)
+            return logits
+
+        self._live = torch.ones((slots,), dtype=torch.bool,
+                                device=self.device)
+        if capture_step:
+            self._step, src = self.backend.compile(
+                step_fn, (params, self.kv, self.tables, self.tokens,
+                          self.pos, self._live), bind_argnums=(0, 1),
+                extras=("serve-paged-step", cfg.name, slots, pool_pages,
+                        page_size, pages_per_slot, kernel))
+        else:
+            self._step, src = step_fn, "eager"
+        self.stats["compile_sources"]["step"] = src
         self.stats.update({"prefix_hits": 0, "prefix_misses": 0,
                            "prefix_registered": 0, "cow_pages": 0,
                            "prefill_rows": 0})
@@ -628,14 +657,21 @@ class PagedServeEngine(_EngineBase):
             else:
                 self._preempt(victim)
 
+    def _decode(self, tables: torch.Tensor,
+                live: torch.Tensor) -> torch.Tensor:
+        """One decode step's logits (B, 1, V); the pool advances in place.
+        On the card the logits live in the graph's memory until the next
+        replay."""
+        return self._step(self.params, self.kv, tables, self.tokens,
+                          self.pos, live)
+
     def _step_executable(self) -> np.ndarray:
         if self._tables_dirty:
             self.tables = self._table_tensor(self.pool.table_array())
             self._tables_dirty = False
-        tbl = self.tables
-        keep = np.ones((self.slots,), bool)
-        live = None
+        tbl, live = self.tables, self._live
         if self._stalled:
+            keep = np.ones((self.slots,), bool)
             keep[list(self._stalled)] = False
             # a stalled slot must not write: a page-less stall drops its
             # KV write anyway, but a COW-stall's write would land in a
@@ -646,9 +682,7 @@ class PagedServeEngine(_EngineBase):
             masked[list(self._stalled)] = -1
             tbl = self._table_tensor(masked)
             live = torch.as_tensor(keep).to(self.device)
-        logits, self.kv = paged_decode_step(self.params, self.kv, tbl,
-                                            self.tokens, self.pos, self.cfg,
-                                            live=live, kernel=self.kernel)
+        logits = self._decode(tbl, live)
         nxt = torch.argmax(logits[:, 0], -1).to(torch.int32)
         if self._stalled:
             # stalled slots hold position: same token, same pos, identical

@@ -113,7 +113,9 @@ def test_engine_trace_matches_reference(arch, kernel):
     eng.run(t, max_steps=500)
     assert all(r.done for r in t)
     assert paged_attention.launches == launches       # CPU: plain version
-    assert eng.stats["compile_sources"]["step"] == "eager"
+    # the decode step went through the process-wide compile cache (an
+    # earlier engine of the same shapes may have compiled it already)
+    assert eng.stats["compile_sources"]["step"] in ("compiled", "memory")
     prompts, ref_outs = _reference_trace(arch)
     _assert_match_modulo_ties(cfg, params, prompts, ref_outs,
                               [r.out for r in t])

@@ -192,6 +192,53 @@ def test_moe_and_windowed_entry_points_need_the_card_unless_asked_for_cpu(
     eng.pool.check()
 
 
+def test_launch_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
+    """The launch path's entry points — ``LLMapReduce``, ``make_backend``,
+    ``WineAdapter``, ``CompileCache.compile`` — follow the same rule."""
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.llmr import LLMapReduce
+    from repro_torch.core.wine import WineAdapter
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.ones((4, 2), np.float32)
+    for make in (lambda d: LLMapReduce(device=d),
+                 lambda d: LLMapReduce(scheduler="serial", device=d),
+                 lambda d: make_backend("pipelined", device=d),
+                 lambda d: WineAdapter(device=d),
+                 lambda d: CompileCache().compile(lambda v: v, (x,),
+                                                  device=d)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(None)
+        make("cpu")
+    out, _ = LLMapReduce(device="cpu").map_reduce(lambda v: v.sum(), x)
+    assert out.device.type == "cpu"
+
+
+def test_launch_path_imports_with_jax_blocked():
+    """One launch through ``LLMapReduce`` and one Wine step, on the CPU,
+    in a process where ``import jax`` fails."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import numpy as np, torch\n"
+            "from repro_torch.core.llmr import LLMapReduce\n"
+            "from repro_torch.core.wine import WineAdapter, WineApp\n"
+            "out, rep = LLMapReduce(wave_size=4, device='cpu').map_reduce(\n"
+            "    lambda v: (v * v).sum(), np.ones((10, 3), np.float32))\n"
+            "assert out.tolist() == [3.0] * 10 and rep.waves == 3\n"
+            "ad = WineAdapter(device='cpu')\n"
+            "app = WineApp(arch='qwen3-14b', mode='decode',\n"
+            "              shape='decode_32k', smoke=True)\n"
+            "inst = ad.load(app)\n"
+            "b = {k: torch.ones(v.shape, dtype=v.dtype)\n"
+            "     for k, v in ad.input_specs(app).items()}\n"
+            "print(tuple(inst.run(b).shape))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["(4,", "1,", "512)"]
+
+
 def test_engine_refuses_encoder_decoder_configs():
     """The paged engine takes no encoder output, so whisper raises at
     construction, not at its first cross-attention."""
