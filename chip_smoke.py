@@ -95,14 +95,24 @@ non-zero:
             every output within 1e-5 (relative) of numpy's and on the
             card; instances/s, t_schedule and ``LaunchRecord.levels()``
             printed. The app launches none of the port's kernels.
-4b. wine    all ten architectures at smoke width, prefill and decode,
-            through one ``WineAdapter``: each app's first step is the
-            warm-up of its capture, its second a replay, held against the
-            eager translation on the same inputs (within 3e-2, the port's
-            bf16 limit; decode: against two eager ``decode_step`` calls);
-            the SSD-scan launches over the mamba2 / zamba2 prefill replays
-            must be > 0; a second adapter on the same cache reads "memory"
-            for all twenty.
+4b. wine    all ten architectures at smoke width, prefill, decode and
+            train (the default app: ``train_4k``, forward + backward +
+            AdamW), through one ``WineAdapter``: each app's first step is
+            the warm-up of its capture, its second a replay, held against
+            the eager translation on the same inputs (within 3e-2, the
+            port's bf16 limit; decode: against two eager ``decode_step``
+            calls; train: the replayed loss within 1e-3 relative of an
+            eager instance's from the same seed, on the same batches); the
+            SSD-scan launches over the mamba2 / zamba2 prefill and train
+            replays must be > 0; a second adapter on the same cache reads
+            "memory" for all thirty.
+4c. train-fault  ``resilient_train`` at smoke width (mamba2-1.3b-smoke, 4
+            x 512, the SSD kernel in every layer), the step captured,
+            checkpoints every 2 steps written asynchronously, a
+            ``WorkerFailure`` injected entering step 5: one restart from
+            step 4, the checkpoint restored INTO the bound tensors (no
+            address moves), one graph that keeps replaying, every loss and
+            the final params within 1e-5 of an uninterrupted run.
 5. serve    ``repro_torch.launch.serve.serve`` with qwen3-14b at its full
             published width (40 layers, d_model 5120, 40/8 heads, head_dim
             128, d_ff 17408, vocab 151936), random bf16 weights drawn on the
@@ -200,6 +210,27 @@ non-zero:
             (256 seeded patch embeddings + 128 tokens) through prefill into
             int8 KV rings, 8 decode steps at positions offset by the
             embeddings, held against the full forward (rel < 0.05).
+
+21. train-ssm  training at full width and depth: mamba2-1.3b (48 layers,
+            1.34 B params), 2 x 4,096 tokens of ``synth_batch`` data
+            (``reduced``: batch 256 -> 2), AdamW (lr 1e-3, 2 warmup steps),
+            remat on: 4 eager steps, then 4 steps from the same seeded
+            state through ``compile_step`` (a warm-up and capture, then
+            replays). Gates: every loss finite, the last below the first,
+            each replayed loss within 1e-3 relative of the eager one.
+            Printed: step ms, tokens/s, peak memory, SSD launches a step
+            (48 forward + 48 in remat's recompute) and the model-FLOP share
+            of the bf16 peak (6 x params x tokens). ssd-grad: layer 0 on
+            its real activations (the trained params): the scan columns'
+            gradients (w_x, w_B, w_C, w_dt, A_log) through the kernel's
+            autograd wrapper within 6e-2 of the plain version's, the scan
+            inputs' gradients within the SSD bounds (3e-4 f32, 6e-2 bf16);
+            control: the raw launch (no grad_fn) leaves w_B, w_C, w_dt and
+            A_log without a gradient.
+22. train   qwen3-14b at full width with its depth cut to 4 of 40 layers
+            (2.88 B params), 1 x 4,096: the gates and prints of 21, then one
+            eager step with microbatches=2 on 2 x 4,096 whose loss is held
+            within 1e-4 of the single-shot loss of the same rows.
 
 Every model's weights are freed before the next one is drawn; the script's
 total time is printed. The last three lines: the card's name and power
@@ -1541,15 +1572,16 @@ WINE_LOGIT_ATOL = 3e-2          # tests/test_torch_lm.py: LOGIT_ATOL
 
 
 def phase_wine(card, counters):
-    """Every architecture (smoke width) loaded in the prefill and the
-    decode mode through one ``WineAdapter`` and run two steps: the first
+    """Every architecture (smoke width) loaded in the prefill, decode and
+    train modes through one ``WineAdapter`` and run two steps: the first
     is the warm-up of the capture, the second a replay of the graph. Each
     replay's logits are finite and held against the eager translation on
     the same inputs (decode: two eager ``decode_step`` calls on a copy of
-    the instance's rings) within the port's bf16 limit; the SSD-scan
-    kernel's launches over the mamba2 / zamba2 prefill replays must be
-    > 0. A second adapter on the same cache reads ``memory`` for all
-    twenty apps."""
+    the instance's rings) within the port's bf16 limit; each train
+    replay's loss against an eager instance's from the same seed on the
+    same batches (TRAIN_LOSS_RTOL); the SSD-scan kernel's launches over the
+    mamba2 / zamba2 prefill and train replays must be > 0. A second
+    adapter on the same cache reads ``memory`` for all thirty apps."""
     from repro_torch.configs import ARCHS
     from repro_torch.core.backend import ArrayBackend
     from repro_torch.core.compile_cache import CompileCache
@@ -1562,9 +1594,10 @@ def phase_wine(card, counters):
     r = np.random.default_rng(4)
     apps = [WineApp(arch=a, mode=m, shape=f"{m}_32k", smoke=True)
             for a in ARCHS for m in ("prefill", "decode")]
+    apps += [WineApp(arch=a, smoke=True) for a in ARCHS]   # train, train_4k
     for fn in counters:
         fn.launches = 0
-    rows, ssd_replay = {}, {}
+    rows, ssd_replay, ssd_train = {}, {}, {}
     for app in apps:
         t0 = time.perf_counter()
         inst = adapter.load(app)
@@ -1578,6 +1611,31 @@ def phase_wine(card, counters):
         got = inst.run(b[1])
         torch.cuda.synchronize()
         n_ssd = ssd_scan.launches - n0
+        if app.mode == "train":
+            # an eager instance from the same seed, on the same batches
+            eager = adapter._init_state(app, inst.cfg, 0)
+            for step in b:
+                _, want = inst.raw_fn(eager, step)
+            got_l, want_l = float(got["loss"]), float(want["loss"])
+            rel = abs(got_l - want_l) / abs(want_l)
+            check(math.isfinite(got_l) and rel <= TRAIN_LOSS_RTOL,
+                  f"[wine] {app.arch} train: replayed loss {got_l} vs eager "
+                  f"{want_l}")
+            check(inst.step_fn.replays == 1 and int(
+                inst.state["opt"]["step"]) == 2,
+                f"[wine] {app.arch} train: {inst.step_fn.replays} replays, "
+                f"step {int(inst.state['opt']['step'])}")
+            if app.arch in ("mamba2-1.3b", "zamba2-7b"):
+                ssd_train[app.arch] = n_ssd
+            rows[f"{app.arch}/train"] = dict(
+                source=inst.load_report["compile_source"], loss=got_l,
+                eager_loss=want_l, rel=rel, ssd_launches_in_replay=n_ssd,
+                wall_s=time.perf_counter() - t0)
+            print(f"[wine] {app.arch:17s} train   loss {got_l:.6f}: "
+                  f"{inst.load_report['compile_source']}, replay vs eager "
+                  f"rel {rel:.2e}, SSD launches in the replay {n_ssd}, "
+                  f"{time.perf_counter() - t0:.2f}s")
+            continue
         if app.mode == "prefill":
             got = got[0]
             want = inst.raw_fn(inst.state, b[1])[0]
@@ -1606,6 +1664,8 @@ def phase_wine(card, counters):
               f"{time.perf_counter() - t0:.2f}s")
     check(all(v > 0 for v in ssd_replay.values()) and len(ssd_replay) == 2,
           f"[wine] SSD launches over the SSM prefill replays {ssd_replay}")
+    check(all(v > 0 for v in ssd_train.values()) and len(ssd_train) == 2,
+          f"[wine] SSD launches over the SSM train replays {ssd_train}")
     second = WineAdapter(backend=ArrayBackend(cache=cache))
     sources = [second.load(app).load_report["compile_source"] for app in apps]
     check(sources == ["memory"] * len(apps),
@@ -1613,11 +1673,16 @@ def phase_wine(card, counters):
     counts = {fn.__name__: fn.launches for fn in counters}
     print(f"[wine] {len(apps)} apps: every replay finite and within "
           f"{WINE_LOGIT_ATOL} of the eager step; SSD launches over the "
-          f"mamba2 / zamba2 prefill replays {json.dumps(ssd_replay)}; a "
+          f"mamba2 / zamba2 prefill replays {json.dumps(ssd_replay)} and "
+          f"train replays {json.dumps(ssd_train)} (forward + remat "
+          f"recompute); train losses replayed within {TRAIN_LOSS_RTOL} of "
+          f"eager; a "
           f"second adapter on the cache read memory for all {len(apps)}; "
           f"launches {json.dumps(counts)}; {cache.stats['captures']} "
           f"captures in {cache.stats['t_capture_s']:.2f}s; on {card}")
     return dict(apps=rows, ssd_launches_in_prefill_replays=ssd_replay,
+                ssd_launches_in_train_replays=ssd_train,
+                launches=counts,
                 second_adapter_sources=sorted(set(sources)),
                 captures=cache.stats["captures"],
                 t_capture_s=cache.stats["t_capture_s"])
@@ -2065,11 +2130,12 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                      "cuLaunchKernelEx", "cudaLaunchKernelExC")
 
 
-def _profile(step, steps):
+def _profile(step, steps, range_name="moe_apply"):
     """``torch.profiler`` over ``steps`` calls of ``step``: (host wall a
     step in s, {kernel: (device ms a step, launches a step)}, the CPU-side
     runtime calls that put work on the card a step (kernel and graph
-    launches, async copies and sets), the moe_apply range's device ms)."""
+    launches, async copies and sets), the ``range_name`` range's device
+    ms)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2081,7 +2147,7 @@ def _profile(step, steps):
         wall = (time.perf_counter() - t0) / steps
     kern, host, moe_ms = {}, 0.0, 0.0
     for e in prof.key_averages():
-        if e.key == "moe_apply":             # the range, not a kernel
+        if e.key == range_name:              # the range, not a kernel
             if e.device_type.name == "CPU":
                 moe_ms = getattr(e, "device_time_total", getattr(
                     e, "cuda_time_total", 0)) / steps / 1e3
@@ -2380,6 +2446,410 @@ def phase_vlm(cfg, params, card, counters, B=2, text=128, steps=8):
                 * 1e3, rel_err=err, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+TRAIN_LOSS_RTOL = 1e-3          # a replayed step's loss against the eager one
+TRAIN_MB_RTOL = 1e-4            # microbatches=2 against the single-shot loss
+TRAIN_FAULT_RTOL = 1e-5         # a resumed run against the uninterrupted one
+SSD_GRAD_TOL = {torch.float32: 3e-4, torch.bfloat16: 6e-2}   # the SSD bounds
+SCAN_COLUMNS = ("w_x", "w_B", "w_C", "w_dt", "A_log")
+
+
+def train_state(cfg, seed=0):
+    """``init_state`` (bf16 params, f32 moments, int32 step) drawn on the
+    card from ``seed``."""
+    from repro_torch.train.step import init_state
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    state = init_state(gen, cfg, DEV)
+    torch.cuda.synchronize()
+    return state
+
+
+def run_train_steps(step, state, batches, counters):
+    """Each batch through ``step``: its loss, gradient norm, host wall to
+    a synchronize (ms) and the launches of each counted kernel."""
+    rows = []
+    for b in batches:
+        before = [fn.launches for fn in counters]
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append(dict(loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"]), ms=ms,
+                         launches={fn.__name__: fn.launches - n for fn, n in
+                                   zip(counters, before)}))
+    return rows
+
+
+def phase_train(cfg, tag, B, S, counters, card, note="", microbatch=False):
+    """The train step at full width: ``steps`` eager steps, then the same
+    steps from the same seeded state through ``compile_step`` (the first
+    call is the warm-up and capture, the rest replay the CUDA graph). Gates:
+    every loss finite, each replayed loss within TRAIN_LOSS_RTOL of the
+    eager one, the last loss below the first. With ``microbatch``, one
+    eager step with microbatches=2 on a 2-row batch, its loss held to the
+    single-shot loss of those rows (the mean of the two rows' losses)."""
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import batch_fn, compile_step
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.train.optimizer import AdamWConfig
+    n_params = cfg.param_count()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    get = batch_fn(cfg, DataConfig(seq_len=S, global_batch=B,
+                                   vocab=cfg.vocab), DEV)
+    batches = [get(s) for s in range(4)]
+    tokens = B * S
+    out = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params,
+               batch=B, seq=S, tokens_a_step=tokens, lr=opt.lr,
+               warmup_steps=opt.warmup_steps)
+    for capture in (False, True):
+        mode = "replayed" if capture else "eager"
+        state = train_state(cfg)
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        cache = CompileCache()
+        step, source = compile_step(
+            cfg, opt, state, batches[0], capture_step=capture,
+            backend=ArrayBackend(cache=cache, device=DEV))
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+            if hasattr(fn, "routes"):
+                fn.routes = dict.fromkeys(fn.routes, 0)
+        rows = run_train_steps(step, state, batches, counters)
+        counts = {fn.__name__: fn.launches for fn in counters}
+        routes = {fn.__name__: dict(fn.routes) for fn in counters
+                  if fn.launches and hasattr(fn, "routes")}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [r["loss"] for r in rows]
+        check(all(math.isfinite(v) for v in losses),
+              f"[{tag}] {mode}: a loss is not finite: {losses}")
+        check(losses[-1] < losses[0],
+              f"[{tag}] {mode}: the last loss {losses[-1]} is not below the "
+              f"first {losses[0]}")
+        ms = statistics.median(r["ms"] for r in rows[1:])
+        out[mode] = dict(source=source, losses=losses,
+                         grad_norms=[r["grad_norm"] for r in rows],
+                         step_ms=[r["ms"] for r in rows], median_ms=ms,
+                         tokens_per_s=tokens / ms * 1e3, peak_gib=peak,
+                         state_gb=state_gb, launches=counts,
+                         launches_a_step=[r["launches"] for r in rows],
+                         routes=routes,
+                         captures=cache.stats["captures"],
+                         t_capture_s=cache.stats["t_capture_s"])
+        if capture:
+            check(source == "compiled" and cache.stats["captures"] == 1
+                  and step.replays == len(batches) - 1,
+                  f"[{tag}] source {source}, {cache.stats['captures']} "
+                  f"captures, {step.replays} replays")
+            ssm = any(b.ssm is not None for g in cfg.groups
+                      for b in g.pattern)
+            out["profile"] = profile_train_step(step, state, batches[0],
+                                                tag, card, eager=ssm)
+            params = state["params"]          # for the layer gate
+        print(f"[{tag}] {mode}: losses {[round(v, 4) for v in losses]}, "
+              f"step ms {[round(r['ms'], 1) for r in rows]} (median of "
+              f"steps 2-4 {ms:.1f}), {tokens / ms * 1e3:,.0f} tokens/s, "
+              f"peak {peak:.2f} GiB (state {state_gb:.2f} GB), launches "
+              f"{json.dumps(counts)}, by route {json.dumps(routes)}; on "
+              f"{card}")
+        del step, cache, state
+        torch.cuda.empty_cache()
+    eager, graph = out["eager"]["losses"], out["replayed"]["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(graph, eager))
+    out["replay_vs_eager_rel"] = worst
+    check(worst <= TRAIN_LOSS_RTOL, f"[{tag}] replayed losses {graph} vs "
+          f"eager {eager}: {worst:.2e} > {TRAIN_LOSS_RTOL}")
+    flops = 6 * n_params * tokens
+    ms = out["replayed"]["median_ms"]
+    per_step = {m: sorted({r["ssd_scan"] for r in out[m]["launches_a_step"]})
+                for m in ("eager", "replayed")}
+    out["model_flops_a_step"] = flops
+    out["mfu_bf16"] = flops / (ms / 1e3) / BF16_FLOPS
+    print(f"[{tag}] {cfg.name}{note}: {n_params / 1e9:.2f} B params, batch "
+          f"{B} x seq {S}; replayed losses within {worst:.2e} of eager "
+          f"(limit {TRAIN_LOSS_RTOL}); step {out['eager']['median_ms']:.1f} "
+          f"ms eager, {ms:.1f} ms replayed; model FLOPs a step 6 x params x "
+          f"tokens = {flops / 1e12:.1f} TFLOP (no recompute, no attention or "
+          f"scan FLOPs): {100 * out['mfu_bf16']:.1f}% of the 989 TFLOP/s "
+          f"bf16 peak; SSD launches a step {json.dumps(per_step)} (forward "
+          f"+ remat recompute); on {card}")
+    if microbatch:
+        state = train_state(cfg)
+        two = batch_fn(cfg, DataConfig(seq_len=S, global_batch=2,
+                                       vocab=cfg.vocab), DEV)(7)
+        with torch.no_grad():
+            single = sum(float(lm_loss(state["params"], {
+                k: v[i:i + 1] for k, v in two.items()}, cfg)[0])
+                for i in range(2)) / 2
+        step, _ = compile_step(cfg, opt, state, two, microbatches=2,
+                               capture_step=False)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, m = step(state, two)
+        mb = float(m["loss"])
+        torch.cuda.synchronize()
+        mb_ms = (time.perf_counter() - t0) * 1e3
+        rel = abs(mb - single) / abs(single)
+        out["microbatches2"] = dict(loss=mb, single_shot_loss=single,
+                                    rel=rel, ms=mb_ms,
+                                    peak_gib=torch.cuda.max_memory_allocated()
+                                    / 2 ** 30)
+        print(f"[{tag}] microbatches=2 on 2 x {S}: loss {mb:.6f} against the "
+              f"single-shot {single:.6f} (rel {rel:.2e}, limit "
+              f"{TRAIN_MB_RTOL}), {mb_ms:.1f} ms, peak "
+              f"{out['microbatches2']['peak_gib']:.2f} GiB")
+        check(math.isfinite(mb) and rel <= TRAIN_MB_RTOL,
+              f"[{tag}] microbatches=2 loss {mb} vs single-shot {single}")
+        del state, step
+        torch.cuda.empty_cache()
+        return out, None
+    return out, params
+
+
+GEMM_NAMES = re.compile(r"gemm|xmma|nvjet|cutlass", re.I)
+
+
+def profile_train_step(step, state, batch, tag, card, eager=False):
+    """One more replayed step under ``torch.profiler``: host wall, device
+    busy, the GEMMs' (cuBLAS) and the SSD kernel's device time, and the
+    kernels that take the most; with ``eager`` (SSM models) one eager step
+    too, for the device time of the SSD backward (the plain version
+    recomputed, inside the ``ssd_scan_backward`` range, which a graph's
+    replay does not record; the graph's pool is held meanwhile, which
+    qwen3's eager step would not fit beside). The state advances by each
+    step."""
+    wall, kern, host, _ = _profile(lambda: step(state, batch), 1)
+    busy = sum(ms for ms, _ in kern.values())
+    check(busy > 0, f"[{tag}] the profiler saw no device time in the step")
+    gemm = sum(ms for k, (ms, _) in kern.items() if GEMM_NAMES.search(k))
+    ssd = sum(ms for k, (ms, _) in kern.items() if "ssd_scan" in k)
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
+    out = dict(wall_ms=wall * 1e3, busy_ms=busy,
+               kernels=sum(n for _, n in kern.values()), gemm_ms=gemm,
+               ssd_kernel_ms=ssd, host_launch_calls=host,
+               top=[(k[:80], ms, n) for k, (ms, n) in top])
+    print(f"[{tag}] profile of a replayed step: host wall {wall * 1e3:.1f} "
+          f"ms, device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%),"
+          f" {out['kernels']:.0f} kernels, {host:.0f} host launch calls; "
+          f"GEMMs {gemm:.1f} ms ({100 * gemm / busy:.1f}% of busy), the SSD "
+          f"kernel {ssd:.2f} ms; on {card}")
+    for k, ms, n in out["top"]:
+        print(f"[{tag}]   {ms:9.2f} ms  x{n:5.0f}  {k}")
+    if not eager:
+        return out
+    e_wall, e_kern, _, bwd = _profile(lambda: step.fn(state, batch), 1,
+                                      range_name="ssd_scan_backward")
+    e_busy = sum(ms for ms, _ in e_kern.values())
+    out.update(eager_wall_ms=e_wall * 1e3, eager_busy_ms=e_busy,
+               ssd_backward_ms=bwd)
+    print(f"[{tag}] profile of an eager step: host wall {e_wall * 1e3:.1f} "
+          f"ms, device busy {e_busy:.1f} ms; the SSD backward (the plain "
+          f"version recomputed) {bwd:.1f} ms ({100 * bwd / e_busy:.1f}% of "
+          f"busy); on {card}")
+    return out
+
+
+def phase_ssd_grads(cfg, params, B, S, ssd_scan, card):
+    """One SSM layer (the first) at full width on its real input
+    activations (the trained params, ``batch``'s tokens): the gradients of
+    its scan columns (w_x, w_B, w_C, w_dt and A_log) through the kernel's
+    autograd wrapper against those through the plain version (the layer is
+    bf16: 6e-2), and the scan's own input gradients (x, dt, A, B, C at the
+    activations recorded in the layer) against the plain version's at the
+    SSD bounds (3e-4 f32, 6e-2 bf16). Control: the raw launch (no
+    autograd wrapper) leaves the scan columns w_B, w_C, w_dt and A_log
+    without a gradient."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.kernels.ssd_scan import ssd_chunked_ref
+    from repro_torch.launch.train import batch_fn
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.blocks import _repeat
+    from repro_torch.models.layers import embed_lookup, norm_apply
+    spec = cfg.groups[0].pattern[0].ssm
+    lp = _repeat(params["groups"][0]["stacked"]["0"], 0)
+    batch = batch_fn(cfg, DataConfig(seq_len=S, global_batch=B,
+                                     vocab=cfg.vocab), DEV)(0)
+    with torch.no_grad():
+        h = norm_apply(lp["norm_ssm"], embed_lookup(params["embed"],
+                                                    batch["tokens"]),
+                       cfg.norm, cfg.norm_eps)
+    B, S, _ = h.shape
+    pos = torch.arange(S, dtype=torch.int32, device=DEV)[None].expand(B, S)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(11)
+    G = torch.randn(h.shape, device=DEV, generator=g)
+    recorded = []
+
+    def kernel(x, dt, A, Bm, Cm, **kw):
+        recorded.append((x, dt, A, Bm, Cm, kw["chunk"]))
+        return ssd_scan(x, dt, A, Bm, Cm, **kw)
+
+    def plain(x, dt, A, Bm, Cm, *, chunk, out_dtype, return_state):
+        y, st = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+        return y.to(out_dtype), st
+
+    def raw(x, dt, A, Bm, Cm, *, chunk, out_dtype, return_state):
+        return ssd_mod._launch(x.detach(), dt.detach(), A.detach(),
+                               Bm.detach(), Cm.detach(), chunk, out_dtype,
+                               True, None)
+
+    def layer_grads(scan):
+        saved = ssm_mod.ssd_scan
+        ssm_mod.ssd_scan = scan
+        try:
+            live = {k: v.detach().requires_grad_()
+                    for k, v in lp["ssm"].items()}
+            y = ssm_mod.ssm_apply(live, h, spec, cfg, pos)
+            got = torch.autograd.grad((y.float() * G).sum(),
+                                      [live[n] for n in SCAN_COLUMNS],
+                                      allow_unused=True)
+        finally:
+            ssm_mod.ssd_scan = saved
+        return dict(zip(SCAN_COLUMNS, got))
+
+    t0 = time.perf_counter()
+    via_kernel, via_plain = layer_grads(kernel), layer_grads(plain)
+    layer_rel = {n: rel_err(via_kernel[n], via_plain[n])
+                 for n in SCAN_COLUMNS}
+    check(all(v <= SSD_GRAD_TOL[torch.bfloat16] for v in layer_rel.values()),
+          f"[ssd-grad] layer gradients through the kernel vs plain "
+          f"{layer_rel}")
+    control = layer_grads(raw)
+    missing = {n: control[n] is None or not bool(control[n].any())
+               for n in SCAN_COLUMNS[1:]}
+    check(all(missing.values()),
+          f"[ssd-grad] control: the raw launch still gives the scan "
+          f"columns a gradient: {missing}")
+    check(all(bool(via_kernel[n].any()) for n in SCAN_COLUMNS),
+          "[ssd-grad] a scan column's gradient through the wrapper is zero")
+    x, dt, A, Bm, Cm, chunk = recorded[0]
+    gy = torch.randn(x.shape, device=DEV, generator=g)
+    ins_rel = {}
+    for fn, key in ((kernel, "kernel"), (plain, "plain")):
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        y, _ = fn(*ins, chunk=chunk, out_dtype=torch.float32,
+                  return_state=True)
+        ins_rel[key] = torch.autograd.grad(y, ins, gy)
+    ins_rel = {n: (rel_err(a, b), str(a.dtype).replace("torch.", ""))
+               for n, a, b in zip("x dt A B C".split(), ins_rel["kernel"],
+                                  ins_rel["plain"])}
+    check(all(r <= SSD_GRAD_TOL[getattr(torch, d)]
+              for r, d in ins_rel.values()),
+          f"[ssd-grad] scan input gradients vs plain {ins_rel}")
+    out = dict(layer_rel=layer_rel, inputs_rel=ins_rel,
+               control_missing=missing, shape=[B, S, *x.shape[2:],
+                                               Bm.shape[-1]],
+               wall_s=time.perf_counter() - t0)
+    print(f"[ssd-grad] {cfg.name} layer 0 at B={B} S={S}: scan columns "
+          f"through the wrapper vs plain rel {json.dumps(layer_rel)} (limit "
+          f"6e-2, bf16 layer); scan input gradients rel "
+          f"{json.dumps(ins_rel)} (3e-4 f32, 6e-2 bf16); control (raw "
+          f"launch, no grad_fn): w_B, w_C, w_dt, A_log without gradient "
+          f"{json.dumps(missing)}; {out['wall_s']:.1f}s; on {card}")
+    return out
+
+
+def phase_train_fault(counters, card, n=8, fail_at=5):
+    """``resilient_train`` on the card at smoke width (mamba2-1.3b-smoke,
+    the SSD kernel in every layer) with the step captured, checkpoints
+    every 2 steps written asynchronously, and a ``WorkerFailure`` injected
+    entering step ``fail_at``: the run restores the last committed
+    checkpoint INTO the state's tensors and the same graph keeps replaying.
+    Gates: one restart from step 4; the state's addresses unchanged; one
+    graph; every loss of the interrupted run (the replayed steps too) and
+    the final parameters within TRAIN_FAULT_RTOL of an uninterrupted run
+    from the same seed."""
+    import shutil as _shutil
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import batch_fn, compile_step
+    from repro_torch.runtime.fault import (FaultConfig, WorkerFailure,
+                                           resilient_train)
+    from repro_torch.train.optimizer import AdamWConfig, leaves_with_path
+    cfg = get_config("mamba2-1.3b", smoke=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=n)
+    get = batch_fn(cfg, DataConfig(seq_len=512, global_batch=4,
+                                   vocab=cfg.vocab), DEV)
+    ckdir = Path(__file__).resolve().parent / "build" / "train_fault_ckpt"
+    _shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    runs = {}
+    for fn in counters:
+        fn.launches = 0
+    for name in ("uninterrupted", "interrupted"):
+        state = train_state(cfg)
+        ptrs = [x.data_ptr() for _, x in leaves_with_path(state)]
+        step, _ = compile_step(cfg, opt, state, get(0), backend=ArrayBackend(
+            cache=CompileCache(), device=DEV))
+        if name == "uninterrupted":
+            losses = []
+            for s in range(n):
+                state, m = step(state, get(s))
+                losses.append(float(m["loss"]))
+            report = None
+        else:
+            fired = []
+
+            def hook(s):
+                if s == fail_at and not fired:
+                    fired.append(s)
+                    raise WorkerFailure("injected node loss")
+
+            state, report = resilient_train(
+                step, state, get, n, FaultConfig(
+                    ckpt_dir=str(ckdir), ckpt_every=2, async_save=True),
+                failure_hook=hook)
+            losses = report.losses
+        torch.cuda.synchronize()
+        runs[name] = dict(losses=losses, report=report, step=step,
+                          moved=[x.data_ptr() for _, x in
+                                 leaves_with_path(state)] != ptrs,
+                          params=[x.float() for _, x in
+                                  leaves_with_path(state["params"])])
+    counts = {fn.__name__: fn.launches for fn in counters}
+    u, f = runs["uninterrupted"], runs["interrupted"]
+    rep = f["report"]
+    check(rep.restarts == 1 and rep.restore_steps == [4],
+          f"[train-fault] restarts {rep.restarts}, from {rep.restore_steps}")
+    check(not f["moved"] and not u["moved"],
+          "[train-fault] the state's tensors moved")
+    check(len(f["step"].graphs) == 1 and f["step"].replays == len(
+        f["losses"]) - 1, f"[train-fault] {len(f['step'].graphs)} graphs, "
+          f"{f['step'].replays} replays over {len(f['losses'])} steps")
+    want = u["losses"][:fail_at] + u["losses"][4:]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(f["losses"], want))
+    pworst = max(rel_err(a, b) for a, b in zip(f["params"], u["params"]))
+    check(len(f["losses"]) == len(want) and worst <= TRAIN_FAULT_RTOL
+          and pworst <= TRAIN_FAULT_RTOL,
+          f"[train-fault] resumed losses {f['losses']} vs {want}: {worst:.2e}"
+          f", params {pworst:.2e}")
+    check(all(math.isfinite(v) for v in f["losses"]),
+          "[train-fault] a loss is not finite")
+    _shutil.rmtree(ckdir, ignore_errors=True)
+    out = dict(steps=n, fail_at=fail_at, restore_steps=rep.restore_steps,
+               losses=f["losses"], uninterrupted=u["losses"],
+               loss_rel=worst, params_rel=pworst,
+               replays=f["step"].replays, launches=counts,
+               wall_s=time.perf_counter() - t0)
+    print(f"[train-fault] {cfg.name}, 4 x 512, {n} steps, checkpoints every "
+          f"2 written async, a WorkerFailure entering step {fail_at}: "
+          f"restored step {rep.restore_steps} into the bound tensors, one "
+          f"graph, {f['step'].replays} replays; the {len(want)} losses "
+          f"within {worst:.1e} of the uninterrupted run, params within "
+          f"{pworst:.1e} (limit {TRAIN_FAULT_RTOL}); launches "
+          f"{json.dumps(counts)}; {out['wall_s']:.1f}s; on {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2484,6 +2954,7 @@ def main() -> int:
     t0 = time.perf_counter()
     wine = phase_wine(card, counters)
     print(f"[wine] phase wall {time.perf_counter() - t0:.1f}s")
+    fault = phase_train_fault(counters, card)
 
     cfg = get_config("qwen3-14b")
     params = draw(cfg, init_params, "serve")
@@ -2579,6 +3050,23 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # training at full width: mamba2-1.3b at full depth, then qwen3-14b
+    # with its depth cut to 4 of 40 layers
+    cfg = get_config("mamba2-1.3b")
+    t0 = time.perf_counter()
+    train_ssm, tparams = phase_train(cfg, "train-ssm", 2, 4096, counters,
+                                     card)
+    ssd_grad = phase_ssd_grads(cfg, tparams, 2, 4096, ssd_scan, card)
+    del tparams
+    torch.cuda.empty_cache()
+    print(f"[train-ssm] phase wall {time.perf_counter() - t0:.1f}s")
+    cfg = cut_depth(get_config("qwen3-14b"), 4)
+    t0 = time.perf_counter()
+    train_dense, _ = phase_train(cfg, "train", 1, 4096, counters, card,
+                                 note=" (depth cut from 40 to 4)",
+                                 microbatch=True)
+    print(f"[train] phase wall {time.perf_counter() - t0:.1f}s")
+
     paged_phases = {"serve": srv, "serve-graph": graph,
                     "serve-window": win, "serve-moe": moe, "serve-mla": mla}
     for r in (srv, graph, moe, mla):
@@ -2615,11 +3103,31 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:63",
-        "launches": ssm["launches"] + int8["launches"],
-        "launches_by_phase": {"serve-ssm": ssm["launches"],
-                              "serve-int8": int8["launches"]},
+        "launches": ssm["launches"] + int8["launches"] + sum(
+            train_ssm[m]["launches"]["ssd_scan"]
+            for m in ("eager", "replayed"))
+        + fault["launches"]["ssd_scan"] + wine["launches"]["ssd_scan"],
+        "launches_by_phase": {
+            "serve-ssm": ssm["launches"], "serve-int8": int8["launches"],
+            "train-ssm eager": train_ssm["eager"]["launches"]["ssd_scan"],
+            "train-ssm replayed":
+                train_ssm["replayed"]["launches"]["ssd_scan"],
+            "train-fault": fault["launches"]["ssd_scan"],
+            "wine (prefill and train replays)":
+                wine["launches"]["ssd_scan"]},
+        "train_launches_a_step": {
+            m: [r["ssd_scan"] for r in train_ssm[m]["launches_a_step"]]
+            for m in ("eager", "replayed")},
+        "train_launches_note": "a train step of mamba2-1.3b launches the "
+                               "kernel once a layer forward and once again "
+                               "in remat's recompute (48 + 48); the backward "
+                               "recomputes the plain version",
+        "ssd_grad_rel": ssd_grad["inputs_rel"],
         "routes_by_phase": {"serve-ssm": ssm["routes"],
-                            "serve-int8": int8["routes"]},
+                            "serve-int8": int8["routes"],
+                            **{f"train-ssm {m}":
+                               train_ssm[m]["routes"]["ssd_scan"]
+                               for m in ("eager", "replayed")}},
         **{k: rec_ssd["S512"][k] for k in (
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "simt_ms", "simt_device_ms", "plan")},
@@ -2651,6 +3159,10 @@ def main() -> int:
     print(f"[serve-mla] summary {json.dumps(mla)}")
     print(f"[encdec] summary {json.dumps(encdec)}")
     print(f"[vlm] summary {json.dumps(vlm)}")
+    print(f"[train-fault] summary {json.dumps(fault)}")
+    print(f"[train-ssm] summary {json.dumps(train_ssm)}")
+    print(f"[ssd-grad] summary {json.dumps(ssd_grad)}")
+    print(f"[train] summary {json.dumps(train_dense)}")
     print(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f}s "
           "(build included)")
     print(f"[card] {card}")

@@ -27,7 +27,11 @@ captures it (capture records, it runs nothing). Every later call copies its
 inputs into the graph's static input buffers, replays, and returns the
 graph's outputs. Those outputs ALIAS the graph's memory: the next replay
 overwrites them, so a caller that keeps them across calls copies them out.
-A capture that fails raises; nothing falls back to eager execution.
+A capture that fails raises; nothing falls back to eager execution. A
+function that runs autograd (the train step: forward, backward and AdamW,
+``train.step``) is captured the same way: its backward runs on the capture
+stream, and its warm-up is the step's real execution, so the state
+advances exactly once on the first call.
 
 ``bind_argnums`` names arguments the graph reads and writes AT THEIR OWN
 ADDRESSES (weights, a KV pool): never copied. A graph is specific to the
@@ -424,6 +428,10 @@ class GraphExecutable(Executable):
         for x in pytree.tree_leaves(out):
             if isinstance(x, torch.Tensor) and x.is_cuda:
                 x.record_stream(cur)
+        # the graph allocates from a pool of its own, which cannot reuse the
+        # blocks the warm-up left cached: release them first (a train
+        # step's activations would otherwise be held twice)
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         before = _counts()
         with torch.cuda.stream(side):

@@ -17,10 +17,13 @@ Like Wine, translation is NOT emulation: on the card a step is a captured
 CUDA graph (``core.compile_cache``), replayed, with the port's kernels (the
 SSD scan of an SSM prefill among them) inside it.
 
-Modes: ``prefill`` runs ``models.lm.prefill`` (whisper's ``encoder_apply``
-first) and never replaces the state; ``decode`` runs ``decode_step`` on the
-instance's KV rings and advances them. ``train`` is not ported (the
-reference builds it from ``train/step.py``).
+Modes: ``train`` (the default, as in the reference) runs ``make_train_step``
+(forward, backward and AdamW) on the instance's ``{"params", "opt"}`` state
+and advances it IN PLACE (on the card the whole step is one captured
+graph, with the state bound at its addresses); ``prefill`` runs
+``models.lm.prefill`` (whisper's ``encoder_apply`` first) and never
+replaces the state; ``decode`` runs ``decode_step`` on the instance's KV
+rings and advances them.
 """
 from __future__ import annotations
 
@@ -35,14 +38,16 @@ from repro_torch.configs import get_config, input_specs
 from repro_torch.core.compile_cache import LazyGraph
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.spec import SHAPES_BY_NAME, ModelConfig, ShapeCell
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.step import init_state, make_train_step
 
 
 @dataclass(frozen=True)
 class WineApp:
     """An 'application': (architecture, mode, shape) to be launched."""
     arch: str
-    mode: str = "prefill"                  # prefill | decode (train: raises)
-    shape: str = "prefill_32k"
+    mode: str = "train"                    # train | prefill | decode
+    shape: str = "train_4k"
     smoke: bool = False
     microbatches: int = 1
 
@@ -60,7 +65,7 @@ class Instance:
     app: WineApp
     cfg: ModelConfig
     step_fn: Callable                      # the executable
-    state: Any                             # params or (params, caches)
+    state: Any                   # {"params", "opt"}, params or (params, caches)
     load_report: dict = field(default_factory=dict)
     raw_fn: Optional[Callable] = None      # uncompiled translation layer
     device: Any = None
@@ -83,10 +88,11 @@ class Instance:
         # prefill also returns a len-2 tuple — (logits, caches) — but its
         # params are read-only. A graph's outputs alias its memory (the
         # next replay overwrites them), so what the step made is copied
-        # out; the state's own tensors are returned as they are.
+        # out (train: the metrics); the state's own tensors are returned
+        # as they are.
         if self.app.mode == "prefill":
             return _copy_out(out)
-        new_state, result = out            # decode: state advances
+        new_state, result = out            # train/decode: state advances
         self.state = new_state
         return _copy_out(result)
 
@@ -110,9 +116,8 @@ class WineAdapter:
 
     # -- translation layer ------------------------------------------------
     def _build_train(self, app: WineApp, cfg: ModelConfig):
-        raise NotImplementedError(
-            "Wine's train mode is not ported: the port has no training "
-            "step yet (ROADMAP.md section 1, item 4)")
+        return make_train_step(cfg, AdamWConfig(),
+                               microbatches=app.microbatches)
 
     def _build_decode(self, app: WineApp, cfg: ModelConfig):
         def traced(state, inputs):
@@ -166,6 +171,8 @@ class WineAdapter:
     def _init_state(self, app: WineApp, cfg: ModelConfig, seed: int):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        if app.mode == "train":
+            return init_state(gen, cfg, self.device)
         params = lm_mod.lm_init(gen, cfg, self.device)
         if app.mode == "decode":
             cell = self._cell(app)

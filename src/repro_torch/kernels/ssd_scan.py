@@ -13,11 +13,23 @@ CUDA cores: f32 inputs and every other shape). A route is never a
 fallback: a failed launch raises.
 
 ``ssd_chunked_ref`` is the plain PyTorch version of the same function, line
-for line the reference's XLA path (``repro.models.ssm.ssd_chunked``); the
+for line the reference's XLA path (``repro.models.ssm.ssd_chunked``), but
+for the intra-chunk decay, masked before its exp so that its gradient stays
+finite where the reference's is NaN (ROADMAP.md section 3); the
 wrapper takes it only for tensors on the CPU, and on a CUDA tensor launches
 the kernel or raises. ``ssd_ref`` is the sequential recurrence, the semantic
 ground truth (``repro.kernels.ref.ssd_ref``). ``ssd_scan.launches`` counts
 kernel launches, ``ssd_scan.routes`` the same launches by route.
+
+Gradients: the kernel writes fresh tensors through ctypes, which autograd
+cannot see. Where autograd records (grad enabled and an input that requires
+grad), a CUDA call goes through ``_SsdScanFn``: its forward launches the
+kernel, its backward recomputes ``ssd_chunked_ref`` from the saved inputs
+and returns the plain version's gradients for x, dt, A, B and C — the
+reference's own gradient, which is autodiff of its plain ``ssd_chunked``
+(it has no backward kernel). The counters count forward launches only;
+a recompute under remat launches the forward again and counts. The
+backward runs inside a profiler range, ``ssd_scan_backward``.
 """
 from __future__ import annotations
 
@@ -59,7 +71,11 @@ def ssd_chunked_ref(xh, dt, A, Bm, Cm, chunk: int):
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,nc,Q,Q,H)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=xh.device))
-    L = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    # masked before the exp: the same values as the reference's
+    # where(causal, exp(seg), 0), but exp(seg) of a masked entry overflows
+    # once a chunk's decay passes e^88, and its gradient (0 * inf) is NaN
+    L = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                              float("-inf")))
     scores = CB[..., None] * L * dtc[:, :, None, :, :]         # (B,nc,Qq,Qp,H)
     y_diag = torch.einsum("bcqph,bcphv->bcqhv", scores, xc)
 
@@ -192,6 +208,42 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, out_dtype=None,
         return (y, h) if return_state else y
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        y, h = _SsdScanFn.apply(x, dt, A, B, C, chunk, out_dtype, route)
+        return (y, h) if return_state else y
+    return _launch(x, dt, A, B, C, chunk, out_dtype, return_state, route)
+
+
+class _SsdScanFn(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient (see the
+    module docstring). Returns (y, final state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk, out_dtype, route):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk, ctx.out_dtype = chunk, out_dtype
+        return _launch(x.detach(), dt.detach(), A.detach(), B.detach(),
+                       C.detach(), chunk, out_dtype, True, route)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        saved = ctx.saved_tensors
+        ins = [t.detach().requires_grad_(n) for t, n in
+               zip(saved, ctx.needs_input_grad[:5])]
+        want = [t for t in ins if t.requires_grad]
+        with torch.enable_grad(), \
+                torch.profiler.record_function("ssd_scan_backward"):
+            y, h = ssd_chunked_ref(*ins, ctx.chunk)
+            got = iter(torch.autograd.grad((y.to(ctx.out_dtype), h), want,
+                                           (gy, gh), allow_unused=True))
+        return (*(next(got) if t.requires_grad else None for t in ins),
+                None, None, None)
+
+
+def _launch(x, dt, A, B, C, chunk, out_dtype, return_state, route):
+    """Launch the kernel of the planned (or forced) route on CUDA tensors;
+    no autograd. Counts the launch."""
     if out_dtype not in _FLOATS:
         raise TypeError(f"ssd_scan: out_dtype must be one of {_FLOATS}")
     Bz, S, H, P = x.shape

@@ -137,8 +137,11 @@ def _attn_blocked(q, k, v, q_pos, k_pos, *, scale, causal, window, cap):
         s = s.masked_fill_(~msk, NEG_INF)
         m_new = torch.maximum(m_run, s.amax(-1))
         alpha = torch.exp(m_run - m_new)
-        # exp(NEG_INF - m_new) is exactly 0 for any real m_new
-        p = s.sub_(m_new[..., None]).exp_()
+        # exp(NEG_INF - m_new) is exactly 0 for any real m_new; in place
+        # (a block's scores are the largest temporary) unless autograd
+        # needs s: amax saved it for the backward pass
+        p = (s.sub_(m_new[..., None]).exp_() if not s.requires_grad
+             else torch.exp(s - m_new[..., None]))
         l_run = l_run * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum(
             "bkgqs,bskv->bkgqv", p.to(v.dtype).float(), vc.float())

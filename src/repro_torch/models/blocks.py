@@ -12,12 +12,19 @@ repeat. Caches are updated in place (see ``models.attention`` and
 the hidden states, summed over layers as the reference's scan sums it.
 Cross-attention blocks (enc-dec decoders) take the encoder output
 ``enc_out`` and recompute its k/v on every call, as the reference does.
+
+Training calls ``group_apply`` with ``caches=None`` (no write in place
+anywhere below it) and, with ``remat``, recomputes each repeat of the
+pattern in the backward pass (``torch.utils.checkpoint``, non-reentrant),
+the body the reference wraps in ``jax.checkpoint``. The model draws no
+random numbers, so no RNG state is saved for the recompute.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (attn_apply, attn_cache_init,
                                           attn_init, gqa_encoder_kv)
@@ -182,12 +189,16 @@ def _repeat(tree: dict, r: int) -> dict:
 
 def group_apply(gp: dict, x: torch.Tensor, g: ScanGroup, cfg: ModelConfig,
                 positions: torch.Tensor, caches: Optional[dict] = None,
-                enc_out: Optional[torch.Tensor] = None):
+                enc_out: Optional[torch.Tensor] = None, remat: bool = False):
     """Walk the pattern over repeats; the caches are updated in place.
-    Returns (x, the summed MoE aux loss)."""
+    Returns (x, the summed MoE aux loss). ``remat`` (no caches) recomputes
+    each repeat in the backward pass."""
+    if remat and caches is not None:
+        raise ValueError("remat is for training: it takes no caches")
     shared = gp["shared"]
-    aux = 0.0
-    for r in range(g.repeats):
+
+    def body(x, r):
+        aux = 0.0
         for i, b in enumerate(g.pattern):
             pi = shared[str(i)] if b.shared else _repeat(gp["stacked"][str(i)],
                                                           r)
@@ -195,4 +206,14 @@ def group_apply(gp: dict, x: torch.Tensor, g: ScanGroup, cfg: ModelConfig,
             x, a = block_apply(pi, x, b, cfg, positions, cache=ci,
                                enc_out=enc_out)
             aux = aux + a
+        return x, aux
+
+    aux = 0.0
+    for r in range(g.repeats):
+        if remat:
+            x, a = checkpoint(body, x, r, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = body(x, r)
+        aux = aux + a
     return x, aux

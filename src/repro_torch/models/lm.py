@@ -3,9 +3,10 @@ the paged serving path. Port of ``repro.models.lm``.
 
 Public surface (plain functions on tensors; ``gen`` is a torch.Generator):
   lm_init(gen, cfg, device)                          -> params
-  encoder_apply(params, frames, cfg)                 -> enc_out
+  encoder_apply(params, frames, cfg, remat=False)    -> enc_out
   lm_hidden(params, inputs, cfg, caches=None, ...)   -> (hidden, aux)
   lm_logits(params, hidden, cfg)                     -> logits
+  lm_loss(params, batch, cfg, remat=True)            -> (loss, metrics)
   prefill(params, inputs, cfg, enc_out, capacity)    -> (last_logits, caches)
   prefill_batched(params, inputs, cfg, lengths, ...) -> (last_logits, caches)
   decode_step(params, caches, tokens, pos, cfg)      -> (logits, caches)
@@ -26,7 +27,7 @@ Paged KV (the shared-pool serving path — ``repro_torch.serve``):
   paged_copy(pool, src, dst)                         -> pool caches
   paged_prefill(params, pool, tables, tokens, ...)   -> (logits, pool)
   paged_decode_step(params, pool, tables, t, p, cfg) -> (logits, pool)
-  count_params(cfg)                                  -> int
+  count_params(cfg, active_only=False)               -> int
 
 Caches and the pool are updated IN PLACE; the functions return the same
 tree so call sites read like the reference's functional ones. At full width
@@ -44,7 +45,11 @@ writes it at ``slot_ids``; a decode step advances every slot but the
 stalled ones (``live`` False). The paged path serves decoder-only
 configs (the engine takes no encoder output).
 
-Not ported yet: ``lm_loss``.
+Training (``lm_loss``) runs the same forward with ``caches=None``: nothing
+is written in place there, so autograd sees a plain graph. ``remat``
+recomputes each block (one repeat of a group's pattern) and each loss chunk
+in the backward pass (``torch.utils.checkpoint``, non-reentrant), as the
+reference's ``jax.checkpoint`` of its scan bodies does.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attn_cache_init, with_sink
 from repro_torch.models.blocks import (group_apply, group_cache_init,
@@ -64,6 +70,9 @@ from repro_torch.models.spec import ModelConfig, ScanGroup
 from repro_torch.models.ssm import ssm_cache_init
 
 SlotIds = Union[Sequence[int], torch.Tensor]
+
+LOSS_CHUNK = 512          # sequence chunk of the cross-entropy loss
+IGNORE = -100
 
 
 # ---------------------------------------------------------------------------
@@ -101,15 +110,15 @@ def lm_init(gen: Optional[torch.Generator], cfg: ModelConfig,
 # Forward
 # ---------------------------------------------------------------------------
 
-def encoder_apply(params: dict, frames: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def encoder_apply(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+                  remat: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, D) stubbed frontend embeddings -> enc_out."""
     enc = params["encoder"]
     x = frames + enc["pos"]["pos_embed"][None, :frames.shape[1]]
     pos = torch.arange(frames.shape[1], dtype=torch.int32,
                        device=frames.device)[None].expand(frames.shape[:2])
     for gi, g in enumerate(cfg.encoder.groups):
-        x, _ = group_apply(enc["groups"][gi], x, g, cfg, pos)
+        x, _ = group_apply(enc["groups"][gi], x, g, cfg, pos, remat=remat)
     return norm_apply(enc["final_norm"], x, cfg.norm, cfg.norm_eps)
 
 
@@ -131,16 +140,17 @@ def _embed_inputs(params, inputs, cfg):
 
 def lm_hidden(params: dict, inputs: dict, cfg: ModelConfig,
               caches: Optional[list] = None,
-              enc_out: Optional[torch.Tensor] = None):
+              enc_out: Optional[torch.Tensor] = None, remat: bool = False):
     """(final hidden states, the MoE load-balance loss summed over layers:
     0.0 without MoE), as the reference's hidden and aux; caches are updated
-    in place. Serving ignores the aux."""
+    in place. Serving ignores the aux. ``remat`` (training only) recomputes
+    every block in the backward pass."""
     x, positions = _embed_inputs(params, inputs, cfg)
     aux = 0.0
     for gi, g in enumerate(cfg.groups):
         c = caches[gi] if caches is not None else None
         x, a = group_apply(params["groups"][gi], x, g, cfg, positions,
-                           caches=c, enc_out=enc_out)
+                           caches=c, enc_out=enc_out, remat=remat)
         aux = aux + a
     h = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return h, aux
@@ -155,6 +165,57 @@ def lm_logits(params: dict, hidden: torch.Tensor,
     if cfg.final_logit_softcap:
         logits = softcap(logits.float(), cfg.final_logit_softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over the sequence: (B, S, V) is never built in f32 at once)
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(params, h, labels, cfg):
+    """(summed cross-entropy, count of labelled tokens) of one chunk."""
+    logits = lm_logits(params, h, cfg).float()
+    mask = labels != IGNORE
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = torch.where(mask, lse - gold, 0.0)
+    return ce.sum(), mask.sum()
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig, remat: bool = True,
+            enc_out: Optional[torch.Tensor] = None):
+    """batch: {tokens (B,S), labels (B,S), [embeds], [frames]} ->
+    (loss, {"ce", "aux", "tokens"}), every value a 0-d tensor on the
+    batch's device. Labels equal to ``IGNORE`` (and the patch embeddings'
+    positions of a ``vlm_patch`` frontend) count for nothing."""
+    if cfg.encoder is not None and enc_out is None:
+        enc_out = encoder_apply(params, batch["frames"], cfg, remat=remat)
+    h, aux = lm_hidden(params, batch, cfg, enc_out=enc_out, remat=remat)
+    labels = batch["labels"]
+    if cfg.frontend == "vlm_patch" and "embeds" in batch:
+        pad = labels.new_full(batch["embeds"].shape[:2], IGNORE)
+        labels = torch.cat([pad, labels], dim=1)
+
+    S = h.shape[1]
+    chunk = min(LOSS_CHUNK, S)
+    if S % chunk == 0 and S > chunk:
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+        for lo in range(0, S, chunk):
+            hh, ll = h[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+            if remat:
+                s, c = checkpoint(_ce_chunk, params, hh, ll, cfg,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                s, c = _ce_chunk(params, hh, ll, cfg)
+            tot, cnt = tot + s, cnt + c
+    else:
+        tot, cnt = _ce_chunk(params, h, labels, cfg)
+    cnt = cnt.to(torch.int32)
+    ce = tot / cnt.clamp(min=1)
+    aux = tot.new_zeros(()) + aux               # 0.0 without MoE
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 # ---------------------------------------------------------------------------
@@ -577,12 +638,28 @@ def paged_decode_step(params: dict, pool: list, tables: torch.Tensor,
 # Parameter counting (init on the meta device — no allocation, no formulas)
 # ---------------------------------------------------------------------------
 
-def count_params(cfg: ModelConfig) -> int:
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg``; ``active_only`` counts each routed expert
+    leaf (``we_*``) at top_k / n_experts of its size, scaled once for
+    every group that holds MoE blocks, as the reference does."""
+    moes = [next(b.moe for b in g.pattern if b.moe is not None)
+            for g in cfg.groups if any(b.moe is not None for b in g.pattern)]
     total = 0
 
-    def add(a):
+    def walk(tree, routed=False):
         nonlocal total
-        total += a.numel()
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, routed or k.startswith("we_"))
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v, routed)
+        else:
+            n = tree.numel()
+            if active_only and routed:
+                for moe in moes:
+                    n = int(n * moe.top_k / moe.n_experts)
+            total += n
 
-    tree_map(add, lm_init(None, cfg, "meta"))
+    walk(lm_init(None, cfg, "meta"))
     return total

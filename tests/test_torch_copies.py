@@ -1,6 +1,7 @@
 """The port's verbatim copies — ``core.autoscale``, ``core.launch_model``,
 ``core.telemetry`` (the launch half) and ``obs.trace`` / ``obs.metrics`` /
-``obs.timeseries`` / ``obs.flight`` — held to the reference's own tests.
+``obs.timeseries`` / ``obs.flight``, ``data.pipeline`` — held to the
+reference's own tests (``data.pipeline``: its batches, byte for byte).
 
 Each case below is the reference test's code, taken from its file in
 ``tests/`` with every ``repro.`` import renamed to ``repro_torch.``, so the
@@ -129,7 +130,7 @@ globals().update(_port_cases("test_obs.py", OBS, "obs"))
 
 COPIES = ("core/autoscale.py", "core/launch_model.py", "core/telemetry.py",
           "obs/trace.py", "obs/metrics.py", "obs/timeseries.py",
-          "obs/flight.py")
+          "obs/flight.py", "data/pipeline.py")
 
 
 def _code(path: Path) -> str:
@@ -178,3 +179,26 @@ def test_llmr_records_a_span_tree_and_wave_series():
     LLMapReduce(wave_size=4, device="cpu").map_reduce(
         lambda v: v.sum(), np.ones((12, 3), np.float32))
     assert TRACER.spans() == []
+
+
+@pytest.mark.parametrize("arch", [None, *__import__(
+    "repro.configs", fromlist=["ARCHS"]).ARCHS])
+def test_synth_batch_equals_the_reference_byte_for_byte(arch):
+    """The data copy draws the reference's batches: the same keys, dtypes,
+    shapes and bytes for every architecture's frontend (and none), over
+    steps, hosts and seeds."""
+    from repro.configs import get_config
+    from repro.data import pipeline as ref
+    from repro_torch.configs import get_config as tget
+    from repro_torch.data import pipeline as port
+    model = get_config(arch, smoke=True) if arch else None
+    tmodel = tget(arch, smoke=True) if arch else None
+    for seed, step, host in ((0, 0, 0), (3, 7, 1)):
+        kw = dict(seq_len=64, global_batch=4, seed=seed, host_id=host,
+                  n_hosts=2, vocab=1000)
+        a = ref.synth_batch(ref.DataConfig(**kw), step, model)
+        b = port.synth_batch(port.DataConfig(**kw), step, tmodel)
+        assert list(a) == list(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            assert a[k].tobytes() == b[k].tobytes(), (arch, k)

@@ -2,7 +2,8 @@
 
 * Its config copies equal the reference's, field for field, for all ten
   architectures, full and smoke (``paged_kernel`` exempt: the port names its
-  own kernels), its parameter count equals the reference's for all ten,
+  own kernels), its parameter count (total, and active: the routed
+  experts at top_k / n_experts) equals the reference's for all ten,
   and the full configs fall in the published ranges of
   ``tests/test_models.py``. ``lm_init`` builds all ten at smoke width with
   JAX blocked.
@@ -61,6 +62,8 @@ def test_config_copies_match_reference(arch, smoke):
 def test_param_count_matches_reference(arch, smoke):
     jcfg, tcfg = (m.get_config(arch, smoke) for m in (jconfigs, tconfigs))
     assert t_count_params(tcfg) == j_count_params(jcfg)
+    assert t_count_params(tcfg, active_only=True) == j_count_params(
+        jcfg, active_only=True)
     assert tcfg.param_count() == t_count_params(tcfg)
 
 

@@ -22,8 +22,14 @@ The ``cuda`` tests hold the CUDA kernels against the plain version on the
 card: every route in bf16 over the sweep, f32 on the simt route, the
 model's own shapes (bf16 x/B/C, f32 dt, y in f32 with the final state) on
 the tc route at 3e-4, a batch-1 and a 4,096-token scan, and a strong decay
-(dt x 10). JAX is imported in fixtures, not at module level, so that the
-file also runs where JAX is absent:
+(dt x 10), and the autograd wrapper's gradients (x, dt, A, B and C: the
+plain version's gradient, recomputed in the backward pass) against the
+plain version's own at the same bounds. On the CPU the wrapper's backward
+is held to native autograd with a counting stand-in for the launch, and
+the plain gradient is held finite and equal to the sequential oracle's
+where the reference's is NaN (a chunk whose decay passes e^88). JAX is
+imported in fixtures and tests, not at module level, so that the file
+also runs where JAX is absent:
 ``python -m pytest --noconftest -m cuda tests/test_torch_ssd.py``.
 """
 import numpy as np
@@ -386,3 +392,95 @@ def test_cuda_tc_strong_decay(cuda_device):
     the f32 contract holds."""
     _model_check(cuda_device, (4, 512, 64, 64, 128, 256), seed=9,
                  dt_scale=10.0)
+
+
+# ---------------------------------------------------------------------------
+# Gradients
+# ---------------------------------------------------------------------------
+
+def _grads(fn, args, gy, gh):
+    ins = [a.detach().clone().requires_grad_() for a in args]
+    y, h = fn(*ins)
+    return y, torch.autograd.grad((y, h), ins, (gy.to(y.dtype), gh))
+
+
+def test_plain_gradient_is_finite_where_the_reference_is_nan():
+    """One 256-step chunk with dt = 0.7 and A = -1 (mamba2's own init): the
+    masked entries' exp(seg) passes e^88. The reference's gradient for dt
+    and A is NaN there; the port's plain version masks before the exp and
+    its gradient equals the sequential oracle's (3e-4)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.ssm import ssd_chunked as j_ssd_chunked
+    r = np.random.default_rng(0)
+    x = r.standard_normal((1, 256, 2, 4)).astype(np.float32)
+    dt = np.full((1, 256, 2), 0.7, np.float32)
+    A = np.array([-1.0, -0.5], np.float32)
+    B = (r.standard_normal((1, 256, 4)) * 0.3).astype(np.float32)
+    C = (r.standard_normal((1, 256, 4)) * 0.3).astype(np.float32)
+    jg = jax.grad(lambda *a: j_ssd_chunked(*a, 256)[0].sum(),
+                  argnums=(1, 2))(*map(jnp.asarray, (x, dt, A, B, C)))
+    assert all(bool(jnp.isnan(g).any()) for g in jg)          # the fault
+    args = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    gy, gh = torch.ones(1, 256, 2, 4), torch.zeros(1, 2, 4, 4)
+    _, got = _grads(lambda *a: ssd_chunked_ref(*a, 256), args, gy, gh)
+    _, want = _grads(ssd_ref, args, gy, gh)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) < TOL["f32"]
+
+
+def test_autograd_wrapper_backward_is_the_plain_gradient(monkeypatch):
+    """``_SsdScanFn`` with the launch replaced by a counting stand-in (the
+    plain version): its gradients equal native autograd's through the plain
+    version, and it launches once, in the forward pass."""
+    import repro_torch.kernels.ssd_scan as mod
+    calls = []
+
+    def fake_launch(x, dt, A, B, C, chunk, out_dtype, return_state, route):
+        calls.append(1)
+        y, h = ssd_chunked_ref(x, dt, A, B, C, chunk)
+        return y.to(out_dtype), h
+
+    monkeypatch.setattr(mod, "_launch", fake_launch)
+    args = _model_inputs("cpu", 2, 128, 2, 64, 32, dtype=torch.float32)
+    gy = torch.randn(2, 128, 2, 64, generator=torch.Generator().manual_seed(1))
+    gh = torch.randn(2, 2, 64, 32, generator=torch.Generator().manual_seed(2))
+    fn = lambda *a: mod._SsdScanFn.apply(*a, 64, torch.float32, None)
+    y, got = _grads(fn, args, gy, gh)
+    assert calls == [1] and y.grad_fn is not None
+    _, want = _grads(lambda *a: ssd_chunked_ref(*a, 64), args, gy, gh)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Bz,S,H,P,N,chunk", CUDA_SHAPES)
+def test_cuda_autograd_gradients_match_plain(cuda_device, dtype, Bz, S, H,
+                                             P, N, chunk):
+    """Through the kernel's autograd wrapper: y and the gradients of x, dt,
+    A, B and C within the SSD bounds (3e-4 f32, 6e-2 bf16) of the plain
+    version's on the card; one forward launch each. Control: the raw
+    launch returns y without a grad_fn."""
+    from repro_torch.kernels.ssd_scan import _launch
+    args = _model_inputs(cuda_device, Bz, S, H, P, N, seed=3, dtype=dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    gy = torch.randn(Bz, S, H, P, device=cuda_device, generator=g)
+    gh = torch.randn(Bz, H, P, N, device=cuda_device, generator=g)
+    launches = ssd_scan.launches
+    y, got = _grads(lambda *a: ssd_scan(*a, chunk=chunk, return_state=True,
+                                        out_dtype=torch.float32),
+                    args, gy, gh)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == launches + 1 and y.grad_fn is not None
+    ry, want = _grads(lambda *a: ssd_chunked_ref(*a, chunk), args, gy, gh)
+    tol = TOL["f32"] if dtype == torch.float32 else TOL["bf16"]
+    assert _rel(y.detach().cpu(), ry.detach().cpu()) < tol
+    for name, a, b in zip("x dt A B C".split(), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a.float().cpu(), b.float().cpu()) < tol, name
+    raw, _ = _launch(*(a.detach().requires_grad_() for a in args), chunk,
+                     torch.float32, True, None)
+    assert raw.grad_fn is None and not raw.requires_grad
