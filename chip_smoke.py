@@ -95,7 +95,26 @@ non-zero:
             every output within 1e-5 (relative) of numpy's and on the
             card; instances/s, t_schedule and ``LaunchRecord.levels()``
             printed. The app launches none of the port's kernels.
-4b. wine    all ten architectures at smoke width, prefill, decode and
+4b. dist    the distributed fabric (``repro_torch.dist``): the same 16,384
+            instances through ``LLMapReduce(backend=make_backend("dist",
+            ...))`` in waves of 8,192 over (a) 4 thread nodes on
+            ``inproc``, (b) 4 thread nodes on ``socket``, (c) 2 process
+            nodes on ``socket`` (spawned; each its own CUDA context) and
+            (d) one remote node, ``python -m repro_torch.dist.node
+            --connect``, joining a socket fabric armed with a secret; each
+            cold (every node captures its graph) and warm. Gates: outputs
+            within 1e-5 (relative) of numpy's and on the card, every
+            shard's record naming the card, every process node and the
+            remote node taking shards, a repeat launch over ``socket``
+            under 10% of the first one's staged bytes on the wire; then on
+            thread nodes: one killed mid-wave (the wave completes, correct,
+            ``failover`` recorded), one throttled to 0.05 s a shard getting
+            a smaller shard within 3 waves, and ``health_verdicts()``
+            naming it ``outlier`` and the others ``healthy``. Printed:
+            instances/s, t_schedule, bytes on the wire, captures and graph
+            pool bytes per node, spawn to alive, beside ``[launch]``'s
+            array numbers. The app launches none of the port's kernels.
+4c. wine    all ten architectures at smoke width, prefill, decode and
             train (the default app: ``train_4k``, forward + backward +
             AdamW), through one ``WineAdapter``: each app's first step is
             the warm-up of its capture, its second a replay, held against
@@ -106,7 +125,7 @@ non-zero:
             SSD-scan launches over the mamba2 / zamba2 prefill and train
             replays must be > 0; a second adapter on the same cache reads
             "memory" for all thirty.
-4c. train-fault  ``resilient_train`` at smoke width (mamba2-1.3b-smoke, 4
+4d. train-fault  ``resilient_train`` at smoke width (mamba2-1.3b-smoke, 4
             x 512, the SSD kernel in every layer), the step captured,
             checkpoints every 2 steps written asynchronously, a
             ``WorkerFailure`` injected entering step 5: one restart from
@@ -161,6 +180,10 @@ non-zero:
             length; every SSD-scan launch is counted: 48 per prefill
             dispatch (decode runs the recurrence, not the scan), every one
             on the tc route.
+9a. dist-serve  9's wave again with ``PagedServeEngine(backend=<a 2-node
+            DistributedBackend>)``: the decode step compiled through the
+            fabric's driver-side cache and replayed there. Gates: the
+            tokens equal 9's, as many SSD launches, every one on tc.
 10. lockstep-ssm  4 prompts of 512 tokens prefilled through the SSD kernel
             and decoded 4 steps, against the same prompts fed one token at
             a time through paged_decode_step (the decode recurrence, an
@@ -1245,15 +1268,16 @@ def phase_flash(flash_attention, attention_ref, attention, counters, card):
 # ---------------------------------------------------------------------------
 
 def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
-              **kw):
+              backend=None, **kw):
     """The main path: ``serve`` over ``waves`` with every kernel's launch
     count set to 0 just before and read just after (``kernel_fn``'s is
     returned; the others must stay 0); every prefill dispatch and decode
     step of the engine is watched for non-finite logits (a decode step's
     after its replay, outside the graph). The decode step is captured
     (``capture_step``, the engine's default) or run eagerly, on a compile
-    cache of its own (freed with the engine); ``eng.capture`` notes the
-    step's source and the cache's capture and replay counts."""
+    cache of its own (freed with the engine) — ``backend``'s, where one is
+    given; ``eng.capture`` notes the step's source and the cache's capture
+    and replay counts."""
     from repro_torch.core.backend import ArrayBackend
     from repro_torch.core.compile_cache import CompileCache
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1277,7 +1301,8 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
 
     engine_mod.paged_prefill, engine_mod.PagedServeEngine._decode = (
         prefill, decode)
-    backend = ArrayBackend(cache=CompileCache())
+    if backend is None:
+        backend = ArrayBackend(cache=CompileCache(), device=DEV)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -1550,6 +1575,349 @@ def phase_launch(card, counters):
           f"{out['array']['warm']['t_schedule_s']:.4f}s warm); serial "
           f"{out['serial']['warm']['instances_per_s']:.0f} instances/s; the "
           f"app launches none of the port's kernels; on {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The distributed fabric: scheduler -> node -> core on one card
+# ---------------------------------------------------------------------------
+
+DIST_NODES, DIST_THROTTLE_S, DIST_GATE_WAVE = 4, 0.05, 2048
+# the health scorer floors its scale at 1e-4 s an instance, and flags an
+# outlier 6 scales above the fleet's median: 16-instance shards put a
+# 0.05 s throttle at ~3 ms an instance
+DIST_HEALTH_WAVE = 64
+
+
+def _dist_reads(report, wall, n):
+    """One launch's numbers."""
+    from repro_torch.core.telemetry import nodes_rollup, stage_rollup
+    return dict(wall_s=wall, instances_per_s=n / wall, waves=report.waves,
+                t_schedule_s=sum(r.t_schedule for r in report.records),
+                bytes_on_wire=stage_rollup(report.records)["bytes_on_wire"],
+                node_failures=report.node_failures,
+                nodes={nid: agg["instances"] for nid, agg in
+                       nodes_rollup(report.records).items()})
+
+
+def _dist_run(name, be, x, want, name_card):
+    """``LLMapReduce`` over the fabric ``be``: 16,384 instances cold (each
+    node captures its graphs) and warm (replays); every output within 1e-5
+    of numpy's and on the card, every shard's record naming the card."""
+    from repro_torch.core.llmr import LLMapReduce
+    from repro_torch.examples.massive_launch import app
+    n = x.shape[0]
+    reads = {}
+    for when in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, report = LLMapReduce(wave_size=LAUNCH_WAVE,
+                                  backend=be).map_reduce(app, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(got.device.type == "cuda" and got.shape == (n,),
+              f"[dist] {name}: outputs {tuple(got.shape)} on {got.device}")
+        err = float(np.max(np.abs(got.cpu().double().numpy() - want)
+                           / np.abs(want)))
+        check(err <= 1e-5, f"[dist] {name}: relative error {err:.2e}")
+        nrs = [nr for r in report.records if not r.superseded
+               for nr in r.extra.get("node_records", ())]
+        devices = {nr["device"] for nr in nrs}
+        check(nrs and all(d and d.startswith("cuda") and name_card in d
+                          for d in devices),
+              f"[dist] {name}: shards ran on {devices}")
+        r = reads[when] = _dist_reads(report, wall, n)
+        r["max_rel_err"] = err
+        r["captures_by_node"] = {}
+        for nr in nrs:
+            if nr["compile_source"] == "compiled":
+                c = r["captures_by_node"]
+                c[nr["node"]] = c.get(nr["node"], 0) + 1
+        print(f"[dist] {name} {when}: {n} instances in {wall:.4f}s "
+              f"({r['instances_per_s']:.0f} instances/s), {r['waves']} "
+              f"waves over nodes {json.dumps(r['nodes'])}, t_schedule "
+              f"{r['t_schedule_s']:.4f}s, {r['bytes_on_wire']:,} staged "
+              f"bytes on the wire, captures {json.dumps(r['captures_by_node'])}"
+              f", max rel err {err:.2e}, on {sorted(devices)}")
+    return reads
+
+
+def _graph_pool_bytes(cache) -> int:
+    """Bytes the card holds reserved for the graphs of ``cache``: the
+    segments of their private memory pools."""
+    pools = {g.graph.pool() for exe in cache._mem.values()
+             for g in getattr(exe, "graphs", {}).values()}
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) in pools)
+
+
+def _thread_fabric(transport="inproc", **kw):
+    from repro_torch.dist import DistributedBackend
+    kw.setdefault("heartbeat_s", 0.02)
+    kw.setdefault("heartbeat_timeout_s", 5.0)
+    return DistributedBackend(n_nodes=DIST_NODES, device=DEV,
+                              transport=transport, **kw)
+
+
+def phase_dist_gates(x, want, name_card):
+    """The fabric's failure and measurement gates on thread nodes: a node
+    killed mid-wave (the wave completes, correct, with ``failover``
+    recorded), a node throttled to 0.05 s a shard getting a smaller shard
+    within 3 waves, and ``health_verdicts()`` naming it ``outlier`` and the
+    others ``healthy``."""
+    import threading
+    from repro_torch.core.llmr import LLMapReduce
+    from repro_torch.examples.massive_launch import app
+    out = {}
+    n = 4 * DIST_GATE_WAVE
+    xs, ws = x[:n], want[:n]
+    # a node killed mid-wave: paused (alive, taking no work) so its shard
+    # is in flight when it dies; the handle fails it over on lease expiry
+    be = _thread_fabric(heartbeat_timeout_s=0.5)
+    try:
+        be.launch(app, xs, n)                       # capture on each node
+        victim = be.agents["node1"]
+        victim.pause()
+        time.sleep(0.1)               # its worker sees the pause first
+        handle = be.dispatch(app, xs, n)
+        killer = threading.Timer(0.05, victim.kill)
+        killer.start()
+        got, rec = handle.result()
+        killer.join()
+        err = float(np.max(np.abs(got.cpu().double().numpy() - ws)
+                           / np.abs(ws)))
+        moved = rec.extra.get("failover", [])
+        check(err <= 1e-5, f"[dist] kill: relative error {err:.2e}")
+        check(moved and all(m["from"] == "node1" for m in moved),
+              f"[dist] kill: no failover recorded: {rec.extra.keys()}")
+        out["kill"] = dict(failover=moved, max_rel_err=err,
+                           t_wave_s=rec.t_spawn + rec.t_stage)
+        print(f"[dist] kill: node1 killed mid-wave; the wave of {n} "
+              f"completed in {out['kill']['t_wave_s']:.3f}s with failover "
+              f"{json.dumps(moved)}, max rel err {err:.2e}")
+    finally:
+        be.close()
+    # measured re-weighting: node1 slowed to 0.05 s a shard, one wave at
+    # a time so each split sees the last wave's measurement
+    be = _thread_fabric(depth=1)
+    try:
+        be.agents["node1"].throttle(DIST_THROTTLE_S)
+        _, rep = LLMapReduce(wave_size=DIST_GATE_WAVE,
+                             backend=be).map_reduce(app, x[:2 * n])
+        shares = [(r.nodes().get("node1", {}).get("n", 0),
+                   min(v["n"] for k, v in r.nodes().items()
+                       if k != "node1")) for r in rep.records]
+        print(f"[dist] throttle: node1 at {DIST_THROTTLE_S} s a shard; "
+              f"(node1, smallest other) shard sizes by wave {shares}")
+        check(any(slow < fast for slow, fast in shares[1:4]),
+              f"[dist] throttle: node1's shard did not shrink within 3 "
+              f"waves: {shares}")
+        out["reweight"] = dict(shares=shares,
+                               weights=rep.records[-1].extra.get(
+                                   "shard_weights"))
+    finally:
+        be.close()
+    # health: equal shards (no re-weighting) so node1's walls stand out;
+    # a first wave captures every node's graph before the evidence counts
+    be = _thread_fabric(depth=1, reweight=False)
+    try:
+        llmr = LLMapReduce(wave_size=DIST_HEALTH_WAVE, backend=be)
+        llmr.map_reduce(app, x[:DIST_HEALTH_WAVE])
+        be.agents["node1"].throttle(DIST_THROTTLE_S)
+        _, rep = llmr.map_reduce(app, x[:10 * DIST_HEALTH_WAVE])
+        verdicts = be.health_verdicts()
+        print(f"[dist] health: verdicts {json.dumps(verdicts)}; report "
+              f"{json.dumps(rep.health)}")
+        check(verdicts.get("node1") == "outlier"
+              and all(verdicts.get(f"node{i}") == "healthy"
+                      for i in (0, 2, 3)),
+              f"[dist] health: {verdicts}")
+        out["health"] = verdicts
+    finally:
+        be.close()
+    return out
+
+
+def phase_dist(card, counters, launch):
+    """The paper's launch tree with all three levels real, on one card:
+    16,384 instances of ``launch_app``'s function (the example's ``app``:
+    module-level, so process and remote nodes can unpickle it) over
+    (16,384, 64) f32 through ``LLMapReduce(backend=make_backend("dist",
+    ...))`` in waves of 8,192: (a) 4 thread nodes over ``inproc``, (b) 4
+    thread nodes over ``socket``, (c) 2 process nodes over ``socket``, (d)
+    one remote node (``python -m repro_torch.dist.node --connect``)
+    joining a socket fabric armed with a secret — each cold and warm,
+    every output within 1e-5 relative of numpy's, every shard's record
+    naming the card. A repeat launch over ``socket`` puts under 10% of the
+    first one's staged bytes on the wire; each process node and the remote
+    node complete shards; then ``phase_dist_gates``. No kernel of the port
+    runs."""
+    import threading
+    from repro_torch.core.backend import make_backend
+    from repro_torch.dist import DistributedBackend
+    name_card = torch.cuda.get_device_name(0)
+    root = Path(__file__).resolve().parent
+    x = np.random.default_rng(0).standard_normal((LAUNCH_N, 64)).astype(
+        np.float32)
+    want = (x.astype(np.float64) ** 2).sum(-1)
+    for fn in counters:
+        fn.launches = 0
+    out = {}
+    # the remote node's fabric listens first; the node and the process
+    # fabric boot while the thread fabrics run
+    secret_dir = root / "build" / "dist"
+    secret_dir.mkdir(parents=True, exist_ok=True)
+    secret_file = secret_dir / "secret"
+    secret_file.write_bytes(os.urandom(16).hex().encode() + b"\n")
+    remote_be = DistributedBackend(
+        nodes=[], device=DEV, transport="socket",
+        transport_options={"secret": secret_file.read_bytes().strip()},
+        heartbeat_timeout_s=5.0)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    t_remote = time.perf_counter()
+    remote = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.dist.node", "--connect",
+         f"127.0.0.1:{remote_be.transport.address[1]}", "--node-id",
+         "remote0", "--secret-file", str(secret_file), "--heartbeat-s",
+         "0.05", "--device", DEV, "--peer-bind-host", "127.0.0.1",
+         "--peer-advertise-host", "127.0.0.1"], env=env, cwd=str(root))
+    proc_box = {}
+
+    def boot_processes():
+        try:
+            t0 = time.perf_counter()
+            proc_box["be"] = make_backend(
+                "dist", device=DEV, n_nodes=2, node_mode="process",
+                transport="socket", heartbeat_timeout_s=5.0)
+            proc_box["t"] = time.perf_counter() - t0
+        except BaseException as err:      # noqa: BLE001 — raised below
+            proc_box["err"] = err
+
+    booter = threading.Thread(target=boot_processes)
+    booter.start()
+    be = None
+    try:
+        for name, tr in (("thread-inproc", "inproc"),
+                         ("thread-socket", "socket")):
+            be = make_backend("dist", device=DEV, n_nodes=DIST_NODES,
+                              transport=tr, heartbeat_timeout_s=5.0)
+            reads = _dist_run(name, be, x, want, name_card)
+            reads["reserved_bytes_by_node"] = {
+                nid: _graph_pool_bytes(a.backend.cache)
+                for nid, a in be.agents.items()}
+            reads["captures_by_node_cache"] = {
+                nid: a.backend.cache.stats["captures"]
+                for nid, a in be.agents.items()}
+            print(f"[dist] {name}: graph pools reserved by node (bytes) "
+                  f"{json.dumps(reads['reserved_bytes_by_node'])}; captures "
+                  f"{json.dumps(reads['captures_by_node_cache'])}")
+            out[name] = reads
+            be.close()
+            be = None
+        cold = out["thread-socket"]["cold"]["bytes_on_wire"]
+        warm = out["thread-socket"]["warm"]["bytes_on_wire"]
+        print(f"[dist] thread-socket: repeat launch {warm:,} staged bytes "
+              f"on the wire against {cold:,} for the first "
+              f"({warm / max(cold, 1):.4f}x)")
+        check(cold > 0 and warm < 0.1 * cold,
+              f"[dist] repeat wave bytes {warm} vs first {cold}")
+        booter.join()
+        if "err" in proc_box:
+            raise proc_box["err"]
+        be = proc_box.pop("be")
+        reads = _dist_run("process-socket", be, x, want, name_card)
+        boot = {nid: a.alive_s for nid, a in be.agents.items()}
+        reads["alive_s"] = boot
+        reads["construct_s"] = proc_box["t"]
+        print(f"[dist] process-socket: spawn to alive (first heartbeat) by "
+              f"node {json.dumps(boot)} s (the fabric built in "
+              f"{proc_box['t']:.2f}s, under the thread runs)")
+        for nid in be.agents:
+            check(reads["cold"]["nodes"].get(nid, 0) > 0
+                  and reads["warm"]["nodes"].get(nid, 0) > 0,
+                  f"[dist] process node {nid} completed no shard: "
+                  f"{reads['cold']['nodes']}")
+        out["process-socket"] = reads
+        be.close()
+        be = None
+        deadline = time.perf_counter() + 120.0
+        while "remote0" not in remote_be.agents:
+            check(remote.poll() is None, "[dist] the remote node died")
+            check(time.perf_counter() < deadline,
+                  "[dist] the remote node never joined")
+            time.sleep(0.05)
+        t_join = time.perf_counter() - t_remote
+        reads = _dist_run("remote-socket", remote_be, x, want, name_card)
+        reads["alive_s"] = t_join
+        check(reads["cold"]["nodes"].get("remote0", 0) == LAUNCH_N,
+              f"[dist] the remote node's shards: {reads['cold']['nodes']}")
+        print(f"[dist] remote-socket: start to alive (joined through the "
+              f"HMAC handshake) {t_join:.2f}s, under the runs before it")
+        out["remote-socket"] = reads
+    finally:
+        booter.join()
+        for fabric in (be, proc_box.get("be"), remote_be):
+            if fabric is not None:
+                fabric.close()
+        remote.terminate()
+        try:
+            remote.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            remote.kill()
+            remote.wait(timeout=30)
+    out["gates"] = phase_dist_gates(x, want, name_card)
+    others = {fn.__name__: fn.launches for fn in counters}
+    check(not any(others.values()), f"[dist] kernels launched: {others}")
+    arr = launch["array"]
+    print(f"[dist] warm instances/s: "
+          + ", ".join(f"{k} {v['warm']['instances_per_s']:.0f}"
+                      for k, v in out.items() if k != "gates")
+          + f"; [launch] array backend alone: warm "
+          f"{arr['warm']['instances_per_s']:.0f} instances/s, t_schedule "
+          f"{arr['warm']['t_schedule_s']:.4f}s (cold "
+          f"{arr['cold']['instances_per_s']:.0f}); the app launches none of "
+          f"the port's kernels; on {card}")
+    return out
+
+
+def phase_dist_serve(cfg, params, ssd_scan, card, ssm):
+    """``[serve-ssm]``'s wave again with ``PagedServeEngine(backend=<a
+    2-node DistributedBackend>)``: the engine compiles its decode step
+    through the fabric's driver-side cache and replays it there, so the
+    SSD kernel stays on the path. Gates: the tokens equal
+    ``[serve-ssm]``'s, as many SSD launches, every one on ``tc``."""
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.dist import DistributedBackend
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(3)
+    wave = [Request(rid=i, prompt=rng.integers(1, cfg.vocab,
+                                               512 if i % 2 == 0 else 192),
+                    max_new=16) for i in range(8)]
+    fabric = DistributedBackend(n_nodes=2, device=DEV, cache=CompileCache(),
+                                heartbeat_timeout_s=5.0)
+    try:
+        eng, launches = run_serve(cfg, params, [wave], ssd_scan,
+                                  tag="dist-serve", slots=4, capacity=1024,
+                                  page_size=16, kernel="auto",
+                                  backend=fabric)
+        routes = dict(ssd_scan.routes)
+        nodes = fabric.n_nodes
+    finally:
+        fabric.close()
+    toks = [list(map(int, r.out)) for r in wave]
+    same = sum(a == b for a, b in zip(toks, ssm["outs"]))
+    print(f"[dist-serve] {cfg.name} over a {nodes}-node fabric: ssd_scan "
+          f"launches={launches} (serve-ssm {ssm['launches']}), by route "
+          f"{json.dumps(routes)}; {same}/{len(wave)} requests' tokens equal "
+          f"serve-ssm's")
+    check(launches == ssm["launches"] and routes["tc"] == launches,
+          f"[dist-serve] ssd_scan launches {launches} ({routes}) against "
+          f"serve-ssm's {ssm['launches']}")
+    check(same == len(wave), "[dist-serve] tokens differ from serve-ssm's")
+    out = serve_numbers(eng, wave, launches)
+    out["routes"] = routes
+    print_serve("dist-serve", wave, out, card)
     return out
 
 
@@ -1889,6 +2257,7 @@ def phase_serve_ssm(cfg, params, ssd_scan, card):
     check(st["prefix_hits"] == 0, "an SSM config shared a prefix")
     out = serve_numbers(eng, wave, launches)
     out["routes"] = routes
+    out["outs"] = [list(map(int, r.out)) for r in wave]
     print_serve("serve-ssm", wave, out, card)
     return out
 
@@ -2952,6 +3321,10 @@ def main() -> int:
     launch = phase_launch(card, counters)
     print(f"[launch] phase wall {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    dist = phase_dist(card, counters, launch)
+    t_dist = time.perf_counter() - t0
+    print(f"[dist] phase wall {t_dist:.1f}s")
+    t0 = time.perf_counter()
     wine = phase_wine(card, counters)
     print(f"[wine] phase wall {time.perf_counter() - t0:.1f}s")
     fault = phase_train_fault(counters, card)
@@ -2980,6 +3353,12 @@ def main() -> int:
           f"embeddings; {cfg.param_count() / 1e9:.2f} B params drawn on the "
           f"card in {time.perf_counter() - t0:.1f}s")
     ssm = phase_serve_ssm(cfg, params, ssd_scan, card)
+    t0 = time.perf_counter()
+    dist_serve = phase_dist_serve(cfg, params, ssd_scan, card, ssm)
+    t_dist_serve = time.perf_counter() - t0
+    print(f"[dist-serve] phase wall {t_dist_serve:.1f}s; [dist] + "
+          f"[dist-serve] add {t_dist + t_dist_serve:.1f}s to this script")
+    ssm.pop("outs")
     ssm["lockstep"] = phase_lockstep_ssm(cfg, params)
     ssm["profile"] = phase_profile(cfg, params, S=512, tag="profile-ssm")
     ssm["prefill_profile"] = phase_profile_prefill(cfg, params)
@@ -3103,12 +3482,15 @@ def main() -> int:
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:63",
-        "launches": ssm["launches"] + int8["launches"] + sum(
+        "launches": ssm["launches"] + dist_serve["launches"]
+        + int8["launches"] + sum(
             train_ssm[m]["launches"]["ssd_scan"]
             for m in ("eager", "replayed"))
         + fault["launches"]["ssd_scan"] + wine["launches"]["ssd_scan"],
         "launches_by_phase": {
-            "serve-ssm": ssm["launches"], "serve-int8": int8["launches"],
+            "serve-ssm": ssm["launches"],
+            "dist-serve": dist_serve["launches"],
+            "serve-int8": int8["launches"],
             "train-ssm eager": train_ssm["eager"]["launches"]["ssd_scan"],
             "train-ssm replayed":
                 train_ssm["replayed"]["launches"]["ssd_scan"],
@@ -3124,6 +3506,7 @@ def main() -> int:
                                "recomputes the plain version",
         "ssd_grad_rel": ssd_grad["inputs_rel"],
         "routes_by_phase": {"serve-ssm": ssm["routes"],
+                            "dist-serve": dist_serve["routes"],
                             "serve-int8": int8["routes"],
                             **{f"train-ssm {m}":
                                train_ssm[m]["routes"]["ssd_scan"]
@@ -3147,10 +3530,12 @@ def main() -> int:
         "shapes": {n: r for n, r in rec_flash.items() if n != "qwen3-14b"},
     }]
     print(f"[launch] summary {json.dumps(launch)}")
+    print(f"[dist] summary {json.dumps(dist)}")
     print(f"[wine] summary {json.dumps(wine)}")
     print(f"[serve] summary {json.dumps(srv)}")
     print(f"[serve-graph] summary {json.dumps(graph)}")
     print(f"[serve-ssm] summary {json.dumps(ssm)}")
+    print(f"[dist-serve] summary {json.dumps(dist_serve)}")
     print(f"[blocked] summary {json.dumps(blocked)}")
     print(f"[serve-window] summary {json.dumps(win)}")
     print(f"[lockstep-window] summary {json.dumps(lock_win)}")

@@ -80,8 +80,8 @@ class WaveHandle:
     out) tells readiness; a wave without one completed synchronously.
 
     Failure-aware subclasses set ``can_fail = True`` and may return True
-    from ``failed()`` once the wave can no longer complete on its own; the
-    reference's distributed fabric has them, a single card does not."""
+    from ``failed()`` once the wave can no longer complete on its own: the
+    distributed fabric's ``DistWaveHandle`` (``repro_torch.dist``)."""
 
     can_fail = False
 
@@ -405,27 +405,27 @@ class PipelinedBackend(ArrayBackend):
 # ----------------------------------------------------------------------
 
 BACKENDS = {"serial": SerialBackend, "array": ArrayBackend,
-            "pipelined": PipelinedBackend, "dist": None}
+            "pipelined": PipelinedBackend, "dist": None}  # dist: lazy
 
 
 def make_backend(kind: str, cache: Optional[CompileCache] = None,
                  **kwargs) -> LaunchBackend:
-    """'serial' | 'array' | 'pipelined' -> a ready LaunchBackend.
+    """'serial' | 'array' | 'pipelined' | 'dist' -> a ready LaunchBackend.
 
     For 'serial', ``cache`` is accepted but meaningless (the per-instance
     VM baseline uses none); any other kwargs (``device=`` among them) are
     passed through, so unsupported options fail loudly instead of being
     dropped. ``inner_lanes="auto"`` defers the node/core fan-out to the
-    policy layer's ``WaveController``. 'dist' (the reference's multi-host
-    fabric) is not ported."""
+    policy layer's ``WaveController``. 'dist' resolves lazily to the
+    distributed fabric (``repro_torch.dist.DistributedBackend``; pass
+    ``n_nodes=`` / ``nodes=``, ``node_backend=``, ``transport=``)."""
     if kind == "serial":
         return SerialBackend(**kwargs)
     if kwargs.get("inner_lanes") == "auto":
         kwargs["inner_lanes"] = None     # per-wave override drives fan-out
     if kind == "dist":
-        raise NotImplementedError(
-            "the 'dist' backend (multi-host fabric) is not ported: "
-            "ROADMAP.md section 1, item 5")
+        from repro_torch.dist.backend import DistributedBackend
+        return DistributedBackend(cache=cache, **kwargs)
     cls = BACKENDS.get(kind)
     if cls is None:
         raise ValueError(f"unknown backend {kind!r}; "

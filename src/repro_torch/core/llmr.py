@@ -35,8 +35,8 @@ driver's synchronous re-run inside the harvest barrier stalled every
 other wave for the full straggler delay.
 
 NODE failure rides the same path: a failure-aware backend (the
-reference's distributed fabric; not ported) turns a handle's ``failed()`` True once a node's
-heartbeat lease expires under an in-flight wave. The driver treats that
+distributed fabric, ``repro_torch.dist``) turns a handle's ``failed()``
+True once a node's heartbeat lease expires under an in-flight wave. The driver treats that
 as an immediate outlier — no threshold, heartbeat expiry IS the signal —
 and enqueues the same speculative duplicate (over the surviving nodes),
 counted in ``MapReduceReport.node_failures`` and marked

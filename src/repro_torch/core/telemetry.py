@@ -15,7 +15,7 @@ Straggler accounting rides in ``extra`` and is surfaced as CSV columns:
 decisions (``repro_torch.core.autoscale.WaveController``) land in
 ``extra["autoscale"]`` per wave.
 
-Distributed waves (``repro.dist``, not ported) add the top of the tree: ``n_nodes``
+Distributed waves (``repro_torch.dist``) add the top of the tree: ``n_nodes``
 counts the hosts a wave was sharded over and ``node_failure`` marks an
 attempt stranded by a heartbeat-expired node. Per-shard detail lands in
 ``extra["node_records"]`` and rolls up via ``LaunchRecord.nodes()`` (one

@@ -1,5 +1,6 @@
-"""Observability: tracing, a process-local metrics registry, time series and
-the flight recorder. Copies of ``repro.obs`` (only imports renamed).
+"""Observability: tracing, a process-local metrics registry, time series,
+the flight recorder and the live health plane. Copies of ``repro.obs``
+(only imports renamed).
 
 - ``repro_torch.obs.trace``: lightweight spans in a bounded ring buffer;
   one ``llmr.map_reduce`` call renders as one span tree. Export as
@@ -9,16 +10,22 @@ the flight recorder. Copies of ``repro.obs`` (only imports renamed).
 - ``repro_torch.obs.timeseries``: bounded ring time-series plus the
   background ``Sampler``.
 - ``repro_torch.obs.flight``: the flight recorder — atomic JSON postmortem
-  bundles on wave failure / explicit trigger.
-
-The reference's live health plane (``health``, ``statusd``, ``report``) is
-not ported yet.
+  bundles on node death / wave failure / explicit trigger.
+- ``repro_torch.obs.health``: per-node median/MAD anomaly scoring over
+  shard walls and heartbeat gaps -> ``healthy``/``degraded``/``outlier``
+  verdicts with hysteresis (in ``NodeRegistry`` rollups and
+  ``MapReduceReport.health``).
+- ``repro_torch.obs.statusd``: opt-in stdlib HTTP status endpoint
+  (``/healthz`` ``/fleet`` ``/slo`` ``/series`` + one HTML fleet page).
+- ``python -m repro_torch.obs.report trace.json`` renders a captured trace
+  (``--metrics`` a metrics snapshot).
 
 Enable the pillars with :func:`enable_observability` (pass
 ``sampling=True`` to also start the background sampler).
 """
 from typing import Optional
 
+from .health import HealthScorer
 from .metrics import REGISTRY, MetricsRegistry, counter, gauge, histogram
 from .timeseries import RingSeries, Sampler
 from .trace import TRACER, Tracer, new_span_id
@@ -26,7 +33,7 @@ from .trace import TRACER, Tracer, new_span_id
 __all__ = [
     "REGISTRY", "MetricsRegistry", "counter", "gauge", "histogram",
     "TRACER", "Tracer", "new_span_id",
-    "RingSeries", "Sampler",
+    "RingSeries", "Sampler", "HealthScorer",
     "enable_observability", "disable_observability", "sampler",
 ]
 

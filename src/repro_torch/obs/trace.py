@@ -18,8 +18,7 @@ latency-critical threads never build a dict or take a lock.
 Export: :meth:`Tracer.chrome_trace` produces Chrome-trace/Perfetto JSON
 ("traceEvents" with complete events + thread-name metadata);
 :func:`flame_summary` renders the parent/child tree as indented text.
-``python -m repro.obs.report trace.json`` (the reference's; not ported yet)
-does both from a saved file.
+``python -m repro_torch.obs.report trace.json`` does both from a saved file.
 """
 from __future__ import annotations
 

@@ -2,10 +2,10 @@
 CPU: ``tests/test_backend.py`` test by test, plus parity with the
 reference's backends on one seeded input set (outputs within 1e-5).
 
-Not ported, by name: the ``DistributedBackend`` entries of the backend list
-(the multi-host fabric; ``make_backend("dist")`` raises
-``NotImplementedError``) and ``test_donation_disabled_on_cpu`` (PyTorch has
-no buffer donation; a graph's static inputs are reused by construction).
+The backend list holds the distributed fabric over both wires, as the
+reference's does (``repro_torch.dist.DistributedBackend`` on the CPU). Not
+ported, by name: ``test_donation_disabled_on_cpu`` (PyTorch has no buffer
+donation; a graph's static inputs are reused by construction).
 The reference's ``test_backend_outputs_identical`` builds its cache from
 ``tmp_path`` under ``@given`` and fails hypothesis's function-scoped-fixture
 health check; the port's counterpart makes its cache inside the test.
@@ -40,17 +40,36 @@ def cache():
 
 
 def _backends(cache):
+    from repro_torch.dist.backend import DistributedBackend
     return [SerialBackend(device=CPU), ArrayBackend(cache=cache, device=CPU),
             PipelinedBackend(cache=cache, device=CPU),
             ArrayBackend(cache=cache, inner_lanes=4, device=CPU),
             PipelinedBackend(cache=cache, inner_lanes=4, depth=3,
-                             device=CPU)]
+                             device=CPU),
+            # the multi-host fabric speaks the same protocol end-to-end
+            # over BOTH wires (generous lease: a busy CI box must not
+            # false-kill nodes)
+            DistributedBackend(n_nodes=2, cache=cache, device=CPU,
+                               heartbeat_timeout_s=30.0),
+            DistributedBackend(n_nodes=2, cache=cache, device=CPU,
+                               transport="socket",
+                               heartbeat_timeout_s=30.0)]
+
+
+def _close_all(backends):
+    for be in backends:                 # dist backends own node threads
+        if hasattr(be, "close"):
+            be.close()
 
 
 def test_all_backends_satisfy_protocol(cache):
-    for be in _backends(cache):
-        assert isinstance(be, LaunchBackend)
-        assert isinstance(be.name, str) and be.max_in_flight >= 1
+    backends = _backends(cache)
+    try:
+        for be in backends:
+            assert isinstance(be, LaunchBackend)
+            assert isinstance(be.name, str) and be.max_in_flight >= 1
+    finally:
+        _close_all(backends)
 
 
 def test_factory_rejects_unknown_kind():
@@ -66,14 +85,18 @@ def test_backend_outputs_identical(n):
     inputs = np.random.default_rng(n).standard_normal((n, 8)).astype(
         np.float32)
     expect = inputs.sum(-1) * 3.0
-    for be in _backends(cache):
-        out, rec = be.launch(app, inputs, n)
-        got = (np.asarray([np.asarray(o) for o in out])
-               if isinstance(out, list) else np.asarray(out))
-        np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-4,
-                                   err_msg=be.name)
-        assert rec.n_instances == n
-        assert rec.t_first_result > 0.0
+    backends = _backends(cache)
+    try:
+        for be in backends:
+            out, rec = be.launch(app, inputs, n)
+            got = (np.asarray([np.asarray(o) for o in out])
+                   if isinstance(out, list) else np.asarray(out))
+            np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-4,
+                                       err_msg=be.name)
+            assert rec.n_instances == n
+            assert rec.t_first_result > 0.0
+    finally:
+        _close_all(backends)
 
 
 def test_wavehandle_lifecycle(cache):

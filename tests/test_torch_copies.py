@@ -1,20 +1,21 @@
 """The port's verbatim copies — ``core.autoscale``, ``core.launch_model``,
-``core.telemetry`` (the launch half) and ``obs.trace`` / ``obs.metrics`` /
-``obs.timeseries`` / ``obs.flight``, ``data.pipeline`` — held to the
-reference's own tests (``data.pipeline``: its batches, byte for byte).
+``core.telemetry`` (the launch half), ``obs`` (its ``__init__``) and
+``obs.trace`` / ``obs.metrics`` / ``obs.timeseries`` / ``obs.flight`` /
+``obs.health`` / ``obs.statusd`` / ``obs.report``, ``dist.transport`` / ``dist.pump`` / ``dist.chunks`` /
+``dist.registry`` and ``data.pipeline`` — held to the reference's own
+tests (``data.pipeline``: its batches, byte for byte).
 
 Each case below is the reference test's code, taken from its file in
-``tests/`` with every ``repro.`` import renamed to ``repro_torch.``, so the
-same assertions run against the port's copy (the reference's file runs
-them against the reference). Cases that need a module the port does not
-have yet are left out by name: the distributed fabric (``repro.dist``:
-``test_fleet_wave_exports_linked_span_tree``,
-``test_rejoin_same_id_keeps_metrics_baseline``,
-``test_observability_off_adds_no_spans_or_metrics``) and the trace report
-CLI (``repro.obs.report``: ``test_chrome_trace_roundtrip_and_flame``,
-``test_report_renders_wrapped_ring_trace``); ``tests/test_autoscale.py``'s
-end-to-end cases build backends and run in ``tests/test_torch_launcher.py``
-on the CPU. The copies are also compared to the reference's sources.
+``tests/`` through ``test_torch_cases._port_cases`` (``repro.`` imports
+renamed to ``repro_torch.``, launch paths pointed at the CPU), so the same
+assertions run against the port's copy (the reference's file runs them
+against the reference); ``tests/test_obs.py``'s fabric cases run over the
+port's ``repro_torch.dist``. ``tests/test_autoscale.py``'s end-to-end cases
+build backends and run in ``tests/test_torch_launcher.py`` on the CPU; the
+fabric's and health plane's own files run in ``tests/test_torch_dist.py``,
+``test_torch_transport.py``, ``test_torch_fleet.py``,
+``test_torch_stage_dedup.py`` and ``test_torch_health.py``. The copies are
+also compared to the reference's sources.
 """
 import ast
 import re
@@ -24,60 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cases import _port_cases
+
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-TESTS = ROOT / "tests"
-
-
-class _Rename(ast.NodeTransformer):
-    """``repro`` / ``repro.x`` imports -> ``repro_torch`` / ``repro_torch.x``."""
-
-    @staticmethod
-    def _name(mod):
-        if mod == "repro" or (mod or "").startswith("repro."):
-            return "repro_torch" + mod[len("repro"):]
-        return mod
-
-    def visit_Import(self, node):
-        for a in node.names:
-            a.name = self._name(a.name)
-        return node
-
-    def visit_ImportFrom(self, node):
-        if node.level == 0:
-            node.module = self._name(node.module)
-        return node
-
-
-def _port_cases(ref: str, names: tuple, prefix: str) -> dict:
-    """The test functions ``names`` of ``tests/<ref>`` (and its helpers and
-    fixtures) compiled against the port, keyed ``test_<prefix>__<name>``
-    (fixtures and helpers under their own names). Top-level imports of a
-    module the port lacks are dropped; the cases chosen do not use them."""
-    tree = _Rename().visit(ast.parse((TESTS / ref).read_text()))
-    ns = {"__name__": f"ported_{ref[:-3]}"}
-    for node in tree.body:
-        if (isinstance(node, ast.FunctionDef)
-                and node.name.startswith("test_")
-                and node.name not in names):
-            continue
-        code = compile(ast.Module(body=[node], type_ignores=[]),
-                       str(TESTS / ref), "exec")
-        try:
-            exec(code, ns)
-        except ImportError:
-            if not isinstance(node, (ast.Import, ast.ImportFrom)):
-                raise
-    missing = set(names) - set(ns)
-    assert not missing, missing
-    out = {}
-    for k, v in ns.items():
-        if k in names:
-            out[f"test_{prefix}__{k[len('test_'):]}"] = v
-        elif hasattr(v, "_fixture_function_marker"):     # a fixture
-            out[k] = v
-    return out
 
 
 AUTOSCALE = (
@@ -117,11 +69,16 @@ OBS = (
     "test_wire_context_tuple_reparents_across_threads",
     "test_ring_is_bounded",
     "test_wrapped_ring_exports_no_orphan_parent_refs",
+    "test_chrome_trace_roundtrip_and_flame",
+    "test_report_renders_wrapped_ring_trace",
+    "test_fleet_wave_exports_linked_span_tree",
+    "test_rejoin_same_id_keeps_metrics_baseline",
+    "test_observability_off_adds_no_spans_or_metrics",
 )
 
 globals().update(_port_cases("test_autoscale.py", AUTOSCALE, "autoscale"))
 globals().update(_port_cases("test_telemetry.py", TELEMETRY, "telemetry"))
-globals().update(_port_cases("test_obs.py", OBS, "obs"))
+globals().update(_port_cases("test_obs.py", OBS, "obs", module=__name__))
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +87,9 @@ globals().update(_port_cases("test_obs.py", OBS, "obs"))
 
 COPIES = ("core/autoscale.py", "core/launch_model.py", "core/telemetry.py",
           "obs/trace.py", "obs/metrics.py", "obs/timeseries.py",
-          "obs/flight.py", "data/pipeline.py")
+          "obs/flight.py", "obs/health.py", "obs/statusd.py",
+          "obs/report.py", "obs/__init__.py", "dist/transport.py", "dist/pump.py",
+          "dist/chunks.py", "dist/registry.py", "data/pipeline.py")
 
 
 def _code(path: Path) -> str:

@@ -422,9 +422,21 @@ def test_make_backend_normalizes_auto_inner_lanes(cache):
     assert be.supports_lane_override
 
 
-def test_make_backend_dist_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_backend("dist")
+def test_make_backend_dist_is_not_ported(monkeypatch):
+    """The name predates the fabric's port: ``make_backend("dist")`` now
+    resolves lazily to ``repro_torch.dist.DistributedBackend`` — on the
+    card unless given the CPU, raising without one — and an unknown kind
+    still raises."""
+    from repro_torch.dist import DistributedBackend
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_backend("dist", n_nodes=1)
+    be = make_backend("dist", n_nodes=1, device=CPU)
+    try:
+        assert isinstance(be, DistributedBackend)
+        assert be.device.type == "cpu" and be.name == "llmr-dist"
+    finally:
+        be.close()
     with pytest.raises(ValueError):
         make_backend("slurm", device=CPU)
 

@@ -8,7 +8,8 @@
   ``tests/test_models.py``. ``lm_init`` builds all ten at smoke width with
   JAX blocked.
 * It imports with JAX blocked, and no file of it — nor ``chip_smoke.py`` —
-  imports ``jax`` or the reference package ``repro``.
+  imports ``jax`` or the reference package ``repro``; the distributed
+  fabric launches with JAX blocked.
 * Its entry points run on the card unless asked for the CPU, and raise
   without one; ``launch.serve.serve`` drives the paged engine end to end.
 * bf16 crosses ``convert`` bit for bit.
@@ -113,6 +114,39 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_fabric_and_health_plane_run_with_jax_blocked():
+    """The scan above covers the distributed fabric, the health plane and
+    the examples; one launch of the example over a socket fabric of two
+    nodes, with ``obs.report`` rendering its trace, runs on the CPU in a
+    process where ``import jax`` fails."""
+    mods = set(_modules())
+    assert {"repro_torch.dist", "repro_torch.dist.backend",
+            "repro_torch.dist.node", "repro_torch.dist.transport",
+            "repro_torch.dist.pump", "repro_torch.dist.chunks",
+            "repro_torch.dist.registry", "repro_torch.obs.health",
+            "repro_torch.obs.statusd", "repro_torch.obs.report",
+            "repro_torch.examples",
+            "repro_torch.examples.massive_launch"} <= mods
+    code = ("import sys, tempfile, os\n"
+            "sys.modules['jax'] = None\n"
+            "from repro_torch.examples import massive_launch\n"
+            "from repro_torch.obs import report\n"
+            "path = os.path.join(tempfile.mkdtemp(), 't.json')\n"
+            "massive_launch.main(['--device', 'cpu', '--n', '256',\n"
+            "                     '--wave', '64', '--nodes', '2',\n"
+            "                     '--transport', 'socket', '--obs',\n"
+            "                     '--trace-out', path])\n"
+            "report.main([path])\n"
+            "assert not any(k == 'repro' or k.startswith('repro.')\n"
+            "               for k in sys.modules), 'imported repro'\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "per-node split across the fabric over socket" in res.stdout
+    assert "llmr.map_reduce" in res.stdout
 
 
 def _imported(path: Path):
