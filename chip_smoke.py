@@ -132,6 +132,13 @@ non-zero:
             step 4, the checkpoint restored INTO the bound tensors (no
             address moves), one graph that keeps replaying, every loss and
             the final params within 1e-5 of an uninterrupted run.
+4e. examples  the port's three examples as ``python -m
+            repro_torch.examples.<name>`` subprocesses on the card, at
+            once: ``quickstart --n 1024 --serial-n 8``, ``serve_batch`` and
+            ``train_lm --steps 12 --inject-failure`` (checkpoints in a
+            temporary directory). Gates: each exits 0; train_lm restarts
+            once and its loss falls; serve_batch's decode step compiled.
+            Their own lines are printed.
 5. serve    ``repro_torch.launch.serve.serve`` with qwen3-14b at its full
             published width (40 layers, d_model 5120, 40/8 heads, head_dim
             128, d_ff 17408, vocab 151936), random bf16 weights drawn on the
@@ -151,6 +158,26 @@ non-zero:
             gate: 8 greedy steps of the captured step against eager
             ``paged_decode_step`` calls from one prefill, tokens equal up
             to the first near-tie (logits' largest difference printed).
+5b. serve-obs  as 5a with ``obs.metrics.REGISTRY`` enabled, then disabled:
+            the ``serve.ttft_s`` / ``serve.tpot_s`` histograms and series
+            each count the records with tokens; ``serve.preemptions``,
+            ``serve.prefix.hits`` / ``misses`` and
+            ``serve.kernel.bytes_avoided`` equal the engine's stats (bytes
+            avoided > 0 on kernel "paged"); the occupancy gauge in [0, 1];
+            the step one graph, replayed every step after its capture; TPOT
+            beside 5a's (the registry off).
+5c. serve-fixed  5's second wave on the fixed-ring ``ServeEngine`` (4
+            slots, capacity 512, no prefix sharing, the decode step
+            replayed): one prefill dispatch a request, no kernel of the port
+            launched, tokens equal 5a's paged engine's up to the first
+            near-tie (the gap read along the fixed path: prefill, then
+            decode steps); TTFT, TPOT, tokens/s and peak memory beside 5a's.
+            lockstep-fixed: 4 x 128 prompts prefilled into rings of 512,
+            8 greedy steps of the captured step against eager
+            ``decode_step`` calls: tokens equal up to the first near-tie.
+            serve-fixed-twin: the same wave on the paged engine with kernel
+            "gather" and one-slot prefill (the reference's bitwise twin of
+            the fixed engine): every token equal.
 6. lockstep from one set of params, paged_prefill + 4 paged_decode_step
             with kernel "paged" and with kernel "gather" on two copies of a
             fresh pool (4 prompts of 128 tokens; 32-entry tables, as
@@ -184,6 +211,10 @@ non-zero:
             DistributedBackend>)``: the decode step compiled through the
             fabric's driver-side cache and replayed there. Gates: the
             tokens equal 9's, as many SSD launches, every one on tc.
+9b. serve-fixed-ssm  9's wave on the fixed-ring ``ServeEngine`` (4 slots,
+            capacity 1024): every prompt prefilled alone, 48 SSD launches a
+            prefill dispatch and one dispatch a request, all on tc; tokens
+            equal 9's up to the first near-tie.
 10. lockstep-ssm  4 prompts of 512 tokens prefilled through the SSD kernel
             and decoded 4 steps, against the same prompts fed one token at
             a time through paged_decode_step (the decode recurrence, an
@@ -1271,13 +1302,14 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
               backend=None, **kw):
     """The main path: ``serve`` over ``waves`` with every kernel's launch
     count set to 0 just before and read just after (``kernel_fn``'s is
-    returned; the others must stay 0); every prefill dispatch and decode
-    step of the engine is watched for non-finite logits (a decode step's
-    after its replay, outside the graph). The decode step is captured
-    (``capture_step``, the engine's default) or run eagerly, on a compile
-    cache of its own (freed with the engine) — ``backend``'s, where one is
-    given; ``eng.capture`` notes the step's source and the cache's capture
-    and replay counts."""
+    returned; the others must stay 0; with ``kernel_fn`` None all must); every
+    prefill dispatch and decode step of the engine (``kw["engine"]``: the
+    paged one by default, or the fixed one) is watched for non-finite logits
+    (a decode step's after its replay, outside the graph). The decode step
+    is captured (``capture_step``, the engine's default) or run eagerly, on
+    a compile cache of its own (freed with the engine) — ``backend``'s,
+    where one is given; ``eng.capture`` notes the step's source and the
+    cache's capture and replay counts."""
     from repro_torch.core.backend import ArrayBackend
     from repro_torch.core.compile_cache import CompileCache
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1287,20 +1319,32 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
     from repro_torch.serve import engine as engine_mod
     counters = (paged_attention, ssd_scan, flash_attention)
     finite = []
-    saved = engine_mod.paged_prefill, engine_mod.PagedServeEngine._decode
+    engines = (engine_mod.PagedServeEngine, engine_mod.ServeEngine)
+    saved = ((engine_mod.paged_prefill, engine_mod.prefill),
+             tuple(e._decode for e in engines))
 
-    def prefill(*args, **kw):
-        logits, pool = saved[0](*args, **kw)
-        finite.append(bool(torch.isfinite(logits).all()))
-        return logits, pool
+    def watched(fn):
+        def prefill(*args, **kw):
+            logits, caches = fn(*args, **kw)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits, caches
+        return prefill
 
-    def decode(self, *args, **kw):
-        logits = saved[1](self, *args, **kw)
-        finite.append(bool(torch.isfinite(logits).all()))
-        return logits
+    def watched_decode(fn):
+        def decode(self, *args, **kw):
+            logits = fn(self, *args, **kw)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits
+        return decode
 
-    engine_mod.paged_prefill, engine_mod.PagedServeEngine._decode = (
-        prefill, decode)
+    def restore():
+        engine_mod.paged_prefill, engine_mod.prefill = saved[0]
+        for e, fn in zip(engines, saved[1]):
+            e._decode = fn
+
+    engine_mod.paged_prefill, engine_mod.prefill = map(watched, saved[0])
+    for e, fn in zip(engines, saved[1]):
+        e._decode = watched_decode(fn)
     if backend is None:
         backend = ArrayBackend(cache=CompileCache(), device=DEV)
     torch.cuda.synchronize()
@@ -1313,11 +1357,11 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
         eng = serve(cfg, params, waves, device=DEV, backend=backend,
                     capture_step=capture_step, **kw)
         torch.cuda.synchronize()
-        launches = kernel_fn.launches
+        launches = kernel_fn.launches if kernel_fn is not None else 0
         others = {fn.__name__: fn.launches for fn in counters
                   if fn is not kernel_fn}
     finally:
-        engine_mod.paged_prefill, engine_mod.PagedServeEngine._decode = saved
+        restore()
     st = backend.cache.stats
     eng.capture = dict(source=eng.stats["compile_sources"]["step"],
                        captures=st["captures"], replays=st["replays"],
@@ -1334,7 +1378,8 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
     check(not any(others.values()), f"other kernels launched: {others}")
     check(all(r.done and len(r.out) == r.max_new for w in waves for r in w),
           "a request did not finish")
-    eng.pool.check()
+    if hasattr(eng, "pool"):
+        eng.pool.check()
     check(finite and all(finite), "non-finite logits")
     return eng, launches
 
@@ -1348,7 +1393,7 @@ def serve_numbers(eng, wave, launches):
                 tpot_p50_s=summ["p50_tpot_s"], wall_s=st["wall_s"],
                 tokens=n_tok, tokens_per_s=n_tok / st["wall_s"],
                 peak_bytes=torch.cuda.max_memory_allocated(),
-                prefix_hits=st["prefix_hits"], steps=st["steps"],
+                prefix_hits=st.get("prefix_hits", 0), steps=st["steps"],
                 prefill_dispatches=st["prefill_dispatches"],
                 step=getattr(eng, "capture", None))
 
@@ -1358,8 +1403,9 @@ def print_serve(tag, wave, out, card):
           f"{out['wall_s']:.3f}s: TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms, "
           f"TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} ms, "
           f"{out['tokens_per_s']:.1f} tokens/s; peak memory "
-          f"{out['peak_bytes'] / 2**30:.2f} GiB; pool check clean; "
-          f"all logits finite; on {card}")
+          f"{out['peak_bytes'] / 2**30:.2f} GiB; "
+          + ("" if "fixed" in tag else "pool check clean; ")
+          + f"all logits finite; on {card}")
 
 
 def greedy(logits):
@@ -1368,8 +1414,10 @@ def greedy(logits):
     return (logits.argmax(-1).cpu().numpy(),
             (top2[..., 0] - top2[..., 1]).cpu().numpy())
 
-def phase_serve(cfg, params, paged_attention, card, capacity=512,
-                tag="serve", routes=("split", "tile"), capture_step=True):
+def serve_traffic(cfg):
+    """``[serve]``'s two waves: a 64-token system prompt, then 8 requests
+    of 128 prompt tokens and 16 generated, half extending the system
+    prompt."""
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(0)
     system = rng.integers(1, cfg.vocab, 64)
@@ -1379,6 +1427,12 @@ def phase_serve(cfg, params, paged_attention, card, capacity=512,
         for i in range(4)]
         + [Request(rid=5 + i, prompt=rng.integers(1, cfg.vocab, 128),
                    max_new=16) for i in range(4)])
+    return first, wave
+
+
+def phase_serve(cfg, params, paged_attention, card, capacity=512,
+                tag="serve", routes=("split", "tile"), capture_step=True):
+    first, wave = serve_traffic(cfg)
     eng, launches = run_serve(cfg, params, [first, wave], paged_attention,
                               tag=tag, slots=4, capacity=capacity,
                               page_size=16, kernel="paged",
@@ -1413,6 +1467,17 @@ def check_paged_routes(eng, launches, paged_attention, cfg, tag,
           f"decode step on {decode}, every prefill dispatch on {prefill}")
     check(routes == want, f"routes {routes}, expected {want}")
     return routes
+
+
+def tie_gate(tag, a, b, gaps):
+    """Gate: greedy tokens ``a`` and ``b`` (steps, B) agree in every slot
+    up to the first near-tie (``gaps``: ``a``'s top-2 gaps)."""
+    for s in range(a.shape[1]):
+        diff = np.nonzero(a[:, s] != b[:, s])[0]
+        if diff.size:
+            check(gaps[diff[0], s] < ULP_TIE,
+                  f"[{tag}] slot {s}: tokens diverge at step {diff[0]} with "
+                  f"top-2 gap {gaps[diff[0], s]:.4f} >= {ULP_TIE}")
 
 
 def phase_lockstep(cfg, params, lens=(128,) * 4, npps=32, P=128,
@@ -1480,12 +1545,7 @@ def phase_lockstep(cfg, params, lens=(128,) * 4, npps=32, P=128,
         del pool
     (a, gaps), (b, _) = runs[modes[0]], runs[modes[1]]
     d = float((stacks[modes[0]] - stacks[modes[1]]).abs().max())
-    for s in range(B):
-        diff = np.nonzero(a[:, s] != b[:, s])[0]
-        if diff.size:
-            check(gaps[diff[0], s] < ULP_TIE,
-                  f"slot {s}: tokens diverge at step {diff[0]} with top-2 "
-                  f"gap {gaps[diff[0], s]:.4f} >= {ULP_TIE}")
+    tie_gate(tag, a, b, gaps)
     print(f"[{tag}] {cfg.name}: {modes[1]} vs {modes[0]}, prefill of "
           f"prompts {lens.tolist()} (padded to {S}) + {steps} decode steps: "
           f"tokens equal at {int((a == b).sum())}/{a.size} positions (first "
@@ -1889,11 +1949,7 @@ def phase_dist_serve(cfg, params, ssd_scan, card, ssm):
     ``[serve-ssm]``'s, as many SSD launches, every one on ``tc``."""
     from repro_torch.core.compile_cache import CompileCache
     from repro_torch.dist import DistributedBackend
-    from repro_torch.serve.engine import Request
-    rng = np.random.default_rng(3)
-    wave = [Request(rid=i, prompt=rng.integers(1, cfg.vocab,
-                                               512 if i % 2 == 0 else 192),
-                    max_new=16) for i in range(8)]
+    wave = ssm_wave(cfg)
     fabric = DistributedBackend(n_nodes=2, device=DEV, cache=CompileCache(),
                                 heartbeat_timeout_s=5.0)
     try:
@@ -2081,6 +2137,320 @@ def phase_serve_graph(cfg, params, paged_attention, card, eager):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The fixed-ring engine, the engine's obs hooks, the examples
+# ---------------------------------------------------------------------------
+
+def fixed_path_gap(cfg, params, prompt, toks, i, capacity):
+    """Top-2 gap of the logits that chose token ``i`` of a request, along
+    the fixed engine's own path: ``prefill`` of the prompt into rings of
+    ``capacity`` rows, then ``toks[:i]`` through the decode step, the last
+    hidden state projected in f32 (at full width the logits' scale is ~6,
+    where one bf16 ulp is 0.03125: a bf16 gap reads a near-tie only in
+    those steps)."""
+    from repro_torch.models.layers import softcap
+    from repro_torch.models.lm import decode_step, lm_hidden, prefill
+    n = len(prompt)
+
+    def tok(x):
+        return torch.tensor([[x]], dtype=torch.int32, device=DEV)
+
+    t = torch.as_tensor(np.asarray(prompt), dtype=torch.int32).to(DEV)
+    if i == 0:
+        h = lm_hidden(params, {"tokens": t[None]}, cfg)[0][:, -1:]
+    else:
+        _, caches = prefill(params, {"tokens": t[None]}, cfg,
+                            capacity=capacity)
+        for j in range(i - 1):
+            decode_step(params, caches, tok(toks[j]), tok(n + j), cfg)
+        h, _ = lm_hidden(params, {"tokens": tok(toks[i - 1]),
+                                  "positions": tok(n + i - 1)}, cfg,
+                         caches=caches)
+    w = (params["embed"]["embedding"].T if cfg.tie_embeddings
+         else params["lm_head"]["lm_head"])
+    logits = h[0, -1].float() @ w.float()
+    if cfg.final_logit_softcap:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    top2 = torch.topk(logits, 2)[0]
+    return float(top2[0] - top2[1])
+
+
+def equal_up_to_near_tie(cfg, params, wave, outs, ref_outs, capacity, tag,
+                         ref):
+    """Gate: each request's tokens ``outs`` equal ``ref_outs`` up to the
+    first near-tie (where they first differ, the f32 top-2 gap along the
+    fixed path is below ``ULP_TIE``). Returns (requests equal, tokens
+    equal)."""
+    same = tokens = 0
+    for req, a, b in zip(wave, outs, ref_outs):
+        check(len(a) == len(b), f"[{tag}] request {req.rid}: {len(a)} "
+              f"tokens against {ref}'s {len(b)}")
+        diff = [j for j, (x, y) in enumerate(zip(a, b)) if x != y]
+        tokens += len(a) - len(diff)
+        if not diff:
+            same += 1
+            continue
+        gap = fixed_path_gap(cfg, params, req.prompt, a, diff[0], capacity)
+        print(f"[{tag}] request {req.rid}: tokens differ from {ref}'s at "
+              f"{diff[0]} (f32 top-2 gap there {gap:.4f})")
+        check(gap < ULP_TIE, f"[{tag}] request {req.rid} diverges from "
+              f"{ref}'s at token {diff[0]} with top-2 gap {gap:.4f} >= "
+              f"{ULP_TIE}")
+    return same, tokens
+
+
+def phase_lockstep_fixed(cfg, params, B=4, S=128, capacity=512, steps=8,
+                         tag="lockstep-fixed"):
+    """``prefill`` of B prompts of S tokens into rings of ``capacity`` rows,
+    copied twice, then ``steps`` greedy steps of the fixed engine's decode
+    step: eagerly on one copy, captured once and replayed on the other.
+    Gate: tokens equal up to the first near-tie."""
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.models.lm import decode_step, prefill
+    from torch.utils import _pytree as pytree
+    r = np.random.default_rng(1)
+    toks = torch.from_numpy(r.integers(1, cfg.vocab, (B, S)).astype(
+        np.int32)).to(DEV)
+    lg0, caches = prefill(params, {"tokens": toks}, cfg, capacity=capacity)
+    twin = pytree.tree_map(torch.clone, caches)
+
+    def step_fn(p, c, t, po):
+        return decode_step(p, c, t, po, cfg)[0]
+
+    pos0 = torch.full((B, 1), S, dtype=torch.int32, device=DEV)
+    t0 = torch.argmax(lg0[:, 0], -1)[:, None].to(torch.int32)
+    exe, _ = ArrayBackend(cache=CompileCache(), device=DEV).compile(
+        step_fn, (params, twin, t0, pos0), bind_argnums=(0, 1))
+    runs, stacks = {}, {}
+    for mode, c, step in (("eager", caches, step_fn), ("graph", twin, exe)):
+        logits, pos = [lg0[:, 0].float()], pos0
+        for _ in range(steps):
+            t = torch.argmax(logits[-1], -1)[:, None].to(torch.int32)
+            logits.append(step(params, c, t, pos)[:, 0].float())
+            pos = pos + 1
+        lg = torch.stack(logits)
+        check(bool(torch.isfinite(lg).all()), f"[{tag}] {mode}: non-finite "
+              "logits")
+        runs[mode], stacks[mode] = greedy(lg), lg
+    check(exe.replays == steps - 1,
+          f"[{tag}] {exe.replays} replays of {steps} steps")
+    (a, gaps), (b, _) = runs["eager"], runs["graph"]
+    tie_gate(tag, a, b, gaps)
+    d = float((stacks["eager"] - stacks["graph"]).abs().max())
+    print(f"[{tag}] {cfg.name}: replayed vs eager fixed decode step, "
+          f"prefill of {B} x {S} into rings of {capacity} + {steps} steps: "
+          f"tokens equal at {int((a == b).sum())}/{a.size} positions; logits "
+          f"max |diff| {d:.3e}; ok")
+    return dict(tokens_equal=int((a == b).sum()), tokens=int(a.size),
+                logits_max_abs_diff=d)
+
+
+def phase_serve_fixed(cfg, params, card, paged):
+    """``[serve]``'s second wave on the fixed-ring engine (4 slots,
+    capacity 512, no prefix sharing; the decode step replayed): one
+    prefill dispatch a request, no kernel of the port launched (the rings'
+    attention is the model's own); tokens equal ``[serve-graph]``'s paged
+    engine's on the same requests up to the first near-tie, and equal, all
+    of them, to the paged engine's on kernel "gather" with one-slot prefill
+    (the reference's ``test_paged_tokens_bit_identical_to_fixed``: that
+    path decodes over the same dense view); then the replayed step against
+    eager ``decode_step`` calls."""
+    _, wave = serve_traffic(cfg)
+    eng, _ = run_serve(cfg, params, [wave], None, tag="serve-fixed",
+                       engine="fixed", slots=4, capacity=512)
+    st = eng.stats
+    check(st["prefill_dispatches"] == st["admitted"] == len(wave),
+          f"[serve-fixed] {st['prefill_dispatches']} prefill dispatches for "
+          f"{st['admitted']} admitted of {len(wave)}")
+    outs = [list(map(int, r.out)) for r in wave]
+    out = serve_numbers(eng, wave, 0)      # before the twin's run: its peak
+    _, twin = serve_traffic(cfg)
+    run_serve(cfg, params, [twin], None, tag="serve-fixed-twin", slots=4,
+              capacity=512, page_size=16, kernel="gather",
+              batched_prefill=False)
+    twin_equal = sum(list(map(int, r.out)) == o for r, o in zip(twin, outs))
+    print(f"[serve-fixed] {twin_equal}/{len(wave)} requests' tokens equal, "
+          f"all of them, to the paged engine's on kernel gather with one-slot "
+          f"prefill")
+    check(twin_equal == len(wave), "[serve-fixed] tokens differ from the "
+          "paged engine's on kernel gather with one-slot prefill")
+    same, toks = equal_up_to_near_tie(cfg, params, wave, outs,
+                                      paged["outs"][1:], 512, "serve-fixed",
+                                      "serve-graph")
+    out.update(requests_equal_to_paged=[same, len(wave)],
+               tokens_equal_to_paged=[toks, out["tokens"]],
+               requests_equal_to_gather_one_slot=[twin_equal, len(wave)])
+    print_serve("serve-fixed", wave, out, card)
+    print(f"[serve-fixed] {cfg.name}: fixed vs paged engine ([serve-graph], "
+          f"one run; both replay their decode step): TTFT p50 "
+          f"{out['ttft_p50_s'] * 1e3:.1f} vs {paged['ttft_p50_s'] * 1e3:.1f} "
+          f"ms, TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} vs "
+          f"{paged['tpot_p50_s'] * 1e3:.2f} ms, {out['tokens_per_s']:.1f} vs "
+          f"{paged['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{out['peak_bytes'] / 2**30:.2f} vs "
+          f"{paged['peak_bytes'] / 2**30:.2f} GiB; {st['prefill_dispatches']}"
+          f" prefill dispatches (one a request) and {st['steps']} steps; "
+          f"{same}/{len(wave)} requests and {toks}/{out['tokens']} tokens "
+          f"equal to the paged engine's; on {card}")
+    out["lockstep"] = phase_lockstep_fixed(cfg, params)
+    return out
+
+
+def phase_serve_fixed_ssm(cfg, params, ssd_scan, card, ssm):
+    """``[serve-ssm]``'s wave on the fixed-ring engine (4 slots, capacity
+    1024): each request prefilled alone, so 48 SSD launches a request, all
+    on ``tc``; tokens equal ``[serve-ssm]``'s up to the first near-tie."""
+    wave = ssm_wave(cfg)
+    eng, launches = run_serve(cfg, params, [wave], ssd_scan,
+                              tag="serve-fixed-ssm", engine="fixed", slots=4,
+                              capacity=1024)
+    st = eng.stats
+    routes = dict(ssd_scan.routes)
+    print(f"[serve-fixed-ssm] ssd_scan launches={launches} = "
+          f"{cfg.n_layers} layers x {st['prefill_dispatches']} prefill "
+          f"dispatches (one a request); by route {json.dumps(routes)}")
+    check(st["prefill_dispatches"] == st["admitted"] == len(wave),
+          f"[serve-fixed-ssm] {st['prefill_dispatches']} prefill dispatches "
+          f"for {st['admitted']} admitted of {len(wave)}")
+    check(launches == cfg.n_layers * len(wave) and routes["tc"] == launches,
+          f"[serve-fixed-ssm] ssd_scan launches {launches} ({routes}) != "
+          f"{cfg.n_layers} x {len(wave)}, all on tc")
+    outs = [list(map(int, r.out)) for r in wave]
+    same, toks = equal_up_to_near_tie(cfg, params, wave, outs, ssm["outs"],
+                                      1024, "serve-fixed-ssm", "serve-ssm")
+    out = serve_numbers(eng, wave, launches)
+    out.update(routes=routes, requests_equal_to_paged=[same, len(wave)],
+               tokens_equal_to_paged=[toks, out["tokens"]])
+    print_serve("serve-fixed-ssm", wave, out, card)
+    print(f"[serve-fixed-ssm] {cfg.name}: fixed vs paged engine "
+          f"([serve-ssm], one run): TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} vs "
+          f"{ssm['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{out['tpot_p50_s'] * 1e3:.2f} vs {ssm['tpot_p50_s'] * 1e3:.2f} "
+          f"ms, {out['tokens_per_s']:.1f} vs {ssm['tokens_per_s']:.1f} "
+          f"tokens/s, peak memory {out['peak_bytes'] / 2**30:.2f} vs "
+          f"{ssm['peak_bytes'] / 2**30:.2f} GiB; {same}/{len(wave)} requests "
+          f"and {toks}/{out['tokens']} tokens equal; on {card}")
+    return out
+
+
+SERVE_HISTS = ("serve.ttft_s", "serve.tpot_s")
+SERVE_COUNTERS = {"serve.preemptions": "preemptions",
+                  "serve.prefix.hits": "prefix_hits",
+                  "serve.prefix.misses": "prefix_misses",
+                  "serve.kernel.bytes_avoided": "kv_bytes_avoided"}
+
+
+def phase_serve_obs(cfg, params, paged_attention, card, graph):
+    """``[serve-graph]``'s traffic again with ``obs.metrics.REGISTRY``
+    enabled, then disabled: the engine's instruments against its own
+    stats, the captured step unchanged, TPOT beside ``[serve-graph]``'s
+    (the registry off)."""
+    from repro_torch.obs import metrics
+    reg = metrics.REGISTRY
+    check(not reg.enabled, "[serve-obs] the registry is already on")
+    first, wave = serve_traffic(cfg)
+    reg.clear()
+    reg.enable()
+    try:
+        eng, launches = run_serve(cfg, params, [first, wave],
+                                  paged_attention, tag="serve-obs", slots=4,
+                                  capacity=512, page_size=16, kernel="paged",
+                                  prefix_sharing=True)
+        snap = reg.snapshot()
+        series = {n: len(reg.series(n)) for n in SERVE_HISTS}
+    finally:
+        reg.disable()
+        reg.clear()
+    st = eng.stats
+    routes = check_paged_routes(eng, launches, paged_attention, cfg,
+                                "serve-obs")
+    n_rec = sum(1 for r in eng.records if r.n_tokens > 0)
+    hists = {n: snap[n]["count"] for n in SERVE_HISTS}
+    check(hists == dict.fromkeys(SERVE_HISTS, n_rec) and series == hists,
+          f"[serve-obs] histograms {hists}, series {series}: {n_rec} records "
+          "with tokens")
+    counters = {n: snap[n] for n in SERVE_COUNTERS}
+    want = {n: st[k] for n, k in SERVE_COUNTERS.items()}
+    check(counters == want, f"[serve-obs] counters {counters} != stats {want}")
+    check(eng.kernel == "paged" and st["kv_bytes_avoided"] > 0,
+          f"[serve-obs] no dense view avoided on kernel {eng.kernel}")
+    occ = snap["serve.pool_occupancy"]
+    check(0.0 <= occ <= 1.0, f"[serve-obs] occupancy {occ}")
+    cap = eng.capture
+    check(cap["source"] in ("compiled", "memory")
+          and cap["replays"] == st["steps"] - 1,
+          f"[serve-obs] the step is not one graph replayed: {cap}")
+    out = serve_numbers(eng, wave, launches)
+    out.update(routes=routes, histogram_counts=hists, counters=counters,
+               pool_occupancy_last=occ,
+               kv_row_bytes=eng.kv_row_bytes())
+    print(f"[serve-obs] {cfg.name}: registry on: serve.ttft_s / tpot_s "
+          f"count {n_rec} each (= records with tokens), counters "
+          f"{json.dumps(counters)} (= the engine's stats), pool occupancy "
+          f"{occ:.3f} before the last step, {st['kv_bytes_avoided']:,} bytes "
+          f"of dense views not built ({eng.kv_row_bytes():,} bytes a KV row)")
+    print(f"[serve-obs] TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} ms with the "
+          f"registry on vs {graph['tpot_p50_s'] * 1e3:.2f} ms off "
+          f"([serve-graph], same traffic, one run); TTFT p50 "
+          f"{out['ttft_p50_s'] * 1e3:.1f} vs {graph['ttft_p50_s'] * 1e3:.1f} "
+          f"ms; step {cap['source']}, {cap['replays']} replays of "
+          f"{st['steps']} steps; on {card}")
+    return out
+
+
+EXAMPLES = (("quickstart", ["--n", "1024", "--serial-n", "8"]),
+            ("serve_batch", []),
+            ("train_lm", ["--steps", "12", "--inject-failure"]))
+
+
+def phase_examples(card, root):
+    """Each example of the port as ``python -m repro_torch.examples.<name>``
+    on the card, the three at once. Gates: each exits 0; train_lm restarts
+    once and its loss falls. Their own lines are printed."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_train_ckpt_")
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name, argv in EXAMPLES:
+            if name == "train_lm":
+                argv = argv + ["--ckpt-dir", ckpt]
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        outs = {}
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=300)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for name, text in outs.items():
+        for line in text.strip().splitlines()[-14:]:
+            print(f"[examples] {name} | {line}")
+    rcs = {name: p.returncode for name, p in procs.items()}
+    check(all(rc == 0 for rc in rcs.values()), f"[examples] exit codes {rcs}")
+    m = re.search(r"done: (\d+) steps, (\d+) restarts, loss ([\d.]+) -> "
+                  r"([\d.]+)", outs["train_lm"])
+    check(m is not None, "[examples] train_lm printed no summary")
+    restarts, first, last = int(m[2]), float(m[3]), float(m[4])
+    check(restarts == 1 and last < first,
+          f"[examples] train_lm: {restarts} restarts, loss {first} -> {last}")
+    check("decode step: compiled" in outs["serve_batch"],
+          "[examples] serve_batch's decode step was not compiled")
+    print(f"[examples] quickstart, serve_batch and train_lm ran on the card "
+          f"at once in {wall:.1f}s: exit codes {json.dumps(rcs)}; train_lm "
+          f"restarted {restarts} time, loss {first} -> {last}; on {card}")
+    return dict(exit_codes=rcs, wall_s=wall, train_restarts=restarts,
+                train_loss=[first, last])
+
+
 def count_calls(module, name, calls):
     """Wrap ``module.name`` to append to ``calls``; returns the original."""
     fn = getattr(module, name)
@@ -2230,15 +2600,20 @@ def phase_blocked(cfg, params, card, S=8448, steps=4):
                 tokens_equal=int((ta == tb).sum()), tokens=int(ta.size))
 
 
-def phase_serve_ssm(cfg, params, ssd_scan, card):
-    """mamba2 at full width: 4 prompts of 512 and 4 of 192 tokens,
-    interleaved in the queue; exact-length groups put each length in one
-    prefill dispatch of 4 slots."""
+def ssm_wave(cfg):
+    """``[serve-ssm]``'s wave: 4 prompts of 512 and 4 of 192 tokens,
+    interleaved in the queue, 16 generated each."""
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(3)
-    wave = [Request(rid=i, prompt=rng.integers(1, cfg.vocab,
+    return [Request(rid=i, prompt=rng.integers(1, cfg.vocab,
                                                512 if i % 2 == 0 else 192),
                     max_new=16) for i in range(8)]
+
+
+def phase_serve_ssm(cfg, params, ssd_scan, card):
+    """mamba2 at full width on ``ssm_wave``: exact-length groups put each
+    length in one prefill dispatch of 4 slots."""
+    wave = ssm_wave(cfg)
     eng, launches = run_serve(cfg, params, [wave], ssd_scan, tag="serve-ssm",
                               slots=4,
                               capacity=1024, page_size=16, kernel="auto")
@@ -3328,6 +3703,7 @@ def main() -> int:
     wine = phase_wine(card, counters)
     print(f"[wine] phase wall {time.perf_counter() - t0:.1f}s")
     fault = phase_train_fault(counters, card)
+    examples = phase_examples(card, root)
 
     cfg = get_config("qwen3-14b")
     params = draw(cfg, init_params, "serve")
@@ -3335,6 +3711,12 @@ def main() -> int:
     t0 = time.perf_counter()
     graph = phase_serve_graph(cfg, params, paged_attention, card, srv)
     print(f"[serve-graph] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    obs = phase_serve_obs(cfg, params, paged_attention, card, graph)
+    print(f"[serve-obs] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    fixed = phase_serve_fixed(cfg, params, card, graph)
+    print(f"[serve-fixed] phase wall {time.perf_counter() - t0:.1f}s")
     srv["lockstep"] = phase_lockstep(cfg, params)
     srv["profile"] = phase_profile(cfg, params)
     blocked = phase_blocked(cfg, params, card)
@@ -3358,6 +3740,9 @@ def main() -> int:
     t_dist_serve = time.perf_counter() - t0
     print(f"[dist-serve] phase wall {t_dist_serve:.1f}s; [dist] + "
           f"[dist-serve] add {t_dist + t_dist_serve:.1f}s to this script")
+    t0 = time.perf_counter()
+    fixed_ssm = phase_serve_fixed_ssm(cfg, params, ssd_scan, card, ssm)
+    print(f"[serve-fixed-ssm] phase wall {time.perf_counter() - t0:.1f}s")
     ssm.pop("outs")
     ssm["lockstep"] = phase_lockstep_ssm(cfg, params)
     ssm["profile"] = phase_profile(cfg, params, S=512, tag="profile-ssm")
@@ -3446,7 +3831,7 @@ def main() -> int:
                                  microbatch=True)
     print(f"[train] phase wall {time.perf_counter() - t0:.1f}s")
 
-    paged_phases = {"serve": srv, "serve-graph": graph,
+    paged_phases = {"serve": srv, "serve-graph": graph, "serve-obs": obs,
                     "serve-window": win, "serve-moe": moe, "serve-mla": mla}
     for r in (srv, graph, moe, mla):
         r.pop("outs", None)
@@ -3483,13 +3868,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:63",
         "launches": ssm["launches"] + dist_serve["launches"]
-        + int8["launches"] + sum(
+        + fixed_ssm["launches"] + int8["launches"] + sum(
             train_ssm[m]["launches"]["ssd_scan"]
             for m in ("eager", "replayed"))
         + fault["launches"]["ssd_scan"] + wine["launches"]["ssd_scan"],
         "launches_by_phase": {
             "serve-ssm": ssm["launches"],
             "dist-serve": dist_serve["launches"],
+            "serve-fixed-ssm": fixed_ssm["launches"],
             "serve-int8": int8["launches"],
             "train-ssm eager": train_ssm["eager"]["launches"]["ssd_scan"],
             "train-ssm replayed":
@@ -3507,6 +3893,7 @@ def main() -> int:
         "ssd_grad_rel": ssd_grad["inputs_rel"],
         "routes_by_phase": {"serve-ssm": ssm["routes"],
                             "dist-serve": dist_serve["routes"],
+                            "serve-fixed-ssm": fixed_ssm["routes"],
                             "serve-int8": int8["routes"],
                             **{f"train-ssm {m}":
                                train_ssm[m]["routes"]["ssd_scan"]
@@ -3534,8 +3921,11 @@ def main() -> int:
     print(f"[wine] summary {json.dumps(wine)}")
     print(f"[serve] summary {json.dumps(srv)}")
     print(f"[serve-graph] summary {json.dumps(graph)}")
+    print(f"[serve-obs] summary {json.dumps(obs)}")
+    print(f"[serve-fixed] summary {json.dumps(fixed)}")
     print(f"[serve-ssm] summary {json.dumps(ssm)}")
     print(f"[dist-serve] summary {json.dumps(dist_serve)}")
+    print(f"[serve-fixed-ssm] summary {json.dumps(fixed_ssm)}")
     print(f"[blocked] summary {json.dumps(blocked)}")
     print(f"[serve-window] summary {json.dumps(win)}")
     print(f"[lockstep-window] summary {json.dumps(lock_win)}")
@@ -3545,6 +3935,7 @@ def main() -> int:
     print(f"[encdec] summary {json.dumps(encdec)}")
     print(f"[vlm] summary {json.dumps(vlm)}")
     print(f"[train-fault] summary {json.dumps(fault)}")
+    print(f"[examples] summary {json.dumps(examples)}")
     print(f"[train-ssm] summary {json.dumps(train_ssm)}")
     print(f"[ssd-grad] summary {json.dumps(ssd_grad)}")
     print(f"[train] summary {json.dumps(train_dense)}")

@@ -1,19 +1,29 @@
-"""Paged serving engine: continuous decode over one shared KV page pool.
-Port of ``repro.serve.engine`` (the paged engine; the fixed-ring
-``ServeEngine`` waits).
+"""Serving engines: continuous decode over a request pool. Port of
+``repro.serve.engine``.
 
-``_EngineBase.run`` drives admit -> grow -> step. ``PagedServeEngine`` keeps
-one shared page pool (``serve.kv_pool``) behind every slot through per-slot
-page tables; admission packs a priority-ordered group of waiting prompts
-into ONE length-bucketed prefill; pages are allocated a page at a time as
-requests decode and batch-class requests are preempted (pages freed,
-request requeued) when interactive work needs the pool or the slots.
+Two engines share one loop (``_EngineBase.run``: admit -> grow -> step):
+
+``ServeEngine``      the fixed-partition baseline: every slot owns a
+                     private ``capacity``-row KV ring and admission
+                     prefills ONE unpadded prompt per dispatch, then copies
+                     it into the slot's rows in place.
+``PagedServeEngine`` one shared page pool (``serve.kv_pool``) behind every
+                     slot through per-slot page tables; admission packs a
+                     priority-ordered group of waiting prompts into ONE
+                     length-bucketed prefill; pages are allocated a page at
+                     a time as requests decode and batch-class requests are
+                     preempted (pages freed, request requeued) when
+                     interactive work needs the pool or the slots.
+
+The paged engine also owns two optimizations this module only orchestrates:
 
 * ``kernel=`` selects the attention data path. ``"gather"`` materializes
   each slot's dense KV view per step (the dense baseline); ``"paged"``
   walks the page table inside the CUDA kernel of ``kernels.paged_attention``
-  so the dense view is never built; ``"auto"`` picks paged on CUDA, gather
-  on the CPU (where the "paged" path runs the kernel's plain version).
+  so the dense view is never built (``stats["kv_bytes_avoided"]`` counts
+  the bytes of the views it did not build); ``"auto"`` picks paged on CUDA,
+  gather on the CPU (where the "paged" path runs the kernel's plain
+  version).
 * prefix sharing (copy-on-write). After a prompt prefills, its pages are
   REGISTERED under a digest of the prompt tokens, which pins them in the
   pool past the request's lifetime. A later prompt that starts with a
@@ -27,19 +37,30 @@ request requeued) when interactive work needs the pool or the slots.
   state at the divergence point is not in the pool, so prefix sharing is
   off for them; a stalled slot's state does not advance (``live``).
 
-The decode step goes through ``backend.compile`` (a ``LaunchBackend``,
-default an ``ArrayBackend`` on the engine's device and the process-wide
-compile cache): on the card it is a CUDA graph captured on the first step
-and replayed after — one graph per (slots, pool shape, kernel) — and
-``stats["compile_sources"]["step"]`` reads ``"compiled"``, or ``"memory"``
-for a second engine on the same cache. The step always takes a static
-``live`` mask (all true when nothing is stalled) and the page tables,
-tokens and positions are copied into the graph's inputs; the weights and
-the pool are read and written in place at their own addresses.
+Both engines' decode steps go through ``backend.compile`` (a
+``LaunchBackend``, default an ``ArrayBackend`` on the engine's device and
+the process-wide compile cache): on the card a step is a CUDA graph
+captured on the first step and replayed after — one graph per engine shape
+— and ``stats["compile_sources"]["step"]`` reads ``"compiled"``, or
+``"memory"`` for a second engine on the same cache. The weights and the
+caches (the fixed engine's rings, the paged engine's pool) are bound: read
+and written in place at their own addresses, which is why admission copies
+into them and never rebinds them; tokens, positions, the paged step's
+tables and its static ``live`` mask are copied into the graph's inputs.
 ``capture_step=False`` runs the step eagerly (source ``"eager"``), the
 baseline the graph is measured against. Prefill and warm admission stay
 eager (``"eager"`` sources). Entry points run on the card unless the caller
 passes ``device="cpu"``; without a card they raise.
+
+While ``obs.metrics.REGISTRY`` is enabled both engines record, as the
+reference's do: ``serve.ttft_s`` / ``serve.tpot_s`` (histograms and
+series, a finished request with tokens each), ``serve.preemptions``,
+``serve.pool_occupancy`` (paged, before each step), ``serve.prefix.hits`` /
+``misses`` and ``serve.kernel.bytes_avoided`` (paged), and after ``run``
+under an SLO the ``serve.slo_attainment`` series; attainment below
+``obs.flight.RECORDER.slo_min`` triggers the flight recorder's
+``slo_breach`` bundle. The hooks are host code around the step, never
+inside a captured graph.
 """
 from __future__ import annotations
 
@@ -50,14 +71,18 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.backend import ArrayBackend
 from repro_torch.core.telemetry import (RequestRecord, class_summary,
                                         slo_attainment)
 from repro_torch.kernels.ops import resolve_device
-from repro_torch.models.lm import (paged_cache_init, paged_clear, paged_copy,
-                                   paged_decode_step, paged_prefill)
+from repro_torch.models.lm import (cache_init, decode_step, paged_cache_init,
+                                   paged_clear, paged_copy, paged_decode_step,
+                                   paged_prefill, prefill)
 from repro_torch.models.spec import ModelConfig
+from repro_torch.obs import flight as _flight
+from repro_torch.obs import metrics as _obs
 from repro_torch.serve.kv_pool import PagePool
 from repro_torch.serve.scheduler import AdmissionScheduler, bucket_len
 
@@ -95,7 +120,12 @@ class _EngineBase:
     capacity guards, per-request/per-class telemetry."""
 
     def __init__(self, cfg: ModelConfig, params, slots: int,
+                 backend: Optional[ArrayBackend],
                  scheduler: Optional[AdmissionScheduler], device):
+        if cfg.encoder is not None:
+            raise ValueError(f"{cfg.name}: {type(self).__name__} serves "
+                             "decoder-only models (it takes no encoder "
+                             "output)")
         self.device = resolve_device(device)
         emb = params["embed"]["embedding"]
         if emb.device.type != self.device.type:
@@ -103,6 +133,8 @@ class _EngineBase:
                              f"on {self.device}")
         self.cfg, self.params = cfg, params
         self.slots = slots
+        self.backend = (backend if backend is not None
+                        else ArrayBackend(device=self.device))
         self.scheduler = scheduler if scheduler is not None \
             else AdmissionScheduler()
         self.tokens = torch.zeros((slots, 1), dtype=torch.int32,
@@ -117,6 +149,11 @@ class _EngineBase:
                       "preemptions": 0, "pool_exhausted": 0,
                       "stall_steps": 0, "prefill_dispatches": 0,
                       "compile_sources": {}}
+        # registry instruments (created once; observed only while enabled)
+        self._m_ttft = _obs.histogram("serve.ttft_s")
+        self._m_tpot = _obs.histogram("serve.tpot_s")
+        self._m_preempt = _obs.counter("serve.preemptions")
+        self._m_occupancy = _obs.gauge("serve.pool_occupancy")
 
     # -- capacity guard ----------------------------------------------------
     def _request_capacity(self) -> int:
@@ -169,7 +206,14 @@ class _EngineBase:
         req.finish_reason = reason or req.finish_reason or (
             "length" if req.budget == req.max_new else "capacity")
         req.t_done = time.perf_counter()
-        self.records.append(req.record())
+        rec = req.record()
+        self.records.append(rec)
+        if _obs.REGISTRY.enabled and rec.n_tokens > 0:
+            self._m_ttft.observe(rec.ttft_s)
+            self._m_tpot.observe(rec.tpot_s)
+            now = time.time()
+            _obs.REGISTRY.series_append("serve.ttft_s", now, rec.ttft_s)
+            _obs.REGISTRY.series_append("serve.tpot_s", now, rec.tpot_s)
         self._release_slot(i)
 
     def step(self) -> None:
@@ -210,8 +254,124 @@ class _EngineBase:
         self.stats["classes"] = class_summary(self.records)
         slo = self.scheduler.target_first_result_s
         if slo is not None:
-            self.stats["slo_attainment"] = slo_attainment(self.records, slo)
+            att = slo_attainment(self.records, slo)
+            self.stats["slo_attainment"] = att
+            if _obs.REGISTRY.enabled:
+                _obs.REGISTRY.series_append("serve.slo_attainment",
+                                            time.time(), att)
+            if att < _flight.RECORDER.slo_min:
+                _flight.RECORDER.trigger("slo_breach", attainment=att,
+                                         target_first_result_s=slo)
         return self.stats
+
+
+# ----------------------------------------------------------------------
+# Fixed-partition baseline
+# ----------------------------------------------------------------------
+
+class ServeEngine(_EngineBase):
+    """Fixed-slot batched decoder: every slot owns a private KV ring of
+    ``capacity`` rows (static partition; a windowed layer's ring holds
+    min(capacity, window) rows), admission prefills one unpadded prompt per
+    dispatch (the paper's serial-launch analogue at the serving layer).
+
+    The rings are the step's bound argument: on the card the captured graph
+    reads and writes them at their own addresses, so admission copies a
+    prefilled prompt into slot ``i`` of every cache leaf in place (KV,
+    positions, int8 scales, MLA ``ckv`` / ``kr``, SSM conv and state) and
+    never rebinds ``self.caches``. Prefill runs eagerly, one call per
+    prompt (source ``"eager"`` under ``prefill_s{S}``): a graph a prompt
+    length would keep a memory pool a length."""
+
+    def __init__(self, cfg: ModelConfig, params, slots: int = 8,
+                 capacity: int = 256,
+                 backend: Optional[ArrayBackend] = None,
+                 scheduler: Optional[AdmissionScheduler] = None,
+                 device=None, capture_step: bool = True):
+        super().__init__(cfg, params, slots, backend, scheduler, device)
+        self.capacity = capacity
+        self.caches = cache_init(cfg, slots, capacity, self.device)
+
+        def step_fn(p, c, t, po):
+            logits, _ = decode_step(p, c, t, po, cfg)
+            return logits
+
+        if capture_step:
+            self._step, src = self.backend.compile(
+                step_fn, (params, self.caches, self.tokens, self.pos),
+                bind_argnums=(0, 1),
+                extras=("serve-step", cfg.name, slots, capacity))
+        else:
+            self._step, src = step_fn, "eager"
+        self.stats["compile_sources"]["step"] = src
+
+    def _request_capacity(self) -> int:
+        return self.capacity
+
+    def _prefill(self, tokens: torch.Tensor):
+        """One unpadded prompt (1, S) -> (logits (1, 1, V), its caches)."""
+        self.stats["compile_sources"].setdefault(
+            f"prefill_s{tokens.shape[1]}", "eager")
+        return prefill(self.params, {"tokens": tokens}, self.cfg,
+                       capacity=self.capacity)
+
+    def _put(self, i: int, caches: list) -> None:
+        """Copy a one-prompt cache tree into slot ``i`` of every leaf, in
+        place (leaves are (repeats, slots, ...))."""
+        dst = pytree.tree_leaves(self.caches)
+        src = pytree.tree_leaves(caches)
+        assert len(dst) == len(src)
+        for d, s in zip(dst, src):
+            d[:, i].copy_(s[:, 0])
+
+    def admit(self, req: Request) -> bool:
+        """Prefill a request into a free slot (one-slot batch prefill)."""
+        if req.budget is None and not self._screen(req):
+            return False                      # rejected: over capacity
+        for i, a in enumerate(self.active):
+            if a is None:
+                toks = torch.as_tensor(np.asarray(req.prompt),
+                                       dtype=torch.int32).to(self.device)
+                logits, caches = self._prefill(toks[None])
+                self.stats["prefill_dispatches"] += 1
+                self._put(i, caches)
+                tok = int(torch.argmax(logits[0, -1]))
+                req.out.append(tok)
+                req.t_first = time.perf_counter()
+                self.tokens[i, 0] = tok
+                self.pos[i, 0] = len(req.prompt)
+                self.active[i] = req
+                self.stats["admitted"] += 1
+                if len(req.out) >= req.budget:
+                    self._finish(i)
+                return True
+        return False
+
+    def _admit(self) -> int:
+        n = 0
+        while self.scheduler.has_pending():
+            head = self.scheduler.peek_next()
+            if not self._screen(head):
+                self.scheduler.pop_next()
+                continue
+            if not self.admit(head):
+                break
+            self.scheduler.pop_next()
+            n += 1
+        return n
+
+    def _decode(self) -> torch.Tensor:
+        """One decode step's logits (B, 1, V); the rings advance in place.
+        On the card the logits live in the graph's memory until the next
+        replay."""
+        return self._step(self.params, self.caches, self.tokens, self.pos)
+
+    def _step_executable(self) -> np.ndarray:
+        logits = self._decode()
+        nxt = torch.argmax(logits[:, 0], -1).to(torch.int32)
+        self.tokens = nxt[:, None].contiguous()
+        self.pos = self.pos + 1
+        return nxt.cpu().numpy()
 
 
 # ----------------------------------------------------------------------
@@ -256,11 +416,7 @@ class PagedServeEngine(_EngineBase):
                  device=None,
                  backend: Optional[ArrayBackend] = None,
                  capture_step: bool = True):
-        if cfg.encoder is not None:
-            raise ValueError(f"{cfg.name}: the paged engine serves "
-                             "decoder-only models (it takes no encoder "
-                             "output)")
-        super().__init__(cfg, params, slots, scheduler, device)
+        super().__init__(cfg, params, slots, backend, scheduler, device)
         if pool_pages is None:
             pool_pages = slots * pages_per_slot
         self.pool = PagePool(pool_pages, page_size, slots, pages_per_slot)
@@ -286,8 +442,7 @@ class PagedServeEngine(_EngineBase):
                                   else prefix_min_tokens)
         self._admit_order = 0                  # preemption recency clock
         self._admit_seq: List[int] = [0] * slots
-        self.backend = (backend if backend is not None
-                        else ArrayBackend(device=self.device))
+        self._dense_view_bytes, self._kv_row_bytes = self._kv_geometry()
 
         def step_fn(p, kv, tables, t, po, live):
             logits, _ = paged_decode_step(p, kv, tables, t, po, cfg,
@@ -307,7 +462,29 @@ class PagedServeEngine(_EngineBase):
         self.stats["compile_sources"]["step"] = src
         self.stats.update({"prefix_hits": 0, "prefix_misses": 0,
                            "prefix_registered": 0, "cow_pages": 0,
-                           "prefill_rows": 0})
+                           "prefill_rows": 0, "kv_bytes_avoided": 0})
+        self._m_phit = _obs.counter("serve.prefix.hits")
+        self._m_pmiss = _obs.counter("serve.prefix.misses")
+        self._m_bytes = _obs.counter("serve.kernel.bytes_avoided")
+
+    def _kv_geometry(self) -> Tuple[int, int]:
+        """(bytes of dense per-slot views the gather path materializes per
+        decode step, bytes one KV cache row costs across all layers)."""
+        dense = row = 0
+        vcap = self.pool.vcap
+        for gtree in self.kv:
+            for btree in gtree.values():
+                sub = btree.get("attn")
+                if not sub:
+                    continue
+                for name, leaf in sub.items():
+                    R = leaf.shape[0]
+                    tail = int(np.prod(leaf.shape[3:])) if leaf.ndim > 3 else 1
+                    item = leaf.element_size()
+                    dense += R * self.slots * vcap * tail * item
+                    if name != "pos":
+                        row += R * tail * item
+        return dense, row
 
     def _table_tensor(self, table: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(table, dtype=torch.int32).to(self.device)
@@ -375,6 +552,8 @@ class PagedServeEngine(_EngineBase):
         req.t_first = None
         req.preemptions += 1
         self.stats["preemptions"] += 1
+        if _obs.REGISTRY.enabled:
+            self._m_preempt.inc()
         self.scheduler.requeue_front(req)
         self._release_slot(i)
 
@@ -540,6 +719,8 @@ class PagedServeEngine(_EngineBase):
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_rows"] += S_suf
         self.stats["prefix_hits"] += 1
+        if _obs.REGISTRY.enabled:
+            self._m_phit.inc()
         tok = int(torch.argmax(logits[0, -1]))
         req.out.append(tok)
         req.t_first = time.perf_counter()
@@ -601,6 +782,8 @@ class PagedServeEngine(_EngineBase):
             self.stats["admitted"] += 1
             if self._prefix_ok and len(req.prompt) >= self.prefix_min_tokens:
                 self.stats["prefix_misses"] += 1   # served cold
+                if _obs.REGISTRY.enabled:
+                    self._m_pmiss.inc()
             self._register(slot, req)
             if len(req.out) >= req.budget:
                 self._finish(slot)
@@ -617,6 +800,8 @@ class PagedServeEngine(_EngineBase):
         rest; a lone request larger than the entire pool is finished early
         with ``finish_reason="pool_exhausted"``."""
         self._stalled.clear()
+        if _obs.REGISTRY.enabled:
+            self._m_occupancy.set(self.pool.occupancy)
         ps = self.pool.page_size
         for i, req in enumerate(self.active):
             if req is None:
@@ -683,6 +868,10 @@ class PagedServeEngine(_EngineBase):
             tbl = self._table_tensor(masked)
             live = torch.as_tensor(keep).to(self.device)
         logits = self._decode(tbl, live)
+        if self.kernel == "paged":
+            self.stats["kv_bytes_avoided"] += self._dense_view_bytes
+            if _obs.REGISTRY.enabled:
+                self._m_bytes.inc(self._dense_view_bytes)
         nxt = torch.argmax(logits[:, 0], -1).to(torch.int32)
         if self._stalled:
             # stalled slots hold position: same token, same pos, identical
@@ -702,3 +891,8 @@ class PagedServeEngine(_EngineBase):
         s["free_pages"] = self.pool.free_pages
         s["pinned_prefixes"] = len(self.pool.prefix_keys())
         return s
+
+    def kv_row_bytes(self) -> int:
+        """Bytes one KV cache row costs across all attention layers (for
+        bytes-on-wire style accounting of ``stats['prefill_rows']``)."""
+        return self._kv_row_bytes
