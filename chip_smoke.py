@@ -95,6 +95,13 @@ non-zero:
             every output within 1e-5 (relative) of numpy's and on the
             card; instances/s, t_schedule and ``LaunchRecord.levels()``
             printed. The app launches none of the port's kernels.
+4a'. mesh   the same 16,384 instances through ``make_backend("array",
+            mesh=...)``: on ``make_host_mesh()`` (the card once: each wave
+            whole) and on a mesh listing the card twice on ``data`` (each
+            wave split in two, each piece its own captured graph, joined in
+            order), cold and warm. Gates: outputs bit-equal to the
+            mesh-less run's; the split records name the card twice; warm
+            waves replay. Captures and walls printed.
 4b. dist    the distributed fabric (``repro_torch.dist``): the same 16,384
             instances through ``LLMapReduce(backend=make_backend("dist",
             ...))`` in waves of 8,192 over (a) 4 thread nodes on
@@ -132,6 +139,11 @@ non-zero:
             step 4, the checkpoint restored INTO the bound tensors (no
             address moves), one graph that keeps replaying, every loss and
             the final params within 1e-5 of an uninterrupted run.
+4d'. elastic  that run's checkpoint of step 6 restored through
+            ``restore(..., sharding=state_sharding(state,
+            make_host_mesh()))`` into the interrupted run's bound state
+            (no address moves), then steps 6 and 7 replayed: their losses
+            bit-equal to the uninterrupted run's.
 4e. examples  the port's three examples as ``python -m
             repro_torch.examples.<name>`` subprocesses on the card, at
             once: ``quickstart --n 1024 --serial-n 8``, ``serve_batch`` and
@@ -139,6 +151,15 @@ non-zero:
             temporary directory). Gates: each exits 0; train_lm restarts
             once and its loss falls; serve_batch's decode step compiled.
             Their own lines are printed.
+4f. pipeline  ``runtime.pipeline.pipeline_apply`` (the GPipe schedule, M +
+            S - 1 ticks, hand-offs by ``.to()``) over a mesh listing the
+            card 4 times on ``pod``: 4 stages of 2 blocks at full width, 4
+            microbatches of 1 x 128 tokens; qwen3-14b's blocks, then
+            mamba2-1.3b's (the SSD kernel in the stages). Gates: in f32
+            within 1e-4 of ``reference_apply`` (relative to the output's
+            scale); every SSD launch of the bf16 runs on tc. Printed: the
+            bf16 gap, the bubble fraction 3/7, pipeline against sequential
+            wall.
 5. serve    ``repro_torch.launch.serve.serve`` with qwen3-14b at its full
             published width (40 layers, d_model 5120, 40/8 heads, head_dim
             128, d_ff 17408, vocab 151936), random bf16 weights drawn on the
@@ -285,6 +306,17 @@ non-zero:
             (2.88 B params), 1 x 4,096: the gates and prints of 21, then one
             eager step with microbatches=2 on 2 x 4,096 whose loss is held
             within 1e-4 of the single-shot loss of the same rows.
+23. roofline  the H100 roofline bound (``launch.roofline``: 989 TFLOP/s
+            bf16, 3.35 TB/s) of two measured steps, counted on meta at
+            their exact shapes by ``launch.op_analysis`` (the kernels'
+            plain versions): 7's replayed qwen3-14b decode step (4 slots,
+            the engine's 128-page pool) and 21's replayed mamba2-1.3b train
+            step (2 x 4,096). The bound is max(counted flops / peak, the
+            step's state / HBM rate); the share is bound / measured device
+            busy. Gate: 0 < share <= 1.05 for both.
+24. dryrun  ``launch.dryrun.run_cell`` on the abstract 16 x 16 production
+            mesh (meta tensors, no card): qwen3-14b decode_32k and
+            mamba2-1.3b train_4k; each row's status "ok"; rows printed.
 
 Every model's weights are freed before the next one is drawn; the script's
 total time is printed. The last three lines: the card's name and power
@@ -932,6 +964,7 @@ SSD_SWEEP = [(1, 128, 2, 64, 32, 64),       # tests/test_kernels.py:60-64
 SSD_MODEL = [("S512", (4, 512, 64, 64, 128, 256)),     # mamba2-1.3b: 2 chunks
              ("S192", (4, 192, 64, 64, 128, 256)),     # Q = S = 192
              ("batch1", (1, 512, 64, 64, 128, 256)),   # two blocks a head
+             ("pipe128", (1, 128, 64, 64, 128, 256)),  # [pipeline]'s stages
              ("long4096", (1, 4096, 64, 64, 128, 256)),  # 16 chunks carried
              ("zamba2", (4, 512, 112, 64, 64, 256))]   # zamba2-7b's width
 # kernel function names of each SSD route, as the profiler shows them
@@ -3509,7 +3542,8 @@ def phase_train_fault(counters, card, n=8, fail_at=5):
     Gates: one restart from step 4; the state's addresses unchanged; one
     graph; every loss of the interrupted run (the replayed steps too) and
     the final parameters within TRAIN_FAULT_RTOL of an uninterrupted run
-    from the same seed."""
+    from the same seed. The checkpoints stay for ``[elastic]``, which
+    takes the interrupted run's state and step from ``out["handle"]``."""
     import shutil as _shutil
     from repro_torch.configs import get_config
     from repro_torch.core.backend import ArrayBackend
@@ -3555,6 +3589,7 @@ def phase_train_fault(counters, card, n=8, fail_at=5):
             losses = report.losses
         torch.cuda.synchronize()
         runs[name] = dict(losses=losses, report=report, step=step,
+                          state=state,
                           moved=[x.data_ptr() for _, x in
                                  leaves_with_path(state)] != ptrs,
                           params=[x.float() for _, x in
@@ -3578,12 +3613,15 @@ def phase_train_fault(counters, card, n=8, fail_at=5):
           f", params {pworst:.2e}")
     check(all(math.isfinite(v) for v in f["losses"]),
           "[train-fault] a loss is not finite")
-    _shutil.rmtree(ckdir, ignore_errors=True)
     out = dict(steps=n, fail_at=fail_at, restore_steps=rep.restore_steps,
                losses=f["losses"], uninterrupted=u["losses"],
                loss_rel=worst, params_rel=pworst,
                replays=f["step"].replays, launches=counts,
                wall_s=time.perf_counter() - t0)
+    del u["state"], u["step"]
+    # [elastic] restores a checkpoint of this run into its bound state
+    out["handle"] = dict(state=f["state"], step=f["step"], get=get,
+                         ckdir=str(ckdir))
     print(f"[train-fault] {cfg.name}, 4 x 512, {n} steps, checkpoints every "
           f"2 written async, a WorkerFailure entering step {fail_at}: "
           f"restored step {rep.restore_steps} into the bound tensors, one "
@@ -3591,6 +3629,405 @@ def phase_train_fault(counters, card, n=8, fail_at=5):
           f"within {worst:.1e} of the uninterrupted run, params within "
           f"{pworst:.1e} (limit {TRAIN_FAULT_RTOL}); launches "
           f"{json.dumps(counts)}; {out['wall_s']:.1f}s; on {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The multi-device and analysis layer: meshes, the GPipe schedule, elastic
+# restore, the roofline of measured steps and the dry run
+# ---------------------------------------------------------------------------
+
+def card_device() -> torch.device:
+    """The card, with its index (a mesh's position names one device)."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def phase_mesh(card, counters, launch):
+    """``[launch]``'s 16,384 instances through ``make_backend("array",
+    mesh=...)`` in waves of 8,192: on ``make_host_mesh()`` (the card once:
+    the task axis has one position, so each wave runs whole) and on a mesh
+    listing the card twice on ``data`` (each wave split in two, each piece
+    captured as its own graph and joined in order); each cold (a fresh
+    cache) and warm. Gates: both outputs bit-equal to the mesh-less array
+    backend's, on the card; the split records name the card twice; the
+    warm launches replay (every wave ``memory``); no counted kernel."""
+    from repro_torch.core.backend import make_backend
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.llmr import LLMapReduce
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    x = np.random.default_rng(0).standard_normal((LAUNCH_N, 64)).astype(
+        np.float32)
+    want, _ = LLMapReduce(scheduler="array", wave_size=LAUNCH_WAVE,
+                          cache=CompileCache(), device=DEV).map_reduce(
+                              launch_app, x)
+    card0 = card_device()
+    meshes = (("host", make_host_mesh(None if DEV == "cuda" else DEV)),
+              ("card-twice", Mesh([[card0], [card0]], ("data", "model"))))
+    for fn in counters:
+        fn.launches = 0
+    out = {}
+    for name, mesh in meshes:
+        cache = CompileCache()
+        be = make_backend("array", mesh=mesh, cache=cache)
+        reads = []
+        for when in ("cold", "warm"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, rep = LLMapReduce(backend=be, wave_size=LAUNCH_WAVE
+                                   ).map_reduce(launch_app, x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(got.device == want.device and torch.equal(got, want),
+                  f"[mesh] {name} {when}: outputs differ from the mesh-less "
+                  f"run (max {float((got - want).abs().max()):.3e})")
+            split = [r.extra.get("mesh_devices") for r in rep.records]
+            sources = [r.extra["compile_source"] for r in rep.records]
+            reads.append(dict(wall_s=wall, instances_per_s=LAUNCH_N / wall,
+                              waves=rep.waves, pieces=split,
+                              sources=sources))
+            print(f"[mesh] {name} ({mesh}) {when}: {LAUNCH_N} instances in "
+                  f"{wall:.4f}s ({LAUNCH_N / wall:,.0f} instances/s), "
+                  f"{rep.waves} waves, pieces {split[0]}, sources "
+                  f"{sorted(set(sources))}; bit-equal to the mesh-less run")
+        check(all(s == "memory" for s in reads[1]["sources"]),
+              f"[mesh] {name}: the warm launch compiled again")
+        want_pieces = [str(card0)] * 2 if name == "card-twice" else None
+        check(all(p == want_pieces for r in reads for p in r["pieces"]),
+              f"[mesh] {name}: pieces {reads[0]['pieces']}")
+        out[name] = dict(cold=reads[0], warm=reads[1],
+                         captures=cache.stats["captures"])
+        print(f"[mesh] {name}: {cache.stats['captures']} captures "
+              f"({'one graph a mesh position' if want_pieces else 'one graph'}"
+              f"), {cache.stats['replays']} replays")
+    others = {fn.__name__: fn.launches for fn in counters}
+    check(not any(others.values()), f"[mesh] kernels launched: {others}")
+    a = launch["array"]["warm"]["wall_s"]
+    print(f"[mesh] warm: mesh-less array {a:.4f}s ([launch]), host mesh "
+          f"{out['host']['warm']['wall_s']:.4f}s, the card twice "
+          f"{out['card-twice']['warm']['wall_s']:.4f}s; on {card}")
+    return out
+
+
+PIPE_STAGES, PIPE_PER, PIPE_MB, PIPE_TOKENS = 4, 2, 4, 128
+PIPE_RTOL = 1e-4                # f32: against the output's scale
+
+
+def _pipe_stages(cfg, dtype):
+    """PIPE_STAGES x PIPE_PER of ``cfg``'s first group's blocks drawn on the
+    card from seed 0, restacked (stages, per, ...) — in float32, or as
+    drawn (bf16, the SSM's f32 leaves kept) — and the stage function: its
+    PIPE_PER blocks in order."""
+    from repro_torch.models.blocks import block_apply, group_init, tree_map
+    g = dataclasses.replace(cfg.groups[0], repeats=PIPE_STAGES * PIPE_PER)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    stacked = group_init(gen, cfg, g, DEV)["stacked"]
+    params = tree_map(lambda a: (a.float() if dtype == torch.float32
+                                 else a).reshape(
+        (PIPE_STAGES, PIPE_PER) + tuple(a.shape[1:])), stacked)
+
+    def stage(p, x):
+        pos = torch.arange(x.shape[1], dtype=torch.int32,
+                           device=x.device)[None].expand(x.shape[:2])
+        for r in range(PIPE_PER):
+            for i, b in enumerate(g.pattern):
+                x, _ = block_apply(tree_map(lambda a: a[r], p[str(i)]), x,
+                                   b, cfg, pos)
+        return x
+    return params, stage
+
+
+PIPE_SSD_TOL = 3e-4            # each stage's SSD call against its plain version
+
+
+def _ssd_held(scan, ssd_scan, ssd_chunked_ref, errs):
+    """``scan`` (the models' SSD entry) with each call's y and final state
+    held against ``ssd_chunked_ref`` on the same inputs: (the route
+    ``ssd_scan.routes`` counted, rel err y, rel err h) appended to
+    ``errs``."""
+    def call(x, dt, A, B, C, *, chunk, out_dtype=None, return_state=False,
+             route=None):
+        before = dict(ssd_scan.routes)
+        y, h = scan(x, dt, A, B, C, chunk=chunk, out_dtype=out_dtype,
+                    return_state=True, route=route)
+        ran = [r for r, n in ssd_scan.routes.items() if n != before[r]]
+        ry, rh = ssd_chunked_ref(x, dt, A, B, C, chunk)
+        errs.append((ran[0] if ran else "plain", rel_err(y, ry.to(y.dtype)),
+                     rel_err(h, rh)))
+        return (y, h) if return_state else y
+    return call
+
+
+def phase_pipeline(card, ssd_scan, ssd_chunked_ref):
+    """``runtime.pipeline.pipeline_apply`` on the card: 4 stages (a mesh
+    listing the card 4 times on ``pod``), each 2 blocks at full width, 4
+    microbatches of 1 x 128 tokens; qwen3-14b's dense blocks, then
+    mamba2-1.3b's, whose SSD scans run in the stages. Gates: in f32 the
+    pipeline within PIPE_RTOL of ``reference_apply`` (relative to the
+    output's scale); every SSD launch of a bf16 run on ``tc`` (the f32 runs
+    take ``simt``, the route of f32 inputs); in the warm-up run of each,
+    every stage's SSD call within PIPE_SSD_TOL of the plain version on the
+    same inputs (y and final state, relative). Printed: the bf16
+    pipeline's gap to the f32 answer, the bubble fraction (S-1)/(M+S-1),
+    and the wall of the pipeline beside the sequential stages (bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.runtime.pipeline import pipeline_apply, reference_apply
+    mesh = Mesh([card_device()] * PIPE_STAGES, ("pod",))
+    bubble = (PIPE_STAGES - 1) / (PIPE_MB + PIPE_STAGES - 1)
+    out = {}
+    for arch in ("qwen3-14b", "mamba2-1.3b"):
+        cfg = get_config(arch)
+        r = np.random.default_rng(7)
+        x32 = torch.from_numpy(r.standard_normal(
+            (PIPE_MB, PIPE_TOKENS, cfg.d_model)).astype(np.float32)).to(DEV)
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            params, stage = _pipe_stages(cfg, dtype)
+            x = x32.to(dtype)
+            walls = {}
+            with torch.no_grad():
+                for name, run in (
+                        ("pipeline", lambda: pipeline_apply(
+                            stage, params, x, mesh, axis="pod",
+                            microbatches=PIPE_MB)),
+                        ("sequential", lambda: reference_apply(
+                            stage, params, x))):
+                    errs, scan = [], ssm_mod.ssd_scan
+                    ssm_mod.ssd_scan = _ssd_held(scan, ssd_scan,
+                                                 ssd_chunked_ref, errs)
+                    try:
+                        run()                # warm-up (kernel plans, cuBLAS)
+                    finally:
+                        ssm_mod.ssd_scan = scan
+                    torch.cuda.synchronize()
+                    res[(dtype, name, "held")] = errs
+                    ssd_scan.launches = 0
+                    ssd_scan.routes = dict.fromkeys(ssd_scan.routes, 0)
+                    t0 = time.perf_counter()
+                    y = run()
+                    torch.cuda.synchronize()
+                    walls[name] = (time.perf_counter() - t0) * 1e3
+                    res[(dtype, name)] = y.float()
+                    res[(dtype, name, "ssd")] = dict(ssd_scan.routes)
+            res[dtype] = walls
+            del params
+            torch.cuda.empty_cache()
+        f32, bf16 = torch.float32, torch.bfloat16
+        ref = res[(f32, "sequential")]
+        scale = float(ref.abs().max())
+        err = float((res[(f32, "pipeline")] - ref).abs().max()) / scale
+        gap = float((res[(bf16, "pipeline")] - ref).abs().max()) / scale
+        check(math.isfinite(err) and err <= PIPE_RTOL,
+              f"[pipeline] {arch}: f32 pipeline vs sequential {err:.2e} of "
+              f"the scale {scale:.3g} > {PIPE_RTOL}")
+        ssd = {f"{str(d).split('.')[-1]} {n}": res[(d, n, "ssd")]
+               for d in (f32, bf16) for n in ("pipeline", "sequential")}
+        held = {}
+        if cfg.groups[0].pattern[0].ssm is not None:
+            for d in (f32, bf16):
+                want = "tc" if d == bf16 else "simt"
+                for n in ("pipeline", "sequential"):
+                    routes = res[(d, n, "ssd")]
+                    check(sum(routes.values()) > 0
+                          and routes[want] == sum(routes.values()),
+                          f"[pipeline] {arch} {d} {n}: SSD routes {routes}")
+                    errs = res[(d, n, "held")]
+                    ey = max(e[1] for e in errs)
+                    eh = max(e[2] for e in errs)
+                    check(len(errs) == sum(routes.values())
+                          and all(e[0] == want for e in errs)
+                          and ey < PIPE_SSD_TOL and eh < PIPE_SSD_TOL,
+                          f"[pipeline] {arch} {d} {n}: {len(errs)} SSD calls "
+                          f"against the plain version: routes "
+                          f"{sorted({e[0] for e in errs})}, rel err y {ey:.3e} "
+                          f"h {eh:.3e} (tol {PIPE_SSD_TOL})")
+                    held[f"{str(d).split('.')[-1]} {n}"] = dict(
+                        calls=len(errs), route=want, rel_err_y=ey,
+                        rel_err_h=eh)
+                    print(f"[pipeline] {arch} {str(d).split('.')[-1]} {n}: "
+                          f"{len(errs)} SSD calls ({want}) each held against "
+                          f"the plain version on its inputs: rel err y <= "
+                          f"{ey:.3e}, h <= {eh:.3e} (tol {PIPE_SSD_TOL}) ok")
+        out[arch] = dict(stages=PIPE_STAGES, blocks_a_stage=PIPE_PER,
+                         microbatches=PIPE_MB, tokens=PIPE_TOKENS,
+                         f32_rel=err, bf16_gap=gap, scale=scale,
+                         bubble=bubble, wall_ms={str(d).split(".")[-1]:
+                                                 res[d] for d in (f32, bf16)},
+                         ssd_routes=ssd, ssd_held=held)
+        w = res[bf16]
+        print(f"[pipeline] {arch}: {PIPE_STAGES} stages x {PIPE_PER} blocks "
+              f"(d_model {cfg.d_model}), {PIPE_MB} microbatches of 1 x "
+              f"{PIPE_TOKENS}: f32 pipeline within {err:.2e} of sequential "
+              f"(limit {PIPE_RTOL}, scale {scale:.3g}); bf16 pipeline's gap "
+              f"to the f32 answer {gap:.2e}; bubble {bubble:.3f}; bf16 wall "
+              f"pipeline {w['pipeline']:.2f} ms vs sequential "
+              f"{w['sequential']:.2f} ms; SSD launches {json.dumps(ssd)}; on "
+              f"{card}")
+    return out
+
+
+def phase_elastic(card, fault):
+    """``[train-fault]``'s checkpoint of step 6, restored through
+    ``restore(..., sharding=state_sharding(state, make_host_mesh()))`` into
+    the interrupted run's state (the tensors its captured step is bound
+    to), then steps 6 and 7 replayed: their losses bit-equal to the
+    uninterrupted run's; every leaf placed on the card, none moved."""
+    import shutil as _shutil
+    from repro_torch.ckpt.checkpoint import latest_steps, restore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.elastic import state_sharding
+    from repro_torch.train.optimizer import leaves_with_path
+    h = fault.pop("handle")
+    state, step, get, ckdir = h["state"], h["step"], h["get"], h["ckdir"]
+    at = 6
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(None if DEV == "cuda" else DEV)
+    check(at in latest_steps(ckdir), f"[elastic] no checkpoint of step {at} "
+          f"in {latest_steps(ckdir)}")
+    ptrs = [x.data_ptr() for _, x in leaves_with_path(state)]
+    state, got = restore(ckdir, state, step=at,
+                         sharding=state_sharding(state, mesh))
+    leaves = [x for _, x in leaves_with_path(state)]
+    check(got == at and [x.data_ptr() for x in leaves] == ptrs
+          and all(x.device.type == torch.device(DEV).type for x in leaves),
+          "[elastic] the restored state moved or left the card")
+    losses = []
+    for s in range(at, fault["steps"]):
+        state, m = step(state, get(s))
+        losses.append(float(m["loss"]))
+    want = fault["uninterrupted"][at:]
+    check(losses == want, f"[elastic] losses after the restore {losses} vs "
+          f"the uninterrupted run's {want}")
+    _shutil.rmtree(ckdir, ignore_errors=True)
+    out = dict(restored_step=at, losses=losses, mesh=str(mesh),
+               wall_s=time.perf_counter() - t0)
+    print(f"[elastic] step {at} restored through sharding= on {mesh} into "
+          f"the bound state (no address moved), steps {at}-"
+          f"{fault['steps'] - 1} replayed: losses {losses} bit-equal to the "
+          f"uninterrupted run's; {out['wall_s']:.2f}s; on {card}")
+    return out
+
+
+def _count_serve_step():
+    """``[profile]``'s replayed qwen3-14b decode step (the engine's: 4
+    slots, a 128-page pool of 16 rows, 32-entry tables), counted on meta:
+    (cost, bytes that must move, model flops). The bytes: the weights,
+    less the input embedding's rows that no token gathers (all but 4), and
+    of the pool the rows a step reads at the least, S + 1 a slot after the
+    S-token prefill (the profiled steps attend 130-134 rows of 9 pages)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import embed_rows_not_read
+    from repro_torch.launch.op_analysis import count
+    from repro_torch.models import lm
+    cfg = get_config("qwen3-14b")
+    B, ps, npps, P, S = 4, 16, 32, 128, 128
+    meta = dict(device="meta")
+    params = lm.lm_init(None, cfg, "meta")
+    pool = lm.paged_cache_init(cfg, B, P, ps, "meta")
+    args = (torch.empty((B, npps), dtype=torch.int32, **meta),
+            torch.empty((B, 1), dtype=torch.int32, **meta),
+            torch.empty((B, 1), dtype=torch.int32, **meta))
+    live = torch.empty((B,), dtype=torch.bool, **meta)
+    _, cost = count(lm.paged_decode_step, params, pool, *args, cfg,
+                    live=live, kernel="paged")
+    must = (_tree_bytes(params) - embed_rows_not_read(cfg, params, B)
+            + _tree_bytes(pool) * B * (S + 1) // (P * ps))
+    return cost, must, 2.0 * lm.count_params(cfg, active_only=True) * B
+
+
+def _count_train_step(B=2, S=4096):
+    """``[train-ssm]``'s replayed mamba2-1.3b step (2 x 4,096, remat,
+    AdamW), counted on meta: (cost, bytes that must move — the state,
+    params and AdamW moments, each once — model flops). The counted flops
+    include remat's recompute, which the step executes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.op_analysis import count
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_state, make_train_step
+    cfg = get_config("mamba2-1.3b")
+    state = init_state(None, cfg, "meta")
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                            total_steps=100))
+    batch = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    _, cost = count(step, state, batch)
+    return (cost, _tree_bytes(state),
+            6.0 * lm.count_params(cfg, active_only=True) * B * S)
+
+
+def _tree_bytes(tree) -> int:
+    from torch.utils import _pytree as pytree
+    return sum(x.numel() * x.element_size() for x in pytree.tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+ROOF_MAX_SHARE = 1.05
+
+
+def phase_roofline(card, serve_profile, train_profile):
+    """The roofline bound (``launch.roofline``, H100 data-sheet peaks) of
+    two measured steps, counted on meta at their exact shapes
+    (``launch.op_analysis``; the kernels' plain versions): the replayed
+    qwen3-14b decode step of ``[profile]`` (``[serve-graph]``'s step) and
+    the replayed mamba2-1.3b train step of ``[train-ssm]``. The bound is
+    the larger of the counted flops over the bf16 peak and the bytes the
+    step must move over HBM's rate (``_count_serve_step``,
+    ``_count_train_step``), a lower bound of the step as it runs; the share
+    is bound / measured device busy. Gate: 0 < share <= ROOF_MAX_SHARE for
+    both (a larger share means the count is wrong)."""
+    from repro_torch.launch.dryrun import roofline_row
+    out = {}
+    g = serve_profile["graph"]
+    busy_serve = g["busy_ms"] or serve_profile["busy_ms"]
+    for name, counted, busy, src in (
+            ("serve-graph decode step", _count_serve_step, busy_serve,
+             "[profile] replayed" if g["busy_ms"] else
+             "[profile] eager (no kernel seen inside the replays)"),
+            ("train-ssm step", _count_train_step, train_profile["busy_ms"],
+             "[train-ssm] replayed")):
+        t0 = time.perf_counter()
+        cost, must, mflops = counted()
+        row = roofline_row(cost, must, mflops, 1)
+        bound_ms = row["t_step"] * 1e3
+        share = bound_ms / busy if busy > 0 else float("inf")
+        check(0 < share <= ROOF_MAX_SHARE,
+              f"[roofline] {name}: bound {bound_ms:.3f} ms over measured busy "
+              f"{busy:.3f} ms = {share:.3f}, outside (0, {ROOF_MAX_SHARE}]")
+        out[name] = dict(row, bound_ms=bound_ms, busy_ms=busy, share=share,
+                         busy_from=src, must_move_bytes=must,
+                         model_flops=mflops,
+                         count_s=time.perf_counter() - t0)
+        print(f"[roofline] {name}: counted {cost.flops / 1e12:.3f} TFLOP "
+              f"({cost.ops} ops; plain versions), must move "
+              f"{must / 1e9:.3f} GB; bound {bound_ms:.3f} ms ({row['bound']}: compute "
+              f"{row['t_compute'] * 1e3:.3f} ms, memory "
+              f"{row['t_memory'] * 1e3:.3f} ms); measured device busy "
+              f"{busy:.3f} ms ({src}): {100 * share:.1f}% of the roofline; "
+              f"eager traffic counted {row['op_bytes_per_chip'] / 1e9:.1f} "
+              f"GB; on {card}")
+    return out
+
+
+def phase_dryrun(card):
+    """``launch.dryrun.run_cell`` on the 16 x 16 production mesh (abstract,
+    meta tensors, the host's CPU): qwen3-14b ``decode_32k`` and mamba2-1.3b
+    ``train_4k``; each row's status must be ``ok``."""
+    from repro_torch.launch.dryrun import run_cell
+    out = {}
+    for arch, shape in (("qwen3-14b", "decode_32k"),
+                        ("mamba2-1.3b", "train_4k")):
+        rec = run_cell(arch, shape, multi_pod=False)
+        check(rec["status"] == "ok",
+              f"[dryrun] {arch} {shape}: {rec.get('error')}\n"
+              f"{rec.get('trace', '')}")
+        out[f"{arch} {shape}"] = rec
+        print(f"[dryrun] {json.dumps(rec)}")
+    print(f"[dryrun] {len(out)} rows on the abstract 16 x 16 mesh at the "
+          f"H100 data-sheet constants, counted on this host's CPU (the card "
+          f"the times elsewhere ran on: {card})")
     return out
 
 
@@ -3696,6 +4133,9 @@ def main() -> int:
     launch = phase_launch(card, counters)
     print(f"[launch] phase wall {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    mesh = phase_mesh(card, counters, launch)
+    print(f"[mesh] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     dist = phase_dist(card, counters, launch)
     t_dist = time.perf_counter() - t0
     print(f"[dist] phase wall {t_dist:.1f}s")
@@ -3703,7 +4143,11 @@ def main() -> int:
     wine = phase_wine(card, counters)
     print(f"[wine] phase wall {time.perf_counter() - t0:.1f}s")
     fault = phase_train_fault(counters, card)
+    elastic = phase_elastic(card, fault)
     examples = phase_examples(card, root)
+    t0 = time.perf_counter()
+    pipe = phase_pipeline(card, ssd_scan, ssd_chunked_ref)
+    print(f"[pipeline] phase wall {time.perf_counter() - t0:.1f}s")
 
     cfg = get_config("qwen3-14b")
     params = draw(cfg, init_params, "serve")
@@ -3830,6 +4274,12 @@ def main() -> int:
                                  note=" (depth cut from 40 to 4)",
                                  microbatch=True)
     print(f"[train] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    roof = phase_roofline(card, srv["profile"], train_ssm["profile"])
+    print(f"[roofline] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    dry = phase_dryrun(card)
+    print(f"[dryrun] phase wall {time.perf_counter() - t0:.1f}s")
 
     paged_phases = {"serve": srv, "serve-graph": graph, "serve-obs": obs,
                     "serve-window": win, "serve-moe": moe, "serve-mla": mla}
@@ -3871,7 +4321,8 @@ def main() -> int:
         + fixed_ssm["launches"] + int8["launches"] + sum(
             train_ssm[m]["launches"]["ssd_scan"]
             for m in ("eager", "replayed"))
-        + fault["launches"]["ssd_scan"] + wine["launches"]["ssd_scan"],
+        + fault["launches"]["ssd_scan"] + wine["launches"]["ssd_scan"]
+        + pipe["mamba2-1.3b"]["ssd_routes"]["bfloat16 pipeline"]["tc"],
         "launches_by_phase": {
             "serve-ssm": ssm["launches"],
             "dist-serve": dist_serve["launches"],
@@ -3882,7 +4333,9 @@ def main() -> int:
                 train_ssm["replayed"]["launches"]["ssd_scan"],
             "train-fault": fault["launches"]["ssd_scan"],
             "wine (prefill and train replays)":
-                wine["launches"]["ssd_scan"]},
+                wine["launches"]["ssd_scan"],
+            "pipeline (bf16, 4 stages x 4 microbatches)":
+                pipe["mamba2-1.3b"]["ssd_routes"]["bfloat16 pipeline"]["tc"]},
         "train_launches_a_step": {
             m: [r["ssd_scan"] for r in train_ssm[m]["launches_a_step"]]
             for m in ("eager", "replayed")},
@@ -3917,6 +4370,11 @@ def main() -> int:
         "shapes": {n: r for n, r in rec_flash.items() if n != "qwen3-14b"},
     }]
     print(f"[launch] summary {json.dumps(launch)}")
+    print(f"[mesh] summary {json.dumps(mesh)}")
+    print(f"[pipeline] summary {json.dumps(pipe)}")
+    print(f"[elastic] summary {json.dumps(elastic)}")
+    print(f"[roofline] summary {json.dumps(roof)}")
+    print(f"[dryrun] summary {json.dumps(dry)}")
     print(f"[dist] summary {json.dumps(dist)}")
     print(f"[wine] summary {json.dumps(wine)}")
     print(f"[serve] summary {json.dumps(srv)}")

@@ -14,7 +14,11 @@ copies every leaf to the host BEFORE it returns, also with
 ``blocking=False``: only the file write goes to the thread, and the next
 step cannot tear the checkpoint. ``restore`` copies INTO the tensors of
 ``like`` and returns that tree: their addresses are kept, so a train step
-captured as a CUDA graph over them stays valid.
+captured as a CUDA graph over them stays valid. With ``sharding`` (a
+``NamedSharding`` tree, e.g. ``runtime.elastic.state_sharding(state,
+mesh)`` for a mesh other than the one that wrote the checkpoint), each
+restored tensor is then placed as ``runtime.elastic.reshard_state`` would
+place it: kept where its sharding's device is already its own.
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
+from repro_torch.sharding.partition import place
 from repro_torch.train.optimizer import leaves_with_path
 
 
@@ -92,10 +98,12 @@ def latest_steps(ckpt_dir: str) -> list:
 
 
 @torch.no_grad()
-def restore(ckpt_dir: str, like: Any, step: Optional[int] = None) -> tuple:
+def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
+            sharding: Any = None) -> tuple:
     """Copy the checkpoint (the last committed one, or ``step``) into the
     tensors of ``like``, each cast to its tensor's dtype, and return
-    (like, step)."""
+    (like, step); with ``sharding``, (like with each tensor placed by its
+    sharding, step)."""
     steps = latest_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
@@ -114,4 +122,6 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None) -> tuple:
                                  f"{tuple(arr.shape)}, state "
                                  f"{tuple(leaf.shape)}")
             leaf.copy_(arr.to(leaf.dtype))
+    if sharding is not None:
+        like = pytree.tree_map(place, like, sharding)
     return like, step

@@ -25,8 +25,16 @@ Hierarchy: a wave of W tasks optionally splits into (W // inner_lanes)
 outer tasks x ``inner_lanes`` inner vmap lanes (``vmap(vmap(fn))``) — the
 outer axis is the "node" level, the inner axis the "core" level. Per-level
 counts land in ``LaunchRecord.fanout`` and per-level timings in
-``LaunchRecord.levels()``. The reference's mesh and ``task_axis`` (sharding
-the outer axis over devices) are not ported: there is one card.
+``LaunchRecord.levels()``.
+
+Mesh (``mesh=``, ``task_axis=``, a ``launch.mesh.Mesh``): when a wave's
+outer axis divides by ``mesh.shape[task_axis]``, the wave is split into
+that many pieces along the task axis, piece i on the device at position i
+of the axis; each piece is compiled through the cache for its own device
+and position (its own graph, also where one device is listed twice) and
+the pieces' outputs are joined in order on the backend's device. Otherwise
+the wave runs whole on the backend's device, as the reference's replicated
+fallback does. The backend's device is ``device`` or the mesh's first.
 
 ``dispatch()`` is the one verb: it returns a ``WaveHandle`` whose result
 may still be computing. A wave's outputs are copied out of the graph's
@@ -49,6 +57,7 @@ from repro_torch.core.compile_cache import (CompileCache, default_cache,
                                             make_executable)
 from repro_torch.core.telemetry import LaunchRecord, Timer
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.mesh import Mesh, mesh_device
 
 
 def as_tensors(tree: Any) -> Any:
@@ -161,6 +170,16 @@ class LaunchBackend(Protocol):
     # ``inner_lanes=`` keyword (used by wave autoscaling).
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``a`` and ``b`` are one device (a CUDA device without an index is
+    the current one)."""
+    def canon(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return a.type == b.type and (a.type != "cuda" or canon(a) == canon(b))
+
+
 def _item(tree: Any, i: int) -> Any:
     return pytree.tree_map(lambda x: x[i], tree)
 
@@ -242,13 +261,21 @@ class ArrayBackend:
     # the policy layer (autoscaling controller) may pick a fan-out per wave
     supports_lane_override = True
 
-    def __init__(self, inner_lanes: Optional[int] = None,
+    def __init__(self, mesh: Optional[Mesh] = None,
+                 task_axis: str = "data",
+                 inner_lanes: Optional[int] = None,
                  cache: Optional[CompileCache] = None,
                  target_first_result_s: Optional[float] = None,
                  device=None):
+        if mesh is not None and mesh.is_abstract:
+            raise ValueError("a backend runs on a mesh of devices, not an "
+                             "abstract one")
+        self.mesh = mesh
+        self.task_axis = task_axis
         self.inner_lanes = inner_lanes
         self.cache = cache if cache is not None else default_cache()
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None
+                                     else mesh_device(mesh))
         # the user-facing interactivity SLO: a wave controller built over
         # this backend adopts it as its t_first ceiling, so ONE knob gates
         # serve-side admission preemption AND launch-side wave sizing
@@ -258,7 +285,11 @@ class ArrayBackend:
     # -- general-purpose compile through the shared cache -----------------
     def compile(self, fn: Callable, example_args: tuple,
                 extras: tuple = (), bind_argnums: tuple = ()) -> tuple:
-        """(executable, source): serve + launch share this entry point."""
+        """(executable, source): serve + launch share this entry point.
+        The mesh's shape is part of the key, as in the reference."""
+        if self.mesh is not None:
+            extras = tuple(extras) + ("mesh",
+                                      tuple(self.mesh.shape.items()))
         return self.cache.compile(fn, example_args, device=self.device,
                                   bind_argnums=bind_argnums, extras=extras)
 
@@ -277,9 +308,20 @@ class ArrayBackend:
             return n, 1, True
         return n, 1, False
 
+    def _wave_devices(self, outer: int) -> list:
+        """The device of each piece of a wave of ``outer`` outer tasks:
+        the task axis's devices when it divides the wave, else the
+        backend's device alone."""
+        if self.mesh is not None:
+            devs = self.mesh.devices_along(self.task_axis)
+            if len(devs) > 1 and outer % len(devs) == 0:
+                return [resolve_device(d) for d in devs]
+        return [self.device]
+
     def _compile_wave(self, fn: Callable, chunk: Any, n: int,
                       inner_lanes: Optional[int] = None,
-                      stream=None, slot: int = 0) -> tuple:
+                      stream=None, slot: int = 0, device=None,
+                      shard: Optional[int] = None) -> tuple:
         outer, inner, fell_back = self._plan(n, inner_lanes)
         requested = self.inner_lanes if inner_lanes is None else inner_lanes
         if fell_back and not self._warned_lane_fallback:
@@ -296,9 +338,13 @@ class ArrayBackend:
                 chunk)
         else:
             mapped = torch.func.vmap(fn)
+        device = self.device if device is None else device
+        extras = ("wave", outer, inner, "slot", slot)
+        if shard is not None:               # a mesh position's own graph
+            extras += ("shard", shard, str(device))
         exe, source = self.cache.compile(
-            mapped, (chunk,), key_fn=fn, device=self.device, stream=stream,
-            extras=("wave", outer, inner, "slot", slot))
+            mapped, (chunk,), key_fn=fn, device=device, stream=stream,
+            extras=extras)
         return exe, source, chunk, (outer, inner, fell_back, requested)
 
     def _stage(self, chunk: Any) -> tuple:
@@ -318,12 +364,27 @@ class ArrayBackend:
         rec = LaunchRecord(self.name, n)
         t = Timer()
         staged, keep = self._stage(chunk)
-        exe, source, staged, plan = self._compile_wave(
-            fn, staged, n, inner_lanes, stream=stream, slot=slot)
-        outer, inner, fell_back, requested = plan
+        devices = self._wave_devices(self._plan(n, inner_lanes)[0])
+        k = len(devices)
+        pieces = []
+        for i, dev in enumerate(devices):
+            part = staged if k == 1 else pytree.tree_map(
+                lambda x: x[i * n // k:(i + 1) * n // k], staged)
+            on = stream if stream is not None and _same_device(
+                stream.device, dev) else None
+            exe, source, part, plan = self._compile_wave(
+                fn, part, n // k, inner_lanes, stream=on, slot=slot,
+                device=dev, shard=i if k > 1 else None)
+            pieces.append((dev, exe, part, source))
+        _, inner, fell_back, requested = plan
+        sources = {src for *_, src in pieces}
+        source = sources.pop() if len(sources) == 1 else "compiled"
         rec.t_schedule = t.lap()      # the ONE scheduler interaction
         rec.extra["compile_source"] = source
         rec.extra["compile_cached"] = source != "compiled"
+        if k > 1:
+            rec.extra["mesh_devices"] = [str(d) for d in devices]
+        outer = n // inner
         if fell_back:
             rec.extra["inner_lanes_fallback"] = {
                 "requested": requested, "wave": n, "used": (outer, inner)}
@@ -334,14 +395,33 @@ class ArrayBackend:
             cur = torch.cuda.current_stream(self.device)
             s = stream if stream is not None else cur
             s.wait_stream(cur)
+            outs, others = [], []
+            for dev, exe, part, _ in pieces:
+                ps = s if _same_device(dev, self.device) else \
+                    torch.cuda.current_stream(dev)
+                if ps is not s:
+                    # another card: its copy of ``part`` into the graph
+                    # waits for what staged or produced it on ours
+                    ps.wait_stream(s)
+                    others.append(ps)
+                with torch.cuda.stream(ps):
+                    # copied out on the piece's stream, before anything
+                    # can replay its graph again
+                    outs.append(_copy_out(exe(part)))
+                if ps is not s:
+                    s.wait_stream(ps)
             with torch.cuda.stream(s):
-                # copied out on the wave's stream, before anything can
-                # replay this graph again
-                out = _copy_out(exe(staged))
+                out = concat_outputs([pytree.tree_map(
+                    lambda x: x.to(self.device) if isinstance(
+                        x, torch.Tensor) else x, o) for o in outs])
                 event = torch.cuda.Event()
                 event.record(s)
+            for ps in others:
+                # a piece's output is freed on its card's stream: nothing
+                # queued there after this reuses it before the join read it
+                ps.wait_stream(s)
         else:
-            out = exe(staged)
+            out = concat_outputs([exe(part) for _, exe, part, _ in pieces])
         if inner > 1:                 # un-nest node/core axes
             out = pytree.tree_map(
                 lambda x: x.reshape((n,) + tuple(x.shape[2:])), out)
@@ -378,12 +458,15 @@ class PipelinedBackend(ArrayBackend):
 
     name = "llmr-pipelined"
 
-    def __init__(self, inner_lanes: Optional[int] = None,
+    def __init__(self, mesh: Optional[Mesh] = None,
+                 task_axis: str = "data",
+                 inner_lanes: Optional[int] = None,
                  cache: Optional[CompileCache] = None,
                  depth: int = 2,
                  target_first_result_s: Optional[float] = None,
                  device=None):
-        super().__init__(inner_lanes=inner_lanes, cache=cache,
+        super().__init__(mesh=mesh, task_axis=task_axis,
+                         inner_lanes=inner_lanes, cache=cache,
                          target_first_result_s=target_first_result_s,
                          device=device)
         self.max_in_flight = max(1, depth)
@@ -408,13 +491,17 @@ BACKENDS = {"serial": SerialBackend, "array": ArrayBackend,
             "pipelined": PipelinedBackend, "dist": None}  # dist: lazy
 
 
-def make_backend(kind: str, cache: Optional[CompileCache] = None,
+def make_backend(kind: str, mesh: Optional[Mesh] = None,
+                 cache: Optional[CompileCache] = None,
                  **kwargs) -> LaunchBackend:
     """'serial' | 'array' | 'pipelined' | 'dist' -> a ready LaunchBackend.
 
-    For 'serial', ``cache`` is accepted but meaningless (the per-instance
-    VM baseline uses none); any other kwargs (``device=`` among them) are
-    passed through, so unsupported options fail loudly instead of being
+    For 'serial', ``mesh`` / ``cache`` are accepted but meaningless (the
+    per-instance VM baseline uses neither), and 'dist' takes no mesh (a
+    node's own mesh comes from its ``devices``); 'array' and 'pipelined'
+    split waves over ``mesh``'s ``task_axis`` (see the module docstring);
+    any other kwargs (``device=`` among them) are passed
+    through, so unsupported options fail loudly instead of being
     dropped. ``inner_lanes="auto"`` defers the node/core fan-out to the
     policy layer's ``WaveController``. 'dist' resolves lazily to the
     distributed fabric (``repro_torch.dist.DistributedBackend``; pass
@@ -430,4 +517,4 @@ def make_backend(kind: str, cache: Optional[CompileCache] = None,
     if cls is None:
         raise ValueError(f"unknown backend {kind!r}; "
                          f"choose from {sorted(BACKENDS)}")
-    return cls(cache=cache, **kwargs)
+    return cls(mesh=mesh, cache=cache, **kwargs)

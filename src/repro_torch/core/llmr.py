@@ -58,6 +58,7 @@ from repro_torch.core.backend import (LaunchBackend, concat_outputs,
                                       make_backend)
 from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.telemetry import LaunchRecord, Timer
+from repro_torch.launch.mesh import Mesh
 from repro_torch.obs import flight as _flight
 from repro_torch.obs import metrics as _obs
 from repro_torch.obs.trace import TRACER
@@ -156,7 +157,8 @@ class _Slot:
 class LLMapReduce:
     """``out = reduce(map(fn, inputs))`` with array-job launch semantics."""
 
-    def __init__(self, wave_size: Optional[Union[int, str]] = None,
+    def __init__(self, mesh: Optional[Mesh] = None,
+                 wave_size: Optional[Union[int, str]] = None,
                  straggler_factor: float = 3.0,
                  min_straggler_s: float = 0.25,
                  scheduler: str = "array",
@@ -184,8 +186,12 @@ class LLMapReduce:
         CLI's one SLO knob reaches wave sizing end-to-end.
 
         ``device`` is where a backend built here runs: the card unless
-        ``"cpu"`` is passed (a given ``backend`` brings its own). The
-        reference's ``mesh`` is not ported: one card."""
+        ``"cpu"`` is passed (a given ``backend`` brings its own); ``mesh``
+        (a ``launch.mesh.Mesh``) is handed to a backend built here, which
+        splits waves across its ``data`` axis and runs on its first device
+        where no ``device`` is passed, and the wave controller sizes waves
+        for its positions."""
+        self.mesh = mesh
         self.wave_size = wave_size
         self.straggler_factor = straggler_factor
         self.min_straggler_s = min_straggler_s
@@ -194,7 +200,7 @@ class LLMapReduce:
             kwargs = {"device": device} if scheduler == "serial" else {
                 "cache": cache, "inner_lanes": inner_lanes,
                 "device": device}
-            backend = make_backend(scheduler, **kwargs)
+            backend = make_backend(scheduler, mesh=mesh, **kwargs)
         self.backend = backend
         self.target_first_result_s = (
             target_first_result_s if target_first_result_s is not None
@@ -233,7 +239,8 @@ class LLMapReduce:
         if self.wave_size == "auto":
             factory = self.controller_factory or WaveController
             controller = factory(
-                n_tasks=n, devices=1,      # waves run on one card
+                n_tasks=n,
+                devices=self.mesh.size if self.mesh is not None else 1,
                 **_accepted_kwargs(
                     factory,
                     nodes=int(getattr(self.backend, "n_nodes", 1) or 1),

@@ -24,6 +24,12 @@ graph, with the state bound at its addresses); ``prefill`` runs
 ``models.lm.prefill`` (whisper's ``encoder_apply`` first) and never
 replaces the state; ``decode`` runs ``decode_step`` on the instance's KV
 rings and advances them.
+
+``WineAdapter(mesh=...)`` runs every app under ``sharding_ctx(mesh,
+mode)`` (train, serve for decode, prefill) and places a train state on the
+mesh (``runtime.elastic.reshard_state``): the state it draws, and a state
+passed to ``load`` (a restored checkpoint). Its default backend is an
+``ArrayBackend`` over the same mesh.
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ from repro_torch.configs import get_config, input_specs
 from repro_torch.core.compile_cache import LazyGraph
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.spec import SHAPES_BY_NAME, ModelConfig, ShapeCell
+from repro_torch.runtime.elastic import reshard_state
+from repro_torch.sharding.partition import sharding_ctx
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import init_state, make_train_step
 
@@ -106,35 +114,44 @@ class WineAdapter:
     the process is warm here too. Runs on the card unless built with
     ``device="cpu"`` (or over a backend that runs on the CPU)."""
 
-    def __init__(self, backend=None, cache=None, device=None):
+    def __init__(self, mesh=None, backend=None, cache=None, device=None):
         from repro_torch.core.backend import ArrayBackend
+        self.mesh = mesh
         if backend is None:
-            backend = ArrayBackend(cache=cache, device=device)
+            backend = ArrayBackend(mesh=mesh, cache=cache, device=device)
         self.backend = backend
         self.cache = backend.cache
         self.device = backend.device
 
     # -- translation layer ------------------------------------------------
     def _build_train(self, app: WineApp, cfg: ModelConfig):
-        return make_train_step(cfg, AdamWConfig(),
+        step = make_train_step(cfg, AdamWConfig(),
                                microbatches=app.microbatches)
+
+        def traced(state, batch):
+            with sharding_ctx(self.mesh, "train"):
+                return step(state, batch)
+        return traced
 
     def _build_decode(self, app: WineApp, cfg: ModelConfig):
         def traced(state, inputs):
             params, caches = state
-            logits, caches = lm_mod.decode_step(
-                params, caches, inputs["tokens"], inputs["positions"], cfg,
-                enc_out=inputs.get("enc_out"))
+            with sharding_ctx(self.mesh, "serve"):
+                logits, caches = lm_mod.decode_step(
+                    params, caches, inputs["tokens"], inputs["positions"],
+                    cfg, enc_out=inputs.get("enc_out"))
             return (params, caches), logits
         return traced
 
     def _build_prefill(self, app: WineApp, cfg: ModelConfig):
         def traced(params, inputs):
-            enc = None
-            if cfg.encoder is not None:
-                enc = lm_mod.encoder_apply(params, inputs["frames"], cfg)
-                inputs = {k: v for k, v in inputs.items() if k != "frames"}
-            return lm_mod.prefill(params, inputs, cfg, enc_out=enc)
+            with sharding_ctx(self.mesh, "prefill"):
+                enc = None
+                if cfg.encoder is not None:
+                    enc = lm_mod.encoder_apply(params, inputs["frames"], cfg)
+                    inputs = {k: v for k, v in inputs.items()
+                              if k != "frames"}
+                return lm_mod.prefill(params, inputs, cfg, enc_out=enc)
         return traced
 
     # -- public ABI --------------------------------------------------------
@@ -154,6 +171,8 @@ class WineAdapter:
 
         if state is None:
             state = self._init_state(app, cfg, 0 if key is None else key)
+        elif app.mode == "train" and self.mesh is not None:
+            state = reshard_state(state, self.mesh)
         t_stage = time.perf_counter() - t0
 
         specs = input_specs(cfg, self._cell(app))
@@ -172,7 +191,10 @@ class WineAdapter:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         if app.mode == "train":
-            return init_state(gen, cfg, self.device)
+            state = init_state(gen, cfg, self.device)
+            if self.mesh is not None:
+                state = reshard_state(state, self.mesh)
+            return state
         params = lm_mod.lm_init(gen, cfg, self.device)
         if app.mode == "decode":
             cell = self._cell(app)

@@ -54,8 +54,11 @@ promised stable): ``to_wire`` turns every tensor leaf into host numpy —
 bf16, which numpy lacks, as its 16 bits under the structured dtype
 ``BF16_WIRE`` — so shard payloads chunk into byte-stable row groups, and
 ``from_wire`` restores the tensors bit-exact on the other side. A node's
-backend runs on the fabric's device (the card unless ``device="cpu"``)
-and every result record names it (``rec.extra["device"]``).
+backend runs on the fabric's device (the card unless ``device="cpu"``),
+or on its own subset of devices (``devices=``: more than one makes a
+``("data",)`` mesh over them, and the node's waves split across it, see
+``core.backend``), and every result record names it
+(``rec.extra["device"]``).
 
   transport=InprocTransport   queue pairs (by-reference in one process,
                               mp queues across the spawn boundary).
@@ -776,13 +779,22 @@ def _worker_loop(node_id: str, channel, ctl: _WorkerCtl,
 
 
 def _node_backend(kind: str, device: Optional[str],
-                  cache: Optional[Any] = None):
+                  cache: Optional[Any] = None,
+                  devices: Optional[list] = None):
     """A node's own launch backend on ``device`` (the card unless "cpu";
     without a card it raises — a node never falls back to the CPU), with
-    ``cache`` or a compile cache of its own."""
+    ``cache`` or a compile cache of its own. A ``devices`` subset takes
+    the place of ``device``: one device runs the node, more make a
+    ``("data",)`` mesh over them, as the reference's nodes do."""
     from repro_torch.core.backend import make_backend
     from repro_torch.core.compile_cache import CompileCache
-    return make_backend(kind, device=device,
+    from repro_torch.launch.mesh import Mesh
+    mesh = None
+    if devices:
+        device = devices[0]
+        if len(devices) > 1:
+            mesh = Mesh(list(devices), ("data",))
+    return make_backend(kind, mesh=mesh, device=device,
                         cache=cache if cache is not None else CompileCache())
 
 
@@ -822,7 +834,8 @@ class NodeAgent:
     transport; each gets its own channel, all channels share the
     transport's single ``FramePump`` thread). ``device`` is where a thread
     or process host runs its backend: the card unless ``"cpu"``; without
-    a card it raises. ``alive_s`` is the seconds from ``start`` to the
+    a card it raises. ``devices`` gives a thread host its own subset of
+    devices in its place (``_node_backend``). ``alive_s`` is the seconds from ``start`` to the
     node's first heartbeat (a process host: from its spawn)."""
 
     def __init__(self, node_id: str, registry: NodeRegistry,
@@ -833,6 +846,7 @@ class NodeAgent:
                  backend_kind: str = "array",
                  cache: Optional[Any] = None,
                  device=None,
+                 devices: Optional[list] = None,
                  heartbeat_s: Optional[float] = None,
                  overlap_staging: bool = True,
                  stage_dedup: bool = False,
@@ -867,6 +881,7 @@ class NodeAgent:
                                        node_cache_bytes=chunk_cache_bytes)
         self.directory = directory
         self._peer_ready = threading.Event()
+        self.devices = devices
         self._killed = False
         self._stopping = False
         self._booted = host != "process"
@@ -890,7 +905,7 @@ class NodeAgent:
                            or getattr(self.transport, "name", "") == "socket")
         if host == "thread":
             if backend is None:
-                backend = _node_backend(backend_kind, device, cache)
+                backend = _node_backend(backend_kind, device, cache, devices)
             self.backend = backend
             self._ctl = _WorkerCtl()
             self._port = self.transport.create(node_id)
@@ -1341,9 +1356,11 @@ def spawn_local_nodes(n_nodes: int, registry: NodeRegistry,
     ``mode`` is "thread" (default; shared process, isolated state) or
     "process" (real ``multiprocessing`` workers); ``transport`` is shared
     by the fleet (one ``SocketTransport`` listener serves every node).
-    Every node runs on the one device ``agent_kwargs["device"]`` names
-    (the card by default): the reference's partition of host devices
-    among thread nodes has no counterpart on one card."""
+    Thread nodes partition the fabric's devices round-robin (the cards,
+    by default; ``agent_kwargs["device"]`` names another) so each node
+    owns a distinct subset, as the reference's do; with fewer devices than
+    nodes — one card, or the CPU — every node runs on the fabric's device
+    (on one card a node's subset is that card)."""
     caps = capacities or [1] * n_nodes
     if len(caps) != n_nodes:
         raise ValueError(f"capacities has {len(caps)} entries "
@@ -1357,8 +1374,15 @@ def spawn_local_nodes(n_nodes: int, registry: NodeRegistry,
     if mode != "thread":
         raise ValueError(f"unknown node mode {mode!r}; "
                          f"choose 'thread' or 'process'")
+    from repro_torch.kernels.ops import resolve_device
+    dev = resolve_device(agent_kwargs.get("device"))
+    devs = ([torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+            if dev.type == "cuda" and dev.index is None else [dev])
     return [NodeAgent(f"{name_prefix}{i}", registry, capacity=caps[i],
-                      transport=transport, **agent_kwargs)
+                      transport=transport,
+                      devices=devs[i::n_nodes] if len(devs) >= n_nodes
+                      else None, **agent_kwargs)
             for i in range(n_nodes)]
 
 

@@ -13,8 +13,8 @@ they run on the CUDA cores.
 ``attention_ref`` is the plain PyTorch version of the same function, line for
 line the reference oracle (``repro.kernels.ref.attention_ref``): kv heads
 repeated up to H, the full (Sq, Sk) score matrix in f32, softmax, fully
-masked rows zeroed. The wrapper takes it only for tensors on the CPU; on a
-CUDA tensor it launches the kernel or raises. ``flash_attention.launches``
+masked rows zeroed. The wrapper takes it only for tensors on the CPU (or
+``meta``: shapes alone); on a CUDA tensor it launches the kernel or raises. ``flash_attention.launches``
 counts kernel launches.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import PLAIN_DEVICES, _build
 
 _FLOATS = (torch.float32, torch.bfloat16)
 MAX_DIM = 256                     # D and Dv the kernel's tiles hold
@@ -111,15 +111,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     q_pos - k_pos < window; ``softcap`` applies cap * tanh(s / cap).
 
     Returns (B, H, Sq, Dv) in q.dtype; a row that sees no key is exact
-    zeros. CPU tensors take ``attention_ref``; CUDA tensors launch the
+    zeros. CPU (and ``meta``) tensors take ``attention_ref``; CUDA tensors launch the
     kernel (D and Dv multiples of 8 up to 256, contiguous tensors).
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+        raise ValueError(f"flash_attention runs on cpu, meta or cuda, not "
                          f"{q.device}")
     _check_kernel(q, k, v)
     B, H, Sq, D = q.shape

@@ -19,8 +19,8 @@ failed launch raises.
 ``paged_attention_ref`` is the plain PyTorch version of the same function,
 line for line the reference oracle (``repro.kernels.ref``): gather each
 slot's pages into a dense view, then naive masked attention. The wrapper
-takes it only for tensors on the CPU; on a CUDA tensor it launches a kernel
-or raises. ``paged_attention.launches`` counts wrapper calls that launched,
+takes it only for tensors on the CPU (or ``meta``: shapes alone); on a CUDA
+tensor it launches a kernel or raises. ``paged_attention.launches`` counts wrapper calls that launched,
 ``paged_attention.routes`` the same calls by route.
 """
 from __future__ import annotations
@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import PLAIN_DEVICES, _build
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -218,18 +218,19 @@ def paged_attention(q, k, v, kpos, tables, q_pos, *, q2=None, k2=None,
 
     All float inputs share one dtype (float32 or bfloat16); every tensor is
     contiguous and on one device. Returns (B, S, H, Dv) in v.dtype. A slot
-    whose table is all -1 (or a pad query row) gets exact zeros. CPU tensors
-    take ``paged_attention_ref``; CUDA tensors launch the kernels of the
+    whose table is all -1 (or a pad query row) gets exact zeros. CPU (and
+    ``meta``) tensors take ``paged_attention_ref``; CUDA tensors launch the kernels of the
     route ``_route`` picks (the split and tile routes take 16-byte aligned
     tensors and raise on others).
     """
     _check(q, k, v, kpos, tables, q_pos, q2, k2)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return paged_attention_ref(q, k, v, kpos, tables, q_pos, q2=q2, k2=k2,
                                    scale=scale, causal=causal, window=window,
                                    softcap=softcap)
     if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
+        raise ValueError(f"paged_attention runs on cpu, meta or cuda, not "
+                         f"{q.device}")
     shape = _shape(q, k, v, q2, tables)
     B, S, H, Dk, ps, K, Dv, Dk2, npps, _ = shape
     P = k.shape[0]

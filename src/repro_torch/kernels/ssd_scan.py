@@ -16,8 +16,8 @@ fallback: a failed launch raises.
 for line the reference's XLA path (``repro.models.ssm.ssd_chunked``), but
 for the intra-chunk decay, masked before its exp so that its gradient stays
 finite where the reference's is NaN (ROADMAP.md section 3); the
-wrapper takes it only for tensors on the CPU, and on a CUDA tensor launches
-the kernel or raises. ``ssd_ref`` is the sequential recurrence, the semantic
+wrapper takes it only for tensors on the CPU (or ``meta``: shapes alone), and
+on a CUDA tensor launches the kernel or raises. ``ssd_ref`` is the sequential recurrence, the semantic
 ground truth (``repro.kernels.ref.ssd_ref``). ``ssd_scan.launches`` counts
 kernel launches, ``ssd_scan.routes`` the same launches by route.
 
@@ -39,7 +39,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import PLAIN_DEVICES, _build
 
 _FLOATS = (torch.float32, torch.bfloat16)
 MAX_P, MAX_N, MAX_Q = 64, 128, 1024        # what the kernels' tiles hold
@@ -193,8 +193,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, out_dtype=None,
     float32 or bfloat16. Chunks are Q = min(chunk, S) long and S % Q == 0.
 
     Returns y (Bz,S,H,P) in ``out_dtype`` (default x.dtype) and, with
-    ``return_state``, also the final state (Bz,H,P,N) in float32. CPU
-    tensors take ``ssd_chunked_ref``; CUDA tensors launch the kernel of the
+    ``return_state``, also the final state (Bz,H,P,N) in float32. CPU (and
+    ``meta``) tensors take ``ssd_chunked_ref``; CUDA tensors launch the kernel of the
     route ``_plan`` picks, or of ``route`` ("tc" or "simt") where the caller
     forces one (raising if that route does not take the shape).
     """
@@ -202,12 +202,13 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, out_dtype=None,
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if route is not None and route not in ROUTES:
         raise ValueError(f"ssd_scan: route is one of {ROUTES}, not {route!r}")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         y, h = ssd_chunked_ref(x, dt, A, B, C, chunk)
         y = y.to(out_dtype)
         return (y, h) if return_state else y
     if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"ssd_scan runs on cpu, meta or cuda, not "
+                         f"{x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, A, B, C)):
         y, h = _SsdScanFn.apply(x, dt, A, B, C, chunk, out_dtype, route)

@@ -46,6 +46,7 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.layers import (apply_rope, fan_in_init, head_rmsnorm,
                                        softcap)
 from repro_torch.models.spec import AttentionSpec, ModelConfig
+from repro_torch.sharding.partition import constrain
 
 BLOCKED_THRESHOLD = 8192
 KV_BLOCK = 1024            # key-block width for the blocked path
@@ -76,11 +77,17 @@ def attn_core(q, k, v, q_pos, k_pos, *, scale, causal, window, cap,
     B, Q, H, Dk = q.shape
     G = H // n_kv
     q5 = q.reshape(B, Q, n_kv, G, Dk)
+    # batch follows the cache's batch sharding, as in the reference
+    q5 = constrain(q5, "cache_batch", "seq", "kv_heads", "q_group",
+                   "head_dim")
     limit = KV_BLOCK if prefer_blocked else BLOCKED_THRESHOLD
     blocked = Q > 1 and k.shape[1] > limit
     path = _attn_blocked if blocked else _attn_flat
     out = path(q5, k, v, q_pos, k_pos, scale=scale, causal=causal,
                window=window, cap=cap)
+    # the output keeps q5's layout
+    out = constrain(out, "cache_batch", "seq", "kv_heads", "q_group",
+                    "head_dim")
     return out.reshape(B, Q, H, v.shape[-1])
 
 
@@ -208,6 +215,25 @@ def _kv_read(cache: dict):
             _kv_dequantize(cache["v"], cache["v_scale"]))
 
 
+_CACHE_AXES = {
+    "k": ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
+    "v": ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
+    "k_scale": ("cache_batch", "cache_seq", "kv_heads"),
+    "v_scale": ("cache_batch", "cache_seq", "kv_heads"),
+    "pos": ("cache_batch", "cache_seq"),
+    "ckv": ("cache_batch", "cache_seq", "kv_lora"),
+    "kr": ("cache_batch", "cache_seq", "head_dim"),
+}
+
+
+def constrain_cache(cache: dict) -> dict:
+    """Pin ring-cache tensors to their layout (in place; returns ``cache``)."""
+    for k in cache:
+        if k in _CACHE_AXES:
+            cache[k] = constrain(cache[k], *_CACHE_AXES[k])
+    return cache
+
+
 def _ring_update(cache: dict, new: dict, positions: torch.Tensor) -> dict:
     """Write new entries into ring slots pos % capacity, in place.
 
@@ -226,13 +252,13 @@ def _ring_update(cache: dict, new: dict, positions: torch.Tensor) -> dict:
                 + shift[:, None]) % cap                          # roll by shift
         for k, v in entries.items():
             cache[k][rows, cols] = v[:, -cap:].to(cache[k].dtype)
-        return cache
+        return constrain_cache(cache)
     # dynamic_update_slice semantics: the start clamps so the block fits
     start = (positions[:, 0] % cap).clamp(max=cap - S)           # (B,)
     cols = start[:, None] + torch.arange(S, device=positions.device)[None]
     for k in cache:
         cache[k][rows, cols] = entries[k].to(cache[k].dtype)
-    return cache
+    return constrain_cache(cache)
 
 
 # ---------------------------------------------------------------------------

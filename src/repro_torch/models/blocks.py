@@ -33,6 +33,7 @@ from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.spec import BlockSpec, ModelConfig, ScanGroup
 from repro_torch.models.ssm import ssm_apply, ssm_cache_init, ssm_init
+from repro_torch.sharding.partition import constrain
 
 # cache entries one value serves for every repeat of a group (a paged
 # leaf's page table and sink flag, an SSM cache's stall mask): never
@@ -101,18 +102,20 @@ def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
     if b.parallel_residual:
         h = norm_apply(p["norm_attn"], x, nk, ne)
         a = attn_apply(p["attn"], h, b.attn, cfg, positions, cache=c_attn)
-        return x + a + mlp_apply(p["mlp"], h, b.mlp), aux
+        return constrain(x + a + mlp_apply(p["mlp"], h, b.mlp), "batch",
+                         "seq", "act_d"), aux
 
     if b.attn is not None:
         h = norm_apply(p["norm_attn"], x, nk, ne)
         a = attn_apply(p["attn"], h, b.attn, cfg, positions, cache=c_attn)
         if b.post_norms:
             a = norm_apply(p["post_attn"], a, nk, ne)
-        x = x + a
+        x = constrain(x + a, "batch", "seq", "act_d")
 
     if b.ssm is not None:
         h = norm_apply(p["norm_ssm"], x, nk, ne)
-        x = x + ssm_apply(p["ssm"], h, b.ssm, cfg, positions, cache=c_ssm)
+        x = constrain(x + ssm_apply(p["ssm"], h, b.ssm, cfg, positions,
+                                    cache=c_ssm), "batch", "seq", "act_d")
 
     if b.cross_attn is not None:
         if enc_out is None:
@@ -120,20 +123,21 @@ def block_apply(p: dict, x: torch.Tensor, b: BlockSpec, cfg: ModelConfig,
                              "the encoder output (enc_out)")
         h = norm_apply(p["norm_cross"], x, nk, ne)
         kv = gqa_encoder_kv(p["cross"], enc_out, b.cross_attn)
-        x = x + attn_apply(p["cross"], h, b.cross_attn, cfg, positions,
-                           encoder_out=kv)
+        x = constrain(x + attn_apply(p["cross"], h, b.cross_attn, cfg,
+                                     positions, encoder_out=kv),
+                      "batch", "seq", "act_d")
 
     if b.mlp is not None:
         h = norm_apply(p["norm_mlp"], x, nk, ne)
         m = mlp_apply(p["mlp"], h, b.mlp)
         if b.post_norms:
             m = norm_apply(p["post_mlp"], m, nk, ne)
-        x = x + m
+        x = constrain(x + m, "batch", "seq", "act_d")
 
     if b.moe is not None:
         h = norm_apply(p["norm_moe"], x, nk, ne)
         m, aux = moe_apply(p["moe"], h, b.moe)
-        x = x + m
+        x = constrain(x + m, "batch", "seq", "act_d")
     return x, aux
 
 

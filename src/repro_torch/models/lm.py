@@ -68,6 +68,7 @@ from repro_torch.models.layers import (embed_init, embed_logits, embed_lookup,
                                        softcap)
 from repro_torch.models.spec import ModelConfig, ScanGroup
 from repro_torch.models.ssm import ssm_cache_init
+from repro_torch.sharding.partition import constrain
 
 SlotIds = Union[Sequence[int], torch.Tensor]
 
@@ -115,6 +116,7 @@ def encoder_apply(params: dict, frames: torch.Tensor, cfg: ModelConfig,
     """frames: (B, S_enc, D) stubbed frontend embeddings -> enc_out."""
     enc = params["encoder"]
     x = frames + enc["pos"]["pos_embed"][None, :frames.shape[1]]
+    x = constrain(x, "batch", "seq", "act_d")
     pos = torch.arange(frames.shape[1], dtype=torch.int32,
                        device=frames.device)[None].expand(frames.shape[:2])
     for gi, g in enumerate(cfg.encoder.groups):
@@ -146,6 +148,7 @@ def lm_hidden(params: dict, inputs: dict, cfg: ModelConfig,
     in place. Serving ignores the aux. ``remat`` (training only) recomputes
     every block in the backward pass."""
     x, positions = _embed_inputs(params, inputs, cfg)
+    x = constrain(x, "batch", "seq", "act_d")
     aux = 0.0
     for gi, g in enumerate(cfg.groups):
         c = caches[gi] if caches is not None else None
@@ -164,7 +167,7 @@ def lm_logits(params: dict, hidden: torch.Tensor,
         logits = hidden @ params["lm_head"]["lm_head"]
     if cfg.final_logit_softcap:
         logits = softcap(logits.float(), cfg.final_logit_softcap)
-    return logits
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +240,7 @@ def prefill(params: dict, inputs: dict, cfg: ModelConfig,
     to the prompt length. Windowed layers keep rings of min(capacity,
     window) rows, as the reference's do: one prompt has no pad rows."""
     x, positions = _embed_inputs(params, inputs, cfg)
+    x = constrain(x, "batch", "seq", "act_d")
     B, S = x.shape[:2]
     capacity = max(capacity or S, S)
     caches = []
@@ -326,6 +330,7 @@ def prefill_batched(params: dict, inputs: dict, cfg: ModelConfig,
     over ALL processed tokens, pads included, so callers batching prompts
     for an SSM-bearing config group them by exact length (no pads)."""
     x, positions = _embed_inputs(params, inputs, cfg)
+    x = constrain(x, "batch", "seq", "act_d")
     B, S = x.shape[:2]
     capacity = max(capacity or S, S)
     caches = []

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.models.layers import fan_in_init
 from repro_torch.models.spec import MlpSpec, ModelConfig
+from repro_torch.sharding.partition import constrain
 
 
 def _silu(x):
@@ -57,6 +58,8 @@ def mlp_apply(params: dict, x: torch.Tensor, spec: MlpSpec) -> torch.Tensor:
         h = _act(spec.activation)(g) * h
     else:
         h = _act(spec.activation)(h)
+    # Megatron-style: the hidden pinned to ff->model
+    h = constrain(h, "batch", "seq", "ff")
     y = h @ params["w_down"]
     if "b_down" in params:
         y = y + params["b_down"]

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import fan_in_init
 from repro_torch.models.mlp import _act
 from repro_torch.models.spec import ModelConfig, MoeSpec
+from repro_torch.sharding.partition import constrain
 
 
 def _einsum(sub: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -120,16 +121,20 @@ def moe_apply(params: dict, x: torch.Tensor, spec: MoeSpec):
     dispatch, combine = dispatch_tensors(onehot, gate_w, kept, C, xg.dtype)
 
     xe = _einsum("gtec,gtd->gecd", dispatch, xg)                 # (G,E,C,D)
+    xe = constrain(xe, "moe_group", "experts", None, "act_d")
     h = _einsum("gecd,edf->gecf", xe, params["we_up"])
     g = _einsum("gecd,edf->gecf", xe, params["we_gate"])
     h = _act(spec.activation)(g) * h
+    h = constrain(h, "moe_group", "experts", None, "ff")
     ye = _einsum("gecf,efd->gecd", h, params["we_down"])
+    ye = constrain(ye, "moe_group", "experts", None, "act_d")
     y = _einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
 
     if spec.n_shared:
         hs = _einsum("gtd,df->gtf", xg, params["ws_up"])
         gsh = _einsum("gtd,df->gtf", xg, params["ws_gate"])
-        hsh = _act(spec.activation)(gsh) * hs
+        hsh = constrain(_act(spec.activation)(gsh) * hs,
+                        "moe_group", "seq", "ff")
         y = y + _einsum("gtf,fd->gtd", hsh, params["ws_down"])
 
     # load-balance auxiliary loss (Switch-style)

@@ -26,6 +26,19 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.layers import fan_in_init, normal_init
 from repro_torch.models.mlp import _silu
 from repro_torch.models.spec import ModelConfig, SsmSpec
+from repro_torch.sharding.partition import constrain
+
+
+_SSM_CACHE_AXES = {
+    "conv_x": ("cache_batch", None, "d_inner"),
+    "conv_B": ("cache_batch", None, "state"),
+    "conv_C": ("cache_batch", None, "state"),
+    "state": ("cache_batch", "ssm_heads", "head_dim", "state"),
+}
+
+
+def _constrain_cache(cache: dict) -> dict:
+    return {k: constrain(v, *_SSM_CACHE_AXES[k]) for k, v in cache.items()}
 
 
 def ssm_dims(d_model: int, spec: SsmSpec):
@@ -118,8 +131,8 @@ def ssm_apply(params: dict, x: torch.Tensor, spec: SsmSpec, cfg: ModelConfig,
     P = spec.head_dim
     A = -torch.exp(params["A_log"])
 
-    xz = x @ params["w_x"]
-    z = x @ params["w_z"]
+    xz = constrain(x @ params["w_x"], "batch", "seq", "d_inner")
+    z = constrain(x @ params["w_z"], "batch", "seq", "d_inner")
     Bm = x @ params["w_B"]
     Cm = x @ params["w_C"]
     dt_raw = (x @ params["w_dt"]).float()
@@ -146,8 +159,9 @@ def ssm_apply(params: dict, x: torch.Tensor, spec: SsmSpec, cfg: ModelConfig,
         y = torch.einsum("bn,bhvn->bhv", cC.float(), h)
         y = y + params["D"][None, :, None] * xh
         y = y.reshape(B, 1, d_inner)
-        _write(cache, {"conv_x": hist_x[:, 1:], "conv_B": hist_B[:, 1:],
-                       "conv_C": hist_C[:, 1:], "state": h})
+        _write(cache, _constrain_cache({
+            "conv_x": hist_x[:, 1:], "conv_B": hist_B[:, 1:],
+            "conv_C": hist_C[:, 1:], "state": h}))
     else:
         # ---- prefill: chunked SSD
         cx = _silu(_causal_conv(xz, params["conv_x"], params["conv_bias_x"]))
@@ -159,8 +173,9 @@ def ssm_apply(params: dict, x: torch.Tensor, spec: SsmSpec, cfg: ModelConfig,
         y = y.reshape(B, S, d_inner)
         if cache is not None:
             k = spec.d_conv - 1
-            _write(cache, {"conv_x": xz[:, -k:], "conv_B": Bm[:, -k:],
-                           "conv_C": Cm[:, -k:], "state": h_final})
+            _write(cache, _constrain_cache({
+                "conv_x": xz[:, -k:], "conv_B": Bm[:, -k:],
+                "conv_C": Cm[:, -k:], "state": h_final}))
 
     y = _gated_norm(params["norm"], y, z)
     return y.to(x.dtype) @ params["w_out"]

@@ -1,1 +1,2 @@
-"""Fault tolerance and gradient compression (port of ``repro.runtime``)."""
+"""Fault tolerance, gradient compression, elastic restore and the GPipe
+schedule (port of ``repro.runtime``)."""

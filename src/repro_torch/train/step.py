@@ -13,8 +13,8 @@ Gradients come from ``torch.autograd.grad`` over detached aliases of the
 parameters: the state's own tensors never require grad, so the in-place
 update needs no special care and serving code can share the weights.
 Microbatches accumulate gradients in ``accum_dtype`` (f32 by default);
-the reference's ``constrain`` (a sharding hint) has no counterpart on one
-device.
+each microbatch is pinned batch-sharded (``sharding.partition.constrain``),
+as in the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch
 from repro_torch.models.blocks import tree_map
 from repro_torch.models.lm import lm_init, lm_loss
 from repro_torch.models.spec import ModelConfig
+from repro_torch.sharding.partition import constrain
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
 
@@ -73,6 +74,8 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
             loss = torch.zeros((), dtype=torch.float32,
                                device=state["opt"]["step"].device)
             for mb in mbs:
+                mb = {k: constrain(v, "batch", *([None] * (v.ndim - 1)))
+                      for k, v in mb.items()}
                 l, metrics, g = _grads(cfg, params, mb, remat)
                 tree_map(lambda a, b: a.add_(b.to(accum_dtype)), grads, g)
                 loss = loss + l

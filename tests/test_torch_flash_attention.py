@@ -329,3 +329,17 @@ def test_cuda_kernel_raises_on_what_it_does_not_take(cuda_device):
                for a in _arrays((1, 2, 2, 16, 16, 8, 8)))
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name,shape,kw", CASES, ids=IDS)
+def test_meta_call_takes_the_plain_version(dtype, name, shape, kw):
+    """On ``meta`` tensors (the dry run's) the wrapper returns the plain
+    version's shape and dtype and launches nothing."""
+    q, k, v = _torch(_inputs(shape, dtype))
+    want = attention_ref(q, k, v, **kw)
+    launches = flash_attention.launches
+    out = flash_attention(q.to("meta"), k.to("meta"), v.to("meta"), **kw)
+    assert out.device.type == "meta"
+    assert out.shape == want.shape and out.dtype == want.dtype
+    assert flash_attention.launches == launches

@@ -17,7 +17,8 @@ executables.
   per-signature executable, the launch-counter bookkeeping of a replay.
 * ``cuda``-marked: the captured step against the eager one on the card,
   the backends' launches on the card against numpy, the array job's rate
-  against the serial baseline's, the serial submit against its execution.
+  against the serial baseline's, the serial submit against its execution,
+  and (on two or more cards) waves split over the cards of a mesh.
 
 No JAX at module level: the ``cuda`` tests run on the card's machine with
 ``--noconftest``.
@@ -397,6 +398,41 @@ def test_cuda_serial_submit_dwarfs_execution(cuda_device):
     assert rec.total == pytest.approx(
         rec.t_schedule + rec.t_stage + rec.t_spawn)
     assert rec.t_schedule > rec.t_spawn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["array", "pipelined"])
+def test_cuda_waves_split_over_distinct_cards(cuda_device, kind):
+    """A mesh of every card on ``data`` (two or more): each wave is split,
+    a graph a card, and joined on the first. The input is the last product
+    of a long chain on the first card's stream, so a card whose copy of its
+    piece did not wait for that stream would read the input unwritten (or
+    an earlier launch's); every launch's outputs equal the mesh-less run's
+    on the first card."""
+    from repro_torch.core.backend import make_backend
+    from repro_torch.launch.mesh import Mesh
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more NVIDIA cards")
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    n = 64 * n_cards
+    base = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (n, 8)).astype(np.float32)).to(cards[0])
+    whole = make_backend(kind, device=cards[0], cache=cc.CompileCache())
+    be = make_backend(kind, mesh=Mesh(cards, ("data",)),
+                      cache=cc.CompileCache())
+    assert be.device == cards[0]
+    big = torch.full((2048, 2048), 1.0 / 2048, device=cards[0])
+    for i in range(4):
+        chain = big
+        for _ in range(32):
+            chain = chain @ big
+        x = base * (i + 1) + chain[0, 0] * 0.0   # after the whole chain
+        out, rec = be.launch(_launch_app, x, n)
+        assert rec.extra["mesh_devices"] == [str(c) for c in cards]
+        assert out.device == cards[0]
+        want, _ = whole.launch(_launch_app, x, n)
+        assert torch.equal(out, want), i
 
 
 @pytest.mark.cuda

@@ -9,7 +9,8 @@
   JAX blocked.
 * It imports with JAX blocked, and no file of it — nor ``chip_smoke.py`` —
   imports ``jax`` or the reference package ``repro``; the distributed
-  fabric launches with JAX blocked.
+  fabric launches, and the dry run, a mesh's split wave and the pipeline
+  run, with JAX blocked.
 * Its entry points run on the card unless asked for the CPU, and raise
   without one; ``launch.serve.serve`` drives the paged engine end to end.
 * bf16 crosses ``convert`` bit for bit.
@@ -147,6 +148,43 @@ def test_fabric_and_health_plane_run_with_jax_blocked():
     assert res.returncode == 0, res.stderr
     assert "per-node split across the fabric over socket" in res.stdout
     assert "llmr.map_reduce" in res.stdout
+
+
+def test_multidevice_and_analysis_layer_runs_with_jax_blocked():
+    """The scan above covers the mesh, sharding, elastic, pipeline,
+    roofline, op-counter and dry-run modules; the dry run of one smoke cell,
+    a wave split over a mesh listing the CPU twice and a two-stage pipeline
+    run in a process where ``import jax`` fails."""
+    mods = set(_modules())
+    assert {"repro_torch.launch.mesh", "repro_torch.sharding.partition",
+            "repro_torch.runtime.elastic", "repro_torch.runtime.pipeline",
+            "repro_torch.launch.roofline", "repro_torch.launch.op_analysis",
+            "repro_torch.launch.dryrun"} <= mods
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import numpy as np, torch\n"
+            "from repro_torch.launch import dryrun\n"
+            "from repro_torch.launch.mesh import Mesh\n"
+            "from repro_torch.core.llmr import LLMapReduce\n"
+            "from repro_torch.runtime.pipeline import pipeline_apply\n"
+            "assert dryrun.main(['--arch', 'qwen3-14b', '--shape',\n"
+            "                    'decode_32k', '--smoke']) == 0\n"
+            "m = Mesh(['cpu', 'cpu'], ('data',))\n"
+            "out, rep = LLMapReduce(mesh=m, wave_size=4).map_reduce(\n"
+            "    lambda v: v.sum(), np.ones((8, 3), np.float32))\n"
+            "assert out.tolist() == [3.0] * 8\n"
+            "assert rep.records[0].extra['mesh_devices'] == ['cpu', 'cpu']\n"
+            "y = pipeline_apply(lambda p, x: x * p['w'],\n"
+            "                   {'w': torch.tensor([2.0, 3.0])},\n"
+            "                   torch.ones(4, 1), Mesh(['cpu'] * 2, ('pod',)))\n"
+            "assert y.tolist() == [[6.0]] * 4\n"
+            "assert not any(k == 'repro' or k.startswith('repro.')\n"
+            "               for k in sys.modules), 'imported repro'\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert '"status": "ok"' in res.stdout
 
 
 def _imported(path: Path):

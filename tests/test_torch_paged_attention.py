@@ -595,3 +595,20 @@ def test_cuda_routes_fit_at_the_serving_shapes(cuda_device):
         a = _serving(kind, cuda_device)
         assert _route(a["q"], a["k"], a["v"], None, a["tables"], N_SM,
                       smem) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,make,kw", CASES, ids=IDS)
+def test_meta_call_takes_the_plain_version(name, make, kw, dtype):
+    """On ``meta`` tensors (the dry run's) the wrapper returns the plain
+    version's shape and dtype and launches nothing."""
+    a = _torch_args(make(), dtype=dtype)
+    want = _call(paged_attention_ref, a, **kw)
+    meta = {k: (x.to("meta") if x is not None else None)
+            for k, x in a.items()}
+    launches, routes = paged_attention.launches, dict(paged_attention.routes)
+    out = _call(paged_attention, meta, **kw)
+    assert out.device.type == "meta"
+    assert out.shape == want.shape and out.dtype == want.dtype == dtype
+    assert paged_attention.launches == launches
+    assert paged_attention.routes == routes

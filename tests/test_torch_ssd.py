@@ -484,3 +484,22 @@ def test_cuda_autograd_gradients_match_plain(cuda_device, dtype, Bz, S, H,
     raw, _ = _launch(*(a.detach().requires_grad_() for a in args), chunk,
                      torch.float32, True, None)
     assert raw.grad_fn is None and not raw.requires_grad
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("dtype,out_dtype", [("f32", None),
+                                             ("bf16", torch.float32)])
+def test_meta_call_takes_the_plain_version(dtype, out_dtype, state):
+    """On ``meta`` tensors (the dry run's) the wrapper returns the plain
+    version's shapes and dtypes and launches nothing."""
+    args = _torch(_inputs(2, 128, 4, 64, 16, dtype, dt_dtype="f32"))
+    want = ssd_scan(*args, chunk=64, out_dtype=out_dtype,
+                    return_state=state)
+    launches, routes = ssd_scan.launches, dict(ssd_scan.routes)
+    got = ssd_scan(*(t.to("meta") for t in args), chunk=64,
+                   out_dtype=out_dtype, return_state=state)
+    want, got = (want, got) if state else ((want,), (got,))
+    for w, g in zip(want, got):
+        assert g.device.type == "meta"
+        assert g.shape == w.shape and g.dtype == w.dtype
+    assert ssd_scan.launches == launches and ssd_scan.routes == routes
