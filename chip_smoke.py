@@ -1332,19 +1332,24 @@ def phase_flash(flash_attention, attention_ref, attention, counters, card):
 # ---------------------------------------------------------------------------
 
 def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
-              backend=None, **kw):
+              backend=None, first_pool=False, **kw):
     """The main path: ``serve`` over ``waves`` with every kernel's launch
     count set to 0 just before and read just after (``kernel_fn``'s is
     returned; the others must stay 0; with ``kernel_fn`` None all must); every
     prefill dispatch and decode step of the engine (``kw["engine"]``: the
     paged one by default, or the fixed one) is watched for non-finite logits
-    (a decode step's after its replay, outside the graph). The decode step
-    is captured (``capture_step``, the engine's default) or run eagerly, on
-    a compile cache of its own (freed with the engine) — ``backend``'s,
-    where one is given; ``eng.capture`` notes the step's source and the
-    cache's capture and replay counts."""
+    after its executable returns, outside any graph. Every executable of
+    the engine — the decode step and each prefill key (``prefill_b{B}_s{S}``,
+    ``warm_s{S}``, ``prefill_s{S}``) — is captured once and replayed after
+    (``capture_step``, the engine's default) or run eagerly, on a compile
+    cache of its own (freed with the engine) — ``backend``'s, where one is
+    given. ``eng.capture`` notes the sources, the cache's capture and
+    replay counts, the graph pools and their bytes (with ``first_pool``,
+    also as they stood after the first prefill dispatch), the launches
+    made inside replays, and each wave's TTFT p50."""
     from repro_torch.core.backend import ArrayBackend
-    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.compile_cache import COUNTED, CompileCache
+    from repro_torch.core.telemetry import class_summary
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1352,32 +1357,37 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
     from repro_torch.serve import engine as engine_mod
     counters = (paged_attention, ssd_scan, flash_attention)
     finite = []
-    engines = (engine_mod.PagedServeEngine, engine_mod.ServeEngine)
-    saved = ((engine_mod.paged_prefill, engine_mod.prefill),
-             tuple(e._decode for e in engines))
+    paged, fixed = engine_mod.PagedServeEngine, engine_mod.ServeEngine
+    methods = ((paged, "_prefill_exec"), (paged, "_warm_exec"),
+               (paged, "_decode"), (fixed, "_prefill"), (fixed, "_decode"))
+    saved = [getattr(cls, name) for cls, name in methods]
+
+    pool_after_first = []
+
+    def seen(out, prefill=False):
+        logits = out[0] if isinstance(out, tuple) else out
+        finite.append(bool(torch.isfinite(logits).all()))
+        if prefill and first_pool and capture_step and not pool_after_first:
+            pool_after_first.append(_graph_pool_bytes(backend.cache))
+        return out
+
+    def watched_exec(get):
+        def exec_of(self, *shape):
+            exe = get(self, *shape)
+            return lambda *args: seen(exe(*args), prefill=True)
+        return exec_of
 
     def watched(fn):
-        def prefill(*args, **kw):
-            logits, caches = fn(*args, **kw)
-            finite.append(bool(torch.isfinite(logits).all()))
-            return logits, caches
-        return prefill
-
-    def watched_decode(fn):
-        def decode(self, *args, **kw):
-            logits = fn(self, *args, **kw)
-            finite.append(bool(torch.isfinite(logits).all()))
-            return logits
-        return decode
+        prefill = fn.__name__ == "_prefill"
+        return lambda self, *args: seen(fn(self, *args), prefill)
 
     def restore():
-        engine_mod.paged_prefill, engine_mod.prefill = saved[0]
-        for e, fn in zip(engines, saved[1]):
-            e._decode = fn
+        for (cls, name), fn in zip(methods, saved):
+            setattr(cls, name, fn)
 
-    engine_mod.paged_prefill, engine_mod.prefill = map(watched, saved[0])
-    for e, fn in zip(engines, saved[1]):
-        e._decode = watched_decode(fn)
+    for (cls, name), fn in zip(methods, saved):
+        setattr(cls, name, (watched_exec if name.endswith("_exec")
+                            else watched)(fn))
     if backend is None:
         backend = ArrayBackend(cache=CompileCache(), device=DEV)
     torch.cuda.synchronize()
@@ -1395,19 +1405,50 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
                   if fn is not kernel_fn}
     finally:
         restore()
-    st = backend.cache.stats
-    eng.capture = dict(source=eng.stats["compile_sources"]["step"],
-                       captures=st["captures"], replays=st["replays"],
-                       t_capture_s=st["t_capture_s"])
-    print(f"[{tag}] {cfg.name}: decode step {eng.capture['source']}"
-          + (f", {st['captures']} capture ({st['t_capture_s']:.2f}s with "
-             f"its warm-up step), {st['replays']} replays of "
-             f"{eng.stats['steps']} steps" if capture_step else "")
-          + f"; launches of the other kernels {json.dumps(others)}")
+    cache = backend.cache
+    st, src = cache.stats, dict(eng.stats["compile_sources"])
+    graphs = [g for exe in cache._mem.values()
+              for g in getattr(exe, "graphs", {}).values()]
+    in_replays = {fn.__name__: sum(g.replays * g.counts[i][0]
+                                   for g in graphs)
+                  for i, fn in enumerate(COUNTED)}
+    n_prefill = len(src) - 1
+    ttft, done = [], 0
+    for w in waves:
+        ttft.append(class_summary(eng.records[done:done + len(w)])[
+            "interactive"]["p50_ttft_s"])
+        done += len(w)
+    eng.capture = dict(
+        source=src["step"], sources=src, captures=st["captures"],
+        replays=st["replays"], t_capture_s=st["t_capture_s"],
+        pools=len({g.graph.pool() for g in graphs}),
+        pool_bytes=_graph_pool_bytes(cache) if graphs else 0,
+        launches_in_replays=in_replays, wave_ttft_p50_s=ttft,
+        first_pool_bytes=pool_after_first[0] if pool_after_first else None)
+    print(f"[{tag}] {cfg.name}: compile sources {json.dumps(src)}"
+          + (f"; {st['captures']} captures ({st['t_capture_s']:.2f}s with "
+             f"their warm-up calls), {st['replays']} replays of "
+             f"{eng.stats['steps']} steps + {eng.stats['prefill_dispatches']}"
+             f" prefill dispatches; {eng.capture['pools']} graph pool(s) "
+             f"holding {eng.capture['pool_bytes'] / 2**20:.1f} MiB; launches "
+             f"inside replays {json.dumps(in_replays)}" if capture_step
+             else "") + f"; launches of the other kernels "
+          f"{json.dumps(others)}; TTFT p50 by wave "
+          f"{[round(t * 1e3, 1) for t in ttft]} ms")
     if capture_step:
-        check(eng.capture["source"] == "compiled" and st["captures"] == 1
-              and st["replays"] == eng.stats["steps"] - 1,
-              f"decode step not replayed from one graph: {eng.capture}")
+        want = dict(captures=1 + n_prefill,
+                    replays=eng.stats["steps"] - 1
+                    + eng.stats["prefill_dispatches"] - n_prefill)
+        check(set(src.values()) == {"compiled"} and n_prefill > 0
+              and st["captures"] == want["captures"]
+              and st["replays"] == want["replays"],
+              f"[{tag}] executables not each captured once and replayed "
+              f"after: {eng.capture}, expected {want}")
+        # the step and the prefills bind the same weights and caches
+        check(eng.capture["pools"] == 1, f"[{tag}] {eng.capture['pools']} "
+              "graph pools for one engine")
+    else:
+        check(set(src.values()) == {"eager"}, f"[{tag}] sources {src}")
     check(not any(others.values()), f"other kernels launched: {others}")
     check(all(r.done and len(r.out) == r.max_new for w in waves for r in w),
           "a request did not finish")
@@ -1418,14 +1459,19 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
 
 
 def serve_numbers(eng, wave, launches):
+    """A wave's numbers, from its own requests: TTFT and TPOT p50, and its
+    wall from the first enqueue to the last finish."""
     from repro_torch.core.telemetry import class_summary
     st = eng.stats
-    summ = class_summary(eng.records[-len(wave):])["interactive"]
+    summ = class_summary([r.record() for r in wave])["interactive"]
     n_tok = sum(len(r.out) for r in wave)
+    wall = (max(r.t_done for r in wave)
+            - min(r.t_enqueue for r in wave))
     return dict(launches=launches, ttft_p50_s=summ["p50_ttft_s"],
-                tpot_p50_s=summ["p50_tpot_s"], wall_s=st["wall_s"],
-                tokens=n_tok, tokens_per_s=n_tok / st["wall_s"],
+                tpot_p50_s=summ["p50_tpot_s"], wall_s=wall,
+                tokens=n_tok, tokens_per_s=n_tok / wall,
                 peak_bytes=torch.cuda.max_memory_allocated(),
+                peak_reserved_bytes=torch.cuda.max_memory_reserved(),
                 prefix_hits=st.get("prefix_hits", 0), steps=st["steps"],
                 prefill_dispatches=st["prefill_dispatches"],
                 step=getattr(eng, "capture", None))
@@ -1436,7 +1482,8 @@ def print_serve(tag, wave, out, card):
           f"{out['wall_s']:.3f}s: TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms, "
           f"TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} ms, "
           f"{out['tokens_per_s']:.1f} tokens/s; peak memory "
-          f"{out['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB allocated, "
+          f"{out['peak_reserved_bytes'] / 2**30:.2f} GiB reserved; "
           + ("" if "fixed" in tag else "pool check clean; ")
           + f"all logits finite; on {card}")
 
@@ -1446,6 +1493,85 @@ def greedy(logits):
     top2 = torch.topk(logits, 2, dim=-1)[0]
     return (logits.argmax(-1).cpu().numpy(),
             (top2[..., 0] - top2[..., 1]).cpu().numpy())
+
+def print_replayed_wave(tag, eng, first, again, launches):
+    """The same wave served again on the same engine, where every prefill
+    shape the first wave captured is replayed: its TTFT, TPOT and tokens
+    a second beside the first wave's (the phase's numbers), and the gate
+    that its tokens equal the first wave's."""
+    a, b = (serve_numbers(eng, w, launches) for w in (first, again))
+    same = ([list(map(int, r.out)) for r in first]
+            == [list(map(int, r.out)) for r in again])
+    print(f"[{tag}] the wave again, every prefill replayed: TTFT p50 "
+          f"{b['ttft_p50_s'] * 1e3:.1f} ms (first wave, capturing: "
+          f"{a['ttft_p50_s'] * 1e3:.1f}), TPOT p50 "
+          f"{b['tpot_p50_s'] * 1e3:.2f} ms ({a['tpot_p50_s'] * 1e3:.2f}), "
+          f"{b['tokens_per_s']:.1f} tokens/s ({a['tokens_per_s']:.1f}); "
+          f"tokens equal to the first wave's: {same}")
+    check(same, f"[{tag}] the replayed wave's tokens differ from the first "
+          "wave's")
+    return dict(ttft_p50_s=b["ttft_p50_s"], tpot_p50_s=b["tpot_p50_s"],
+                tokens_per_s=b["tokens_per_s"], wall_s=b["wall_s"])
+
+
+def phase_varied_lengths(cfg, params, kernel_fn, tag, lengths, engine,
+                         card, capacity=1024, **kw):
+    """One wave of prompts whose lengths are all distinct and new to the
+    engine (``lengths``, 4 new tokens each), on a fresh engine whose
+    executables are captured and on one run eagerly, one after the other:
+    the traffic where an exact-length key (the fixed engine's
+    ``prefill_s{S}``, an SSM config's exact-length groups) never replays,
+    so every dispatch pays its warm-up and capture. Prints each engine's
+    TTFT p50, the captures and the graph pool's bytes; gates the tokens
+    equal, one key a length, one pool, and the pool's growth past the
+    first length below one length's KV rings (a graph that kept its
+    rings would add one set a length)."""
+    from repro_torch.models.lm import cache_init
+    from repro_torch.serve.engine import Request
+    from torch.utils import _pytree as pytree
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, cfg.vocab, n) for n in lengths]
+    res = {}
+    for capture in (True, False):
+        wave = [Request(rid=i, prompt=p, max_new=4)
+                for i, p in enumerate(prompts)]
+        eng, _ = run_serve(cfg, params, [wave], kernel_fn,
+                           tag=f"{tag}-{'graph' if capture else 'eager'}",
+                           capture_step=capture, engine=engine, slots=4,
+                           capacity=capacity, first_pool=True, **kw)
+        res[capture] = dict(serve_numbers(eng, wave, 0),
+                            outs=[list(map(int, r.out)) for r in wave])
+        res[capture]["capture"] = res[capture].pop("step")
+    g, e = res[True], res[False]
+    keys = {k for k in g["capture"]["sources"] if k != "step"}
+    ring = (sum(x.numel() * x.element_size() for x in pytree.tree_leaves(
+        cache_init(cfg, 1, capacity, "meta"))) if engine == "fixed" else None)
+    print(f"[{tag}] {cfg.name}, {engine} engine, one wave of {len(lengths)} "
+          f"prompt lengths never seen before {list(lengths)}: TTFT p50 "
+          f"{g['ttft_p50_s'] * 1e3:.1f} ms captured on first use vs "
+          f"{e['ttft_p50_s'] * 1e3:.1f} ms eager (one run), TPOT p50 "
+          f"{g['tpot_p50_s'] * 1e3:.2f} vs {e['tpot_p50_s'] * 1e3:.2f} ms; "
+          f"{len(keys)} prefill keys, {g['capture']['captures']} captures "
+          f"({g['capture']['t_capture_s']:.2f}s with their warm-up calls); "
+          f"{g['capture']['pools']} graph pool, "
+          f"{g['capture']['pool_bytes'] / 2**20:.1f} MiB ("
+          f"{g['capture']['first_pool_bytes'] / 2**20:.1f} after the first "
+          f"length)"
+          + (f" (one length's rings: {ring / 2**20:.1f} MiB)" if ring else "")
+          + f"; tokens equal {g['outs'] == e['outs']}; on {card}")
+    check(g["outs"] == e["outs"], f"[{tag}] captured tokens differ from "
+          "eager's")
+    check(len(keys) == g["capture"]["captures"] - 1
+          and g["capture"]["pools"] == 1,
+          f"[{tag}] keys {sorted(keys)}, {g['capture']}")
+    if ring:
+        check(g["capture"]["pool_bytes"] < g["capture"]["first_pool_bytes"]
+              + ring, f"[{tag}] the pool grew past one length's rings: "
+              f"{g['capture']}")
+    return dict(graph={k: v for k, v in g.items() if k != "outs"},
+                eager={k: v for k, v in e.items() if k != "outs"},
+                lengths=list(lengths), ring_bytes=ring)
+
 
 def serve_traffic(cfg):
     """``[serve]``'s two waves: a 64-token system prompt, then 8 requests
@@ -1737,7 +1863,8 @@ def _dist_run(name, be, x, want, name_card):
 
 def _graph_pool_bytes(cache) -> int:
     """Bytes the card holds reserved for the graphs of ``cache``: the
-    segments of their private memory pools."""
+    segments of their memory pools (one pool for every graph of a binding,
+    ``CompileCache.pools``)."""
     pools = {g.graph.pool() for exe in cache._mem.values()
              for g in getattr(exe, "graphs", {}).values()}
     return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
@@ -1975,18 +2102,21 @@ def phase_dist(card, counters, launch):
 
 
 def phase_dist_serve(cfg, params, ssd_scan, card, ssm):
-    """``[serve-ssm]``'s wave again with ``PagedServeEngine(backend=<a
-    2-node DistributedBackend>)``: the engine compiles its decode step
-    through the fabric's driver-side cache and replays it there, so the
-    SSD kernel stays on the path. Gates: the tokens equal
-    ``[serve-ssm]``'s, as many SSD launches, every one on ``tc``."""
+    """``[serve-ssm]``'s two waves again with ``PagedServeEngine(backend=<a
+    2-node DistributedBackend>)``: the engine compiles its decode step and
+    prefills through the fabric's driver-side cache and replays them
+    there, so the SSD kernel stays on the path. Gates: the tokens equal
+    ``[serve-ssm]``'s, as many SSD launches, every one on ``tc``. The
+    first wave gives the phase's numbers, the replayed one a line of its
+    own."""
     from repro_torch.core.compile_cache import CompileCache
     from repro_torch.dist import DistributedBackend
-    wave = ssm_wave(cfg)
+    waves = [ssm_wave(cfg), ssm_wave(cfg)]
+    wave = waves[0]
     fabric = DistributedBackend(n_nodes=2, device=DEV, cache=CompileCache(),
                                 heartbeat_timeout_s=5.0)
     try:
-        eng, launches = run_serve(cfg, params, [wave], ssd_scan,
+        eng, launches = run_serve(cfg, params, waves, ssd_scan,
                                   tag="dist-serve", slots=4, capacity=1024,
                                   page_size=16, kernel="auto",
                                   backend=fabric)
@@ -2007,6 +2137,8 @@ def phase_dist_serve(cfg, params, ssd_scan, card, ssm):
     out = serve_numbers(eng, wave, launches)
     out["routes"] = routes
     print_serve("dist-serve", wave, out, card)
+    out["replayed_wave"] = print_replayed_wave("dist-serve", eng, *waves,
+                                               launches)
     return out
 
 
@@ -2146,24 +2278,46 @@ def phase_wine(card, counters):
 
 
 def phase_serve_graph(cfg, params, paged_attention, card, eager):
-    """``[serve]``'s traffic again with the decode step captured (one graph
-    for the run, replayed every step): every replayed step counted on the
-    split route, its numbers beside the eager ``[serve]`` reading of the
-    same run, its tokens beside ``[serve]``'s, and the gate: a lockstep of
-    the captured step against eager ``paged_decode_step`` calls."""
+    """``[serve]``'s traffic again with every executable of the engine
+    captured (the decode step and the three prefill keys: ``prefill_b4_s64``
+    for the system prompt, ``warm_s64`` for the prefix hits,
+    ``prefill_b4_s128`` for the fresh prompts; each captured on its first
+    use, replayed after): every launch counted on the routes of the eager
+    ``[serve]``, its numbers and each wave's TTFT beside ``[serve]``'s of the
+    same run, its tokens equal to ``[serve]``'s up to the first near-tie,
+    and the gates: lockstep of the captured step, and of the captured
+    prefills (``[lockstep-prefill]``), against eager calls."""
     out = phase_serve(cfg, params, paged_attention, card, tag="serve-graph")
+    first, wave = serve_traffic(cfg)
+    reqs = first + wave
     same = sum(a == b for x, y in zip(out["outs"], eager["outs"])
                for a, b in zip(x, y))
     total = sum(len(x) for x in out["outs"])
-    print(f"[serve-graph] {cfg.name}: graph vs eager step (one run): TTFT "
+    check(out["routes"] == eager["routes"],
+          f"[serve-graph] routes {out['routes']} against [serve]'s "
+          f"{eager['routes']}")
+    keys = {k for k in out["step"]["sources"] if k != "step"}
+    check(keys == {"prefill_b4_s64", "warm_s64", "prefill_b4_s128"},
+          f"[serve-graph] prefill keys {sorted(keys)}")
+    n_req, n_tok = equal_up_to_near_tie(cfg, params, reqs, out["outs"],
+                                        eager["outs"], 512, "serve-graph",
+                                        "serve")
+    ttft = out["step"]["wave_ttft_p50_s"]
+    ttft_eager = eager["step"]["wave_ttft_p50_s"]
+    print(f"[serve-graph] {cfg.name}: graphs vs eager engine (one run): TTFT "
           f"p50 {out['ttft_p50_s'] * 1e3:.1f} vs "
-          f"{eager['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{eager['ttft_p50_s'] * 1e3:.1f} ms (first wave, the system "
+          f"prompt: {ttft[0] * 1e3:.1f} vs {ttft_eager[0] * 1e3:.1f}; second "
+          f"wave: {ttft[1] * 1e3:.1f} vs {ttft_eager[1] * 1e3:.1f}), TPOT p50 "
           f"{out['tpot_p50_s'] * 1e3:.2f} vs {eager['tpot_p50_s'] * 1e3:.2f} "
           f"ms, {out['tokens_per_s']:.1f} vs {eager['tokens_per_s']:.1f} "
-          f"tokens/s; capture {out['step']['t_capture_s']:.2f}s (with its "
-          f"warm-up step); peak memory {out['peak_bytes'] / 2**30:.2f} vs "
+          f"tokens/s; captures {out['step']['t_capture_s']:.2f}s (with their "
+          f"warm-up calls); graph pools {out['step']['pools']}, "
+          f"{out['step']['pool_bytes'] / 2**20:.1f} MiB; peak memory "
+          f"{out['peak_bytes'] / 2**30:.2f} vs "
           f"{eager['peak_bytes'] / 2**30:.2f} GiB; served tokens equal to "
-          f"[serve]'s at {same}/{total}")
+          f"[serve]'s at {same}/{total} ({n_req}/{len(reqs)} requests whole; "
+          f"any difference only after a near-tie)")
     out["tokens_equal_to_eager_serve"] = [same, total]
     out["lockstep"] = phase_lockstep(cfg, params, tag="lockstep-graph",
                                      graph=True)
@@ -2411,9 +2565,6 @@ def phase_serve_obs(cfg, params, paged_attention, card, graph):
     occ = snap["serve.pool_occupancy"]
     check(0.0 <= occ <= 1.0, f"[serve-obs] occupancy {occ}")
     cap = eng.capture
-    check(cap["source"] in ("compiled", "memory")
-          and cap["replays"] == st["steps"] - 1,
-          f"[serve-obs] the step is not one graph replayed: {cap}")
     out = serve_numbers(eng, wave, launches)
     out.update(routes=routes, histogram_counts=hists, counters=counters,
                pool_occupancy_last=occ,
@@ -2427,8 +2578,9 @@ def phase_serve_obs(cfg, params, paged_attention, card, graph):
           f"registry on vs {graph['tpot_p50_s'] * 1e3:.2f} ms off "
           f"([serve-graph], same traffic, one run); TTFT p50 "
           f"{out['ttft_p50_s'] * 1e3:.1f} vs {graph['ttft_p50_s'] * 1e3:.1f} "
-          f"ms; step {cap['source']}, {cap['replays']} replays of "
-          f"{st['steps']} steps; on {card}")
+          f"ms; {cap['captures']} captures (step and prefills), "
+          f"{cap['replays']} replays of {st['steps']} steps + "
+          f"{st['prefill_dispatches']} prefill dispatches; on {card}")
     return out
 
 
@@ -2644,10 +2796,13 @@ def ssm_wave(cfg):
 
 
 def phase_serve_ssm(cfg, params, ssd_scan, card):
-    """mamba2 at full width on ``ssm_wave``: exact-length groups put each
-    length in one prefill dispatch of 4 slots."""
-    wave = ssm_wave(cfg)
-    eng, launches = run_serve(cfg, params, [wave], ssd_scan, tag="serve-ssm",
+    """mamba2 at full width on ``ssm_wave`` served twice: exact-length
+    groups put each length in one prefill dispatch of 4 slots; the first
+    wave captures each length's prefill and gives the phase's numbers,
+    the second replays it (its tokens equal the first's; its numbers on a
+    line of their own)."""
+    waves = [ssm_wave(cfg), ssm_wave(cfg)]
+    eng, launches = run_serve(cfg, params, waves, ssd_scan, tag="serve-ssm",
                               slots=4,
                               capacity=1024, page_size=16, kernel="auto")
     st = eng.stats
@@ -2663,10 +2818,12 @@ def phase_serve_ssm(cfg, params, ssd_scan, card):
     check(routes["tc"] == launches,
           f"ssd_scan: {launches} launches, {routes['tc']} on the tc route")
     check(st["prefix_hits"] == 0, "an SSM config shared a prefix")
-    out = serve_numbers(eng, wave, launches)
+    out = serve_numbers(eng, waves[0], launches)
     out["routes"] = routes
-    out["outs"] = [list(map(int, r.out)) for r in wave]
-    print_serve("serve-ssm", wave, out, card)
+    out["outs"] = [list(map(int, r.out)) for r in waves[0]]
+    print_serve("serve-ssm", waves[0], out, card)
+    out["replayed_wave"] = print_replayed_wave("serve-ssm", eng, *waves,
+                                               launches)
     return out
 
 
@@ -2706,15 +2863,20 @@ def phase_serve_int8(cfg, params, ssd_scan, card):
     """zamba2-7b at full width with its int8 KV cache: 4 slots of 1,024
     rows, prompts of 512, 512, 256 and 192 tokens, 16 generated each (an
     SSM prompt past one 256-token chunk must fill whole chunks: the SSD
-    scan asserts it in both packages). Exact-length prefill groups; every
-    SSD-scan launch on tc; quantized
+    scan asserts it in both packages), served twice: the first wave gives
+    the phase's numbers, the second replays every prefill the first
+    captured (a line of its own). Exact-length prefill groups; every
+    SSD-scan launch on tc;
+    quantized
     pool leaves take the gather route (the paged kernel does not
     dequantize, as in the reference), so no paged launch."""
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(8)
-    wave = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, n), max_new=16)
-            for i, n in enumerate((512, 512, 256, 192))]
-    eng, launches = run_serve(cfg, params, [wave], ssd_scan, tag="serve-int8",
+    prompts = [rng.integers(1, cfg.vocab, n) for n in (512, 512, 256, 192)]
+    waves = [[Request(rid=i, prompt=p, max_new=16)
+              for i, p in enumerate(prompts)] for _ in range(2)]
+    wave = waves[0]
+    eng, launches = run_serve(cfg, params, waves, ssd_scan, tag="serve-int8",
                               slots=4, capacity=1024, page_size=16,
                               kernel="auto")
     st = eng.stats
@@ -2740,7 +2902,15 @@ def phase_serve_int8(cfg, params, ssd_scan, card):
     out = serve_numbers(eng, wave, launches)
     out["routes"] = routes
     print_serve("serve-int8", wave, out, card)
+    out["replayed_wave"] = print_replayed_wave("serve-int8", eng, *waves,
+                                               launches)
     return out
+
+
+def _ssm_leaves(pool):
+    """Every SSM leaf of a pool (conv and state, slot-dense)."""
+    return [x for gtree in pool for btree in gtree.values() if "ssm" in btree
+            for x in btree["ssm"].values()]
 
 
 def _ssm_state(pool):
@@ -3026,57 +3196,220 @@ def _profile_steps(cfg, params, steps, S, tag, moe):
     return out
 
 
-def phase_profile_prefill(cfg, params, B=4, S=512, tag="profile-ssm"):
+def phase_profile_prefill(cfg, params, B=4, S=512, tag="profile-ssm",
+                          kernel="ssd_scan", more_slots=None):
     """Where one full-width prefill dispatch's time goes (B prompts of S
-    tokens, the engine's SSM prefill: every layer's scan through the SSD
-    kernel): ``torch.profiler`` over one dispatch after a warm-up one, each
-    into a fresh pool; host wall, device busy, kernel count, and the SSD
-    kernels' device time and share of the busy time."""
-    from torch.profiler import ProfilerActivity, profile
+    tokens through the engine's batched prefill, ``paged_prefill`` on kernel
+    "paged"), run eagerly and replayed from its captured graph:
+    ``torch.profiler`` over two dispatches after two warm-up ones (the
+    graph's first is its capture), each dispatch ending where the engine
+    reads its first tokens; host wall, device busy and its share, kernels
+    and host launch calls a dispatch, and the device time and share of the
+    kernels named ``kernel`` (the SSD scan for an SSM config, the paged
+    attention kernels otherwise), which must launch once a layer. With
+    ``more_slots``, the replayed dispatch again into a pool of that many
+    slots (B rows still written): its host wall, busy time and graph pool
+    bytes beside the B-slot pool's, since the SSM state it writes is
+    slot-dense."""
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
     from repro_torch.models.lm import paged_cache_init, paged_prefill
-    tables = torch.full((B, 1), -1, dtype=torch.int32, device=DEV)
+    ps = 16
+    npps = -(-S // ps)
+    tables = torch.arange(B * npps, dtype=torch.int32,
+                          device=DEV).reshape(B, npps)
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         1, cfg.vocab, (B, S)).astype(np.int32)).to(DEV)
     lens = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    sids = torch.arange(B, dtype=torch.int32, device=DEV)
+    pool = paged_cache_init(cfg, B, B * npps, ps, DEV)
 
-    def dispatch(pool):
-        lg, _ = paged_prefill(params, pool, tables, toks, lens, cfg,
-                              slot_ids=list(range(B)), kernel="paged")
-        return torch.argmax(lg[:, 0], -1).cpu()  # the engine reads a token
+    def prefill_fn(p, kv, tb, tt, ln, sd):
+        return paged_prefill(p, kv, tb, tt, ln, cfg, slot_ids=sd,
+                             kernel="paged")[0]
 
-    dispatch(paged_cache_init(cfg, B, 1, 16, DEV))      # warm-up
-    pool = paged_cache_init(cfg, B, 1, 16, DEV)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        dispatch(pool)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0 and e.device_type.name == "CUDA":
-            kern[e.key] = (dev_us / 1e3, e.count)
-    busy = sum(ms for ms, _ in kern.values())
-    n_kernels = sum(n for _, n in kern.values())
-    ssd = {n: v for n, v in kern.items() if "ssd_scan" in n}
-    ssd_ms = sum(ms for ms, _ in ssd.values())
-    ssd_n = sum(n for _, n in ssd.values())
-    print(f"[{tag}] {cfg.name} prefill dispatch at full width ({B} prompts "
-          f"of {S} tokens, kernel paged): host wall {wall * 1e3:.2f} ms, "
-          f"device busy {busy:.2f} ms ({busy / (wall * 1e3):.1%}), "
-          f"{n_kernels} kernels")
-    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"[{tag}]   {ms:8.3f} ms {n:6d}x  {name[:90]}")
-    check(busy > 0 and ssd_n == cfg.n_layers,
-          f"prefill profile: busy {busy} ms, {ssd_n} SSD launches")
-    print(f"[{tag}] SSD-scan kernels: {ssd_ms:.3f} ms of device time in "
-          f"{ssd_n} launches, {ssd_ms / busy:.1%} of the dispatch's busy "
-          f"time")
-    return dict(wall_ms=wall * 1e3, busy_ms=busy, kernels=n_kernels,
-                ssd_ms=ssd_ms, ssd_launches=ssd_n, ssd_share=ssd_ms / busy)
+    caches = [CompileCache()]
+    graph, _ = ArrayBackend(cache=caches[0]).compile(
+        prefill_fn, (params, pool, tables, toks, lens, sids),
+        bind_argnums=(0, 1))
+    out, layers = {}, cfg.n_layers
+    if kernel == "ssd_scan":
+        layers = sum(1 for g in cfg.groups for b in g.pattern
+                     if b.ssm is not None for _ in range(g.repeats))
+    for mode, fn in (("eager", prefill_fn), ("graph", graph)):
+        def dispatch():
+            lg = fn(params, pool, tables, toks, lens, sids)
+            torch.argmax(lg[:, 0], -1).cpu()   # the engine reads the tokens
+        dispatch()
+        dispatch()
+        wall, kern, host, _ = _profile(dispatch, 2)
+        busy = sum(ms for ms, _ in kern.values())
+        n_kernels = sum(n for _, n in kern.values())
+        named = {n: v for n, v in kern.items() if kernel in n
+                 and "combine" not in n}
+        k_ms = sum(ms for ms, _ in named.values())
+        k_n = sum(n for _, n in named.values())
+        print(f"[{tag}] {cfg.name} prefill dispatch at full width ({B} "
+              f"prompts of {S} tokens, kernel paged), {mode}: host wall "
+              f"{wall * 1e3:.2f} ms, device busy {busy:.2f} ms "
+              f"({busy / (wall * 1e3):.1%}), {n_kernels:.0f} kernels and "
+              f"{host:.0f} host launch calls a dispatch; {kernel} kernels "
+              f"{k_ms:.3f} ms in {k_n:.0f} launches ({k_ms / busy:.1%} of "
+              f"busy)" if busy else
+              f"[{tag}] {cfg.name} prefill dispatch, {mode}: host wall "
+              f"{wall * 1e3:.2f} ms; the profiler saw no kernel: busy not "
+              f"measured")
+        if mode == "eager":
+            for name, (ms, n) in sorted(kern.items(),
+                                        key=lambda kv: -kv[1][0])[:6]:
+                print(f"[{tag}]   {ms:8.3f} ms {n:6.0f}x  {name[:90]}")
+            check(busy > 0 and k_n == layers,
+                  f"[{tag}] prefill profile: busy {busy} ms, {k_n} {kernel} "
+                  f"launches for {layers} layers")
+        out[mode] = dict(wall_ms=wall * 1e3, busy_ms=busy,
+                         kernels=n_kernels, host_launch_calls=host,
+                         kernel_ms=k_ms, kernel_launches=k_n,
+                         kernel_share=k_ms / busy if busy else None)
+    check(graph.replays == 3, f"[{tag}] the prefill graph replayed "
+          f"{graph.replays} times")
+    e, g = out["eager"], out["graph"]
+    print(f"[{tag}] replayed vs eager prefill dispatch: host wall "
+          f"{g['wall_ms']:.2f} vs {e['wall_ms']:.2f} ms, device busy "
+          f"{g['busy_ms']:.2f} vs {e['busy_ms']:.2f} ms, host launch calls "
+          f"{g['host_launch_calls']:.0f} vs {e['host_launch_calls']:.0f} a "
+          f"dispatch")
+    g["pool_bytes"] = _graph_pool_bytes(caches[0])
+    if more_slots:
+        del pool
+        torch.cuda.empty_cache()
+        big = paged_cache_init(cfg, more_slots, B * npps, ps, DEV)
+        caches.append(CompileCache())
+        exe, _ = ArrayBackend(cache=caches[1]).compile(
+            prefill_fn, (params, big, tables, toks, lens, sids),
+            bind_argnums=(0, 1))
+
+        def dispatch():
+            lg = exe(params, big, tables, toks, lens, sids)
+            torch.argmax(lg[:, 0], -1).cpu()
+        dispatch()
+        dispatch()
+        wall, kern, host, _ = _profile(dispatch, 2)
+        busy = sum(ms for ms, _ in kern.values())
+        state = sum(x.numel() * x.element_size() for x in _ssm_leaves(big))
+        out[f"graph_{more_slots}_slots"] = m = dict(
+            wall_ms=wall * 1e3, busy_ms=busy,
+            pool_bytes=_graph_pool_bytes(caches[1]), state_bytes=state)
+        print(f"[{tag}] the replayed dispatch into {more_slots} slots "
+              f"(SSM state {state / 2**30:.2f} GiB) vs {B}: host wall "
+              f"{m['wall_ms']:.2f} vs {g['wall_ms']:.2f} ms, device busy "
+              f"{busy:.2f} vs {g['busy_ms']:.2f} ms, graph pool "
+              f"{m['pool_bytes'] / 2**20:.1f} vs "
+              f"{g['pool_bytes'] / 2**20:.1f} MiB")
+        check(m["pool_bytes"] < g["pool_bytes"] + state / more_slots * B,
+              f"[{tag}] the {more_slots}-slot dispatch's pool grew with "
+              f"the slots: {m}")
+        del big
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lockstep_prefill(cfg, params, shapes, npps=32, pool_pages=128,
+                           tag="lockstep-prefill"):
+    """The engine's own prefill executables (``PagedServeEngine.
+    _prefill_exec`` / ``_warm_exec``, kernel "paged"), captured with one
+    set of tables, slot ids, lengths (and ``starts``) and replayed with
+    others, the two ``shapes`` alternating in the engine's one graph pool:
+    every call's logits and every pool leaf (KV pages and positions, SSM
+    state) bit-equal to the same function run eagerly on a twin pool, and
+    the kernels' launches counted alike. The same kernels run on the same
+    inputs, so any difference is a fault. A batched call's last row is a
+    dummy (table -1, slot id out of range) on every other call."""
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.lm import paged_cache_init
+    from repro_torch.serve.engine import PagedServeEngine
+    from torch.utils import _pytree as pytree
+    slots, ps = 4, 16
+    cache = CompileCache()
+    eng = PagedServeEngine(cfg, params, slots=slots, page_size=ps,
+                           pages_per_slot=npps, pool_pages=pool_pages,
+                           kernel="paged", device=DEV,
+                           backend=ArrayBackend(cache=cache, device=DEV))
+    twin = paged_cache_init(cfg, slots, pool_pages, ps, DEV)
+    exact = not eng._pad_safe
+    r = np.random.default_rng(4)
+
+    def inputs(kind, B, S, call):
+        real = B - (call // 2 % 2 if B > 1 else 0)
+        starts = (r.integers(1, (npps * ps - S) // 2, B) if kind == "warm"
+                  else np.zeros(B, np.int64))
+        lens = (np.full(B, S) if exact or kind == "warm"
+                else r.integers(S // 2 + 1, S + 1, B))
+        tables = np.full((B, npps), -1, np.int32)
+        pages = r.permutation(pool_pages)
+        sids = np.full(B, slots, np.int32)
+        sids[:real] = r.permutation(slots)[:real]
+        used = 0
+        for b in range(real):
+            n = -(-(int(starts[b]) + S) // ps)
+            tables[b, :n] = pages[used:used + n]
+            used += n
+        toks = r.integers(1, cfg.vocab, (B, S))
+        args = [tables, toks, lens, sids] + ([starts] if kind == "warm"
+                                            else [])
+        return [torch.from_numpy(np.asarray(a, np.int32)).to(DEV)
+                for a in args]
+
+    def counts():
+        return (paged_attention.launches, ssd_scan.launches)
+
+    rows = []
+    for call in range(6):
+        kind, B, S = shapes[call % 2]
+        exe = eng._warm_exec(S) if kind == "warm" else eng._prefill_exec(B, S)
+        ints = inputs(kind, B, S, call)
+        c0 = counts()
+        eager = exe.fn(params, twin, *ints)
+        c1 = counts()
+        replays = cache.stats["replays"]
+        graph = exe(params, eng.kv, *ints).clone()
+        c2 = counts()
+        same_logits = bool(torch.equal(eager, graph))
+        diff = [i for i, (a, b) in enumerate(zip(pytree.tree_leaves(twin),
+                                                 pytree.tree_leaves(eng.kv)))
+                if not torch.equal(a, b)]
+        how = "replay" if cache.stats["replays"] > replays else "capture"
+        launches = tuple(b - a for a, b in zip(c1, c2))
+        rows.append(dict(kind=kind, B=B, S=S, call=how,
+                         real_rows=int((ints[3] < slots).sum()),
+                         logits_equal=same_logits, pool_leaves_differ=diff,
+                         launches=launches))
+        print(f"[{tag}] {cfg.name} call {call} {kind} {B} x {S} ({how}, "
+              f"{rows[-1]['real_rows']} real rows): logits bit-equal "
+              f"{same_logits}, pool leaves differing {len(diff)}, launches "
+              f"(paged, ssd) {launches} against eager "
+              f"{tuple(b - a for a, b in zip(c0, c1))}")
+        check(same_logits and not diff,
+              f"[{tag}] call {call}: replayed prefill differs from eager "
+              f"(logits equal {same_logits}, pool leaves {diff})")
+        check(launches == tuple(b - a for a, b in zip(c0, c1)),
+              f"[{tag}] call {call}: launches {launches} against eager's")
+    graphs = [g for exe in cache._mem.values()
+              for g in getattr(exe, "graphs", {}).values()]
+    pools = {g.graph.pool() for g in graphs}
+    check(cache.stats["captures"] == 2 and cache.stats["replays"] == 4
+          and len(pools) == 1,
+          f"[{tag}] {cache.stats['captures']} captures, "
+          f"{cache.stats['replays']} replays, {len(pools)} pools")
+    pool_bytes = _graph_pool_bytes(cache)
+    inputs_named = "tables, slot ids, lengths" + (
+        " and starts" if any(kind == "warm" for kind, _, _ in shapes) else "")
+    print(f"[{tag}] {cfg.name}: 2 shapes captured into one graph pool "
+          f"({pool_bytes / 2**20:.1f} MiB) and replayed 4 times with new "
+          f"{inputs_named}: every call bit-equal to eager; ok")
+    return dict(calls=rows, pool_bytes=pool_bytes)
 
 
 def draw(cfg, init_params, tag, note=""):
@@ -4156,13 +4489,24 @@ def main() -> int:
     graph = phase_serve_graph(cfg, params, paged_attention, card, srv)
     print(f"[serve-graph] phase wall {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    graph["lockstep_prefill"] = phase_lockstep_prefill(
+        cfg, params, (("batched", 4, 128), ("warm", 1, 64)))
+    print(f"[lockstep-prefill] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     obs = phase_serve_obs(cfg, params, paged_attention, card, graph)
     print(f"[serve-obs] phase wall {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     fixed = phase_serve_fixed(cfg, params, card, graph)
     print(f"[serve-fixed] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    fixed["varied_lengths"] = phase_varied_lengths(
+        cfg, params, None, "serve-fixed-varied",
+        (211, 97, 150, 113, 178, 131, 196, 160), "fixed", card, capacity=512)
+    print(f"[serve-fixed-varied] phase wall {time.perf_counter() - t0:.1f}s")
     srv["lockstep"] = phase_lockstep(cfg, params)
     srv["profile"] = phase_profile(cfg, params)
+    srv["prefill_profile"] = phase_profile_prefill(
+        cfg, params, S=128, tag="profile", kernel="paged")
     blocked = phase_blocked(cfg, params, card)
     del params
     torch.cuda.empty_cache()
@@ -4187,10 +4531,19 @@ def main() -> int:
     t0 = time.perf_counter()
     fixed_ssm = phase_serve_fixed_ssm(cfg, params, ssd_scan, card, ssm)
     print(f"[serve-fixed-ssm] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ssm["varied_lengths"] = phase_varied_lengths(
+        cfg, params, ssd_scan, "serve-ssm-varied",
+        (80, 112, 144, 176, 208, 240, 256, 768), "paged", card,
+        capacity=1024, page_size=16, kernel="auto")
+    print(f"[serve-ssm-varied] phase wall {time.perf_counter() - t0:.1f}s")
     ssm.pop("outs")
     ssm["lockstep"] = phase_lockstep_ssm(cfg, params)
     ssm["profile"] = phase_profile(cfg, params, S=512, tag="profile-ssm")
-    ssm["prefill_profile"] = phase_profile_prefill(cfg, params)
+    ssm["prefill_profile"] = phase_profile_prefill(cfg, params,
+                                                   more_slots=64)
+    ssm["lockstep_prefill"] = phase_lockstep_prefill(
+        cfg, params, (("batched", 4, 512), ("batched", 4, 192)))
     del params
     torch.cuda.empty_cache()
 
@@ -4297,6 +4650,9 @@ def main() -> int:
         "launches_by_phase": {n: r["launches"]
                               for n, r in paged_phases.items()},
         "routes_by_phase": {n: r["routes"] for n, r in paged_phases.items()},
+        "launches_in_replays_by_phase": {
+            n: r["step"]["launches_in_replays"]["paged_attention"]
+            for n, r in paged_phases.items()},
         "max_abs_err": max(r["max_abs_err"] for r in (
             *rec.values(), *rec_family.values(), *rec_mla.values())),
         "ms": dec["ms"], "device_ms": dec["device_ms"],
@@ -4336,6 +4692,11 @@ def main() -> int:
                 wine["launches"]["ssd_scan"],
             "pipeline (bf16, 4 stages x 4 microbatches)":
                 pipe["mamba2-1.3b"]["ssd_routes"]["bfloat16 pipeline"]["tc"]},
+        "launches_in_replays_by_phase": {
+            n: r["step"]["launches_in_replays"]["ssd_scan"]
+            for n, r in (("serve-ssm", ssm), ("dist-serve", dist_serve),
+                         ("serve-fixed-ssm", fixed_ssm),
+                         ("serve-int8", int8))},
         "train_launches_a_step": {
             m: [r["ssd_scan"] for r in train_ssm[m]["launches_a_step"]]
             for m in ("eager", "replayed")},

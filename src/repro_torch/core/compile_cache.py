@@ -12,9 +12,10 @@ whole recorded kernel sequence.
     context, with sampled VALUES of captured tensors and arrays), the
     abstract input tree (structure, shapes, dtypes), ``extras``, a salt over
     ``repro_torch``'s own sources, and — in place of ``jax.__version__`` and
-    the backend — torch's version, its CUDA version and the device's type
-    and name. Never ``id(fn)``, which CPython reuses after garbage
-    collection;
+    the backend — torch's version, its CUDA version and the device's type,
+    name and index (two cards of one model get keys of their own: a graph
+    holds one card's addresses). Never ``id(fn)``, which CPython reuses
+    after garbage collection;
   * one memory tier. There is no disk tier: a CUDA graph holds raw device
     addresses and cannot be serialized. What the port does keep across
     processes is the nvcc-built kernel library (``kernels._build``).
@@ -40,6 +41,17 @@ binding (the bound tensors' addresses): a second engine on the same cache
 gets the cached executable (source ``"memory"``) and captures its own
 graph on its first step. Other tensor arguments get static buffers owned
 by the graph.
+
+Graphs of one cache that bind the same tensors (an engine's decode step
+and its prefill executables, one a shape, all over the same weights and
+pool) capture into ONE shared memory pool, so the number of shapes does
+not multiply the card's graph memory; a graph that binds nothing keeps a
+pool of its own (the launch backends' wave graphs, which may replay on
+several streams at once). Such graphs write the same tensors, so they
+replay one at a time on one stream, and the contract is: **an
+executable's outputs are valid until the next replay of any graph in its
+pool** (a later capture may place its outputs where an earlier graph keeps
+its temporaries). Callers consume or copy them at once.
 
 The kernels' launch counters (``paged_attention.launches`` / ``.routes``,
 ``ssd_scan``'s, ``flash_attention.launches``) count in Python, so a replay
@@ -278,8 +290,12 @@ def abstractify(tree: Any) -> Any:
 
 
 def _device_sig(device: torch.device) -> str:
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else device.type)
+    if device.type == "cuda":
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        name = f"{torch.cuda.get_device_name(index)} #{index}"
+    else:
+        name = device.type
     return f"torch {torch.__version__} cuda {torch.version.cuda} {name}"
 
 
@@ -391,18 +407,33 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
 class GraphExecutable(Executable):
     """A function captured as CUDA graphs, one per binding (see the module
     docstring). ``stream`` is the side stream its warm-ups and captures
-    run on (default: the device's shared capture stream)."""
+    run on (default: the device's shared capture stream); ``pools`` maps a
+    (device, binding) to the memory pool its graphs share (None: every
+    graph a pool of its own)."""
 
     def __init__(self, fn: Callable, signature: tuple,
                  bind_argnums: Sequence[int] = (), device=None,
                  stream: Optional["torch.cuda.Stream"] = None,
-                 stats: Optional[dict] = None):
+                 stats: Optional[dict] = None,
+                 pools: Optional[dict] = None):
         super().__init__(fn, signature)
         self.bind_argnums = tuple(bind_argnums)
         self.device = torch.device(device)
         self.stream = stream
         self.stats = stats if stats is not None else {}
+        self.pools = pools
         self.graphs: Dict[tuple, _Graph] = {}
+
+    def _pool(self, binding: tuple):
+        """The memory pool a graph of ``binding`` captures into: the one
+        its bound tensors' other graphs share, or (nothing bound, no
+        ``pools``) None, a pool of its own."""
+        if self.pools is None or not binding:
+            return None
+        key = (self.device, binding)
+        if key not in self.pools:
+            self.pools[key] = torch.cuda.graph_pool_handle()
+        return self.pools[key]
 
     def __call__(self, *args):
         per_arg = [pytree.tree_flatten(a) for a in args]
@@ -461,14 +492,15 @@ class GraphExecutable(Executable):
         for x in pytree.tree_leaves(out):
             if isinstance(x, torch.Tensor) and x.is_cuda:
                 x.record_stream(cur)
-        # the graph allocates from a pool of its own, which cannot reuse the
+        # the graph allocates from a graph pool, which cannot reuse the
         # blocks the warm-up left cached: release them first (a train
         # step's activations would otherwise be held twice)
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         before = _counts()
         with torch.cuda.stream(side):
-            graph.capture_begin(capture_error_mode="thread_local")
+            graph.capture_begin(pool=self._pool(binding),
+                                capture_error_mode="thread_local")
             try:
                 g_out = self.fn(*static_args)
             except BaseException as err:
@@ -498,15 +530,17 @@ class GraphExecutable(Executable):
 def make_executable(fn: Callable, example_args: tuple, *, device=None,
                     bind_argnums: Sequence[int] = (),
                     stream: Optional["torch.cuda.Stream"] = None,
-                    stats: Optional[dict] = None) -> Executable:
-    """A fresh executable of ``fn`` for the signature of ``example_args``,
-    outside any cache: a graph executable on the card (the default), the
-    function itself on the CPU."""
+                    stats: Optional[dict] = None,
+                    pools: Optional[dict] = None) -> Executable:
+    """A fresh executable of ``fn`` for the signature of ``example_args``:
+    a graph executable on the card (the default), the function itself on
+    the CPU. ``pools`` is the cache's map of shared graph pools (None:
+    outside any cache, a pool a graph)."""
     dev = resolve_device(device)
     sig = _signature(tuple(example_args))
     if dev.type == "cuda":
         return GraphExecutable(fn, sig, bind_argnums, dev, stream=stream,
-                               stats=stats)
+                               stats=stats, pools=pools)
     return Executable(fn, sig)
 
 
@@ -540,11 +574,13 @@ class LazyGraph:
 class CompileCache:
     """A memory tier of executables keyed by content fingerprint (no disk
     tier: see the module docstring). ``stats`` counts hits and misses and,
-    for the graphs of its executables, captures and replays."""
+    for the graphs of its executables, captures and replays; ``pools``
+    holds the memory pool each binding's graphs share."""
 
     def __init__(self):
         self._mem: dict = {}
         self._lock = threading.Lock()
+        self.pools: dict = {}
         self.stats = {"mem_hits": 0, "misses": 0, "captures": 0,
                       "replays": 0, "t_capture_s": 0.0}
 
@@ -583,7 +619,7 @@ class CompileCache:
             return exe, source
         exe = make_executable(fn, tuple(example_args), device=dev,
                               bind_argnums=bind_argnums, stream=stream,
-                              stats=self.stats)
+                              stats=self.stats, pools=self.pools)
         self.put(key, exe)
         return exe, "compiled"
 

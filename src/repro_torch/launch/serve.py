@@ -62,7 +62,8 @@ def serve(cfg: ModelConfig, params: dict, waves: Sequence[List[Request]], *,
     (``ServeEngine`` with ``slots`` rings of ``capacity`` rows; the paged
     engine's options do not apply to it). ``backend`` (default: a new
     ``ArrayBackend`` on ``device`` over the process-wide cache) compiles
-    the decode step; ``capture_step=False`` runs it eagerly."""
+    every executable of the engine (the decode step and each prefill
+    shape); ``capture_step=False`` runs them all eagerly."""
     if engine not in ("paged", "fixed"):
         raise ValueError(f"engine must be paged|fixed: {engine!r}")
     if backend is None:

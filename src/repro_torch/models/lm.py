@@ -436,15 +436,27 @@ def paged_gather(pool: list, tables: torch.Tensor) -> list:
 
 
 def _ssm_store(pool_sub: dict, new_sub: dict, slot_ids: SlotIds) -> dict:
-    """Write a batch's SSM leaves into the pool's slot rows, in place.
-    Out-of-range slot ids (dummy batch rows) are dropped on the host, so
-    the write needs no device sync."""
+    """Write a batch's SSM leaves into the pool's slot rows, in place, on
+    the device: a row whose id is a slot writes its state there (real
+    rows name distinct slots, as the engine's do), and out-of-range ids
+    (dummy batch rows) drop. Only the batch's B rows are written, from
+    one B-row temporary: a dummy row rewrites the first real row's slot
+    with that row's state (slot 0 with its own state when no row is
+    real), so rows that meet at a slot carry one value. Nothing is read
+    on the host: a captured prefill reads the ids of each replay, never
+    the ids it was captured with."""
     leaf = next(iter(pool_sub.values()))
-    ids = torch.as_tensor(slot_ids).reshape(-1).long().cpu()
-    rows = ((ids >= 0) & (ids < leaf.shape[1])).nonzero().reshape(-1)
-    rows, slots = rows.to(leaf.device), ids[rows].to(leaf.device)
+    ids = torch.as_tensor(slot_ids, device=leaf.device).reshape(-1).long()
+    real = (ids >= 0) & (ids < leaf.shape[1])
+    first = real.int().argmax().reshape(1)        # the first real row
+    anchor = torch.where(real.any(), ids[first], 0)     # (1,) its slot
+    dst = torch.where(real, ids, anchor)
     for k, pl in pool_sub.items():
-        pl[:, slots] = new_sub[k][:, rows].to(pl.dtype)
+        new = new_sub[k].to(pl.dtype)
+        fill = torch.where(real.any(), new.index_select(1, first),
+                           pl.index_select(1, anchor))
+        keep = real.reshape((1, -1) + (1,) * (pl.ndim - 2))
+        pl.index_copy_(1, dst, torch.where(keep, new, fill))
     return pool_sub
 
 
@@ -461,10 +473,11 @@ def paged_scatter(pool: list, dense: list, tables: torch.Tensor,
     both make this false) and the target page is allocated; every other
     row goes to the leaf's sink page. SSM state is slot-dense, not
     paged: it is written at the ``slot_ids`` (B,) rows of the pool's slot
-    axis (host ids; out-of-range ids drop, which is how dummy batch rows
-    are discarded), or, when ``slot_ids`` is None (the decode path, where
-    the dense batch IS the slot axis), replaces the pool's state gated per
-    slot by ``live`` (B,) bool: a stalled slot keeps its OLD state."""
+    axis (read on the device; out-of-range ids drop, which is how dummy
+    batch rows are discarded), or, when ``slot_ids`` is None (the decode
+    path, where the dense batch IS the slot axis), replaces the pool's
+    state gated per slot by ``live`` (B,) bool: a stalled slot keeps its
+    OLD state."""
 
     def attn_fn(pool_sub, dense_sub):
         ps = pool_sub["pos"].shape[-1]
@@ -570,8 +583,9 @@ def paged_prefill(params: dict, pool: list, tables: torch.Tensor,
 
     tokens: (B, S) right-padded prompts; lengths: (B,) real lengths;
     tables: (B, pages_per_slot) page tables of the destination slots;
-    slot_ids: (B,) destination slots for the SSM state, a host sequence or
-    CPU tensor (out-of-range = dummy row, dropped; None = slots 0..B-1).
+    slot_ids: (B,) destination slots for the SSM state, a tensor on the
+    pool's device or a host sequence (out-of-range = dummy row, dropped;
+    None = slots 0..B-1); a captured prefill takes a tensor.
     Returns (last-real-token logits (B,1,V), pool).
 
     ``kernel="gather"`` with no ``starts`` keeps the dense path
@@ -583,7 +597,7 @@ def paged_prefill(params: dict, pool: list, tables: torch.Tensor,
     ``starts[b]`` with its earlier pages (a shared prefix) already
     resident. tokens then holds only the suffix and lengths its length."""
     if slot_ids is None:
-        slot_ids = list(range(tokens.shape[0]))
+        slot_ids = torch.arange(tokens.shape[0], device=tokens.device)
     if kernel == "gather" and starts is None:
         ps = pool_page_size(pool)
         vcap = tables.shape[1] * ps if ps else None

@@ -37,20 +37,32 @@ The paged engine also owns two optimizations this module only orchestrates:
   state at the divergence point is not in the pool, so prefix sharing is
   off for them; a stalled slot's state does not advance (``live``).
 
-Both engines' decode steps go through ``backend.compile`` (a
+Every executable of an engine goes through ``backend.compile`` (a
 ``LaunchBackend``, default an ``ArrayBackend`` on the engine's device and
-the process-wide compile cache): on the card a step is a CUDA graph
-captured on the first step and replayed after — one graph per engine shape
-— and ``stats["compile_sources"]["step"]`` reads ``"compiled"``, or
-``"memory"`` for a second engine on the same cache. The weights and the
-caches (the fixed engine's rings, the paged engine's pool) are bound: read
-and written in place at their own addresses, which is why admission copies
-into them and never rebinds them; tokens, positions, the paged step's
-tables and its static ``live`` mask are copied into the graph's inputs.
-``capture_step=False`` runs the step eagerly (source ``"eager"``), the
-baseline the graph is measured against. Prefill and warm admission stay
-eager (``"eager"`` sources). Entry points run on the card unless the caller
-passes ``device="cpu"``; without a card they raise.
+the process-wide compile cache), as the reference's do: the decode step
+(``"step"``), the paged engine's batched prefill, one a (B, S) bucket
+(``prefill_b{B}_s{S}``), its warm-suffix prefill, one a padded suffix
+length (``warm_s{S}``), and the fixed engine's prefill, one a prompt
+length (``prefill_s{S}``). On the card each is a CUDA graph captured on
+its first call — that call's warm-up is its real execution, so the pool
+advances once — and replayed after; ``stats["compile_sources"]`` reads
+``"compiled"`` for each, or ``"memory"`` for a second engine on the same
+cache. The weights and the caches (the fixed engine's rings, the paged
+engine's pool) are bound: read and written in place at their own
+addresses, which is why admission, preemption and copy-on-write change
+them in place and never rebind them; tokens, positions, tables, lengths,
+slot ids, ``starts`` and the step's static ``live`` mask are copied into
+the graph's inputs (the fixed prefill's destination slot too: it writes
+the prompt's rings into the slot itself). Graphs that bind the same
+tensors share one memory pool (``core.compile_cache``), so each engine's
+step and prefills, whatever the number of shapes, share one pool, and
+a prefill's graph keeps only its logits. An executable's outputs are
+valid until the next replay of any graph in its pool: the engine reads
+the logits with ``argmax`` at once.
+``capture_step=False`` runs every executable of the engine eagerly
+(source ``"eager"``), the baseline the graphs are measured against. On
+the CPU an executable is the function itself. Entry points run on the
+card unless the caller passes ``device="cpu"``; without a card they raise.
 
 While ``obs.metrics.REGISTRY`` is enabled both engines record, as the
 reference's do: ``serve.ttft_s`` / ``serve.tpot_s`` (histograms and
@@ -80,7 +92,7 @@ from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.lm import (cache_init, decode_step, paged_cache_init,
                                    paged_clear, paged_copy, paged_decode_step,
                                    paged_prefill, prefill)
-from repro_torch.models.spec import ModelConfig
+from repro_torch.models.spec import ModelConfig, TensorSpec
 from repro_torch.obs import flight as _flight
 from repro_torch.obs import metrics as _obs
 from repro_torch.serve.kv_pool import PagePool
@@ -121,7 +133,8 @@ class _EngineBase:
 
     def __init__(self, cfg: ModelConfig, params, slots: int,
                  backend: Optional[ArrayBackend],
-                 scheduler: Optional[AdmissionScheduler], device):
+                 scheduler: Optional[AdmissionScheduler], device,
+                 capture_step: bool = True):
         if cfg.encoder is not None:
             raise ValueError(f"{cfg.name}: {type(self).__name__} serves "
                              "decoder-only models (it takes no encoder "
@@ -135,6 +148,7 @@ class _EngineBase:
         self.slots = slots
         self.backend = (backend if backend is not None
                         else ArrayBackend(device=self.device))
+        self.capture_step = capture_step
         self.scheduler = scheduler if scheduler is not None \
             else AdmissionScheduler()
         self.tokens = torch.zeros((slots, 1), dtype=torch.int32,
@@ -154,6 +168,26 @@ class _EngineBase:
         self._m_tpot = _obs.histogram("serve.tpot_s")
         self._m_preempt = _obs.counter("serve.preemptions")
         self._m_occupancy = _obs.gauge("serve.pool_occupancy")
+
+    # -- executables -------------------------------------------------------
+    def _executable(self, name: str, fn, example: tuple, extras: tuple,
+                    bind_argnums: Tuple[int, ...] = (0, 1)):
+        """``fn`` through ``backend.compile`` for ``example``'s signature,
+        the weights (and the caches) bound, or ``fn`` itself, run eagerly,
+        when the engine was built with ``capture_step=False``; its source
+        is recorded under ``name``."""
+        if self.capture_step:
+            exe, src = self.backend.compile(fn, example, extras=extras,
+                                            bind_argnums=bind_argnums)
+        else:
+            exe, src = fn, "eager"
+        self.stats["compile_sources"][name] = src
+        return exe
+
+    def _ints(self, x) -> torch.Tensor:
+        """A host index array (tokens, tables, lengths, slot ids) as an
+        int32 tensor on the engine's device."""
+        return torch.as_tensor(np.asarray(x, np.int32)).to(self.device)
 
     # -- capacity guard ----------------------------------------------------
     def _request_capacity(self) -> int:
@@ -279,16 +313,19 @@ class ServeEngine(_EngineBase):
     reads and writes them at their own addresses, so admission copies a
     prefilled prompt into slot ``i`` of every cache leaf in place (KV,
     positions, int8 scales, MLA ``ckv`` / ``kr``, SSM conv and state) and
-    never rebinds ``self.caches``. Prefill runs eagerly, one call per
-    prompt (source ``"eager"`` under ``prefill_s{S}``): a graph a prompt
-    length would keep a memory pool a length."""
+    never rebinds ``self.caches``. Prefill is one executable a prompt
+    length (``prefill_s{S}``), bound like the step to the weights and the
+    rings: it writes the prompt's rings into its slot (a device int input)
+    in place and returns the logits only, so a length's graph keeps no
+    rings of its own."""
 
     def __init__(self, cfg: ModelConfig, params, slots: int = 8,
                  capacity: int = 256,
                  backend: Optional[ArrayBackend] = None,
                  scheduler: Optional[AdmissionScheduler] = None,
                  device=None, capture_step: bool = True):
-        super().__init__(cfg, params, slots, backend, scheduler, device)
+        super().__init__(cfg, params, slots, backend, scheduler, device,
+                         capture_step)
         self.capacity = capacity
         self.caches = cache_init(cfg, slots, capacity, self.device)
 
@@ -296,33 +333,40 @@ class ServeEngine(_EngineBase):
             logits, _ = decode_step(p, c, t, po, cfg)
             return logits
 
-        if capture_step:
-            self._step, src = self.backend.compile(
-                step_fn, (params, self.caches, self.tokens, self.pos),
-                bind_argnums=(0, 1),
-                extras=("serve-step", cfg.name, slots, capacity))
-        else:
-            self._step, src = step_fn, "eager"
-        self.stats["compile_sources"]["step"] = src
+        self._step = self._executable(
+            "step", step_fn, (params, self.caches, self.tokens, self.pos),
+            ("serve-step", cfg.name, slots, capacity))
+        self._prefill_by_len: dict = {}     # prompt length -> executable
 
     def _request_capacity(self) -> int:
         return self.capacity
 
-    def _prefill(self, tokens: torch.Tensor):
-        """One unpadded prompt (1, S) -> (logits (1, 1, V), its caches)."""
-        self.stats["compile_sources"].setdefault(
-            f"prefill_s{tokens.shape[1]}", "eager")
-        return prefill(self.params, {"tokens": tokens}, self.cfg,
-                       capacity=self.capacity)
+    def _prefill(self, tokens: torch.Tensor, slot: torch.Tensor):
+        """One unpadded prompt (1, S) prefilled into slot ``slot`` ((1,)
+        int32 on the device) of every ring, in place, through the prompt
+        length's executable -> its logits (1, 1, V) (on the card they live
+        in the graph's memory until the next replay of its pool)."""
+        S = tokens.shape[1]
+        exe = self._prefill_by_len.get(S)
+        if exe is None:
+            cfg, capacity = self.cfg, self.capacity
 
-    def _put(self, i: int, caches: list) -> None:
-        """Copy a one-prompt cache tree into slot ``i`` of every leaf, in
-        place (leaves are (repeats, slots, ...))."""
-        dst = pytree.tree_leaves(self.caches)
-        src = pytree.tree_leaves(caches)
-        assert len(dst) == len(src)
-        for d, s in zip(dst, src):
-            d[:, i].copy_(s[:, 0])
+            def prefill_fn(p, c, t, slot):
+                logits, new = prefill(p, {"tokens": t}, cfg,
+                                      capacity=capacity)
+                idx = slot.long()
+                # leaves are (repeats, slots, ...): slot ``slot`` takes the
+                # prompt's row 0
+                for d, s in zip(pytree.tree_leaves(c),
+                                pytree.tree_leaves(new)):
+                    d.index_copy_(1, idx, s.to(d.dtype))
+                return logits
+
+            exe = self._prefill_by_len[S] = self._executable(
+                f"prefill_s{S}", prefill_fn,
+                (self.params, self.caches, tokens, slot),
+                ("serve-prefill", cfg.name, capacity))
+        return exe(self.params, self.caches, tokens, slot)
 
     def admit(self, req: Request) -> bool:
         """Prefill a request into a free slot (one-slot batch prefill)."""
@@ -330,11 +374,9 @@ class ServeEngine(_EngineBase):
             return False                      # rejected: over capacity
         for i, a in enumerate(self.active):
             if a is None:
-                toks = torch.as_tensor(np.asarray(req.prompt),
-                                       dtype=torch.int32).to(self.device)
-                logits, caches = self._prefill(toks[None])
+                logits = self._prefill(self._ints(req.prompt)[None],
+                                       self._ints([i]))
                 self.stats["prefill_dispatches"] += 1
-                self._put(i, caches)
                 tok = int(torch.argmax(logits[0, -1]))
                 req.out.append(tok)
                 req.t_first = time.perf_counter()
@@ -416,13 +458,14 @@ class PagedServeEngine(_EngineBase):
                  device=None,
                  backend: Optional[ArrayBackend] = None,
                  capture_step: bool = True):
-        super().__init__(cfg, params, slots, backend, scheduler, device)
+        super().__init__(cfg, params, slots, backend, scheduler, device,
+                         capture_step)
         if pool_pages is None:
             pool_pages = slots * pages_per_slot
         self.pool = PagePool(pool_pages, page_size, slots, pages_per_slot)
         self.kv = paged_cache_init(cfg, slots, pool_pages, page_size,
                                    self.device)
-        self.tables = self._table_tensor(self.pool.table_array())
+        self.tables = self._ints(self.pool.table_array())
         self._tables_dirty = False
         self.batched_prefill = batched_prefill
         if kernel == "auto":
@@ -451,15 +494,13 @@ class PagedServeEngine(_EngineBase):
 
         self._live = torch.ones((slots,), dtype=torch.bool,
                                 device=self.device)
-        if capture_step:
-            self._step, src = self.backend.compile(
-                step_fn, (params, self.kv, self.tables, self.tokens,
-                          self.pos, self._live), bind_argnums=(0, 1),
-                extras=("serve-paged-step", cfg.name, slots, pool_pages,
-                        page_size, pages_per_slot, kernel))
-        else:
-            self._step, src = step_fn, "eager"
-        self.stats["compile_sources"]["step"] = src
+        self._step = self._executable(
+            "step", step_fn, (params, self.kv, self.tables, self.tokens,
+                              self.pos, self._live),
+            ("serve-paged-step", cfg.name, slots, pool_pages, page_size,
+             pages_per_slot, kernel))
+        self._prefill_by_shape: dict = {}      # (B, S) -> executable
+        self._warm_by_len: dict = {}           # S_pad  -> executable
         self.stats.update({"prefix_hits": 0, "prefix_misses": 0,
                            "prefix_registered": 0, "cow_pages": 0,
                            "prefill_rows": 0, "kv_bytes_avoided": 0})
@@ -486,11 +527,54 @@ class PagedServeEngine(_EngineBase):
                         row += R * tail * item
         return dense, row
 
-    def _table_tensor(self, table: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(table, dtype=torch.int32).to(self.device)
-
     def _request_capacity(self) -> int:
         return self.pool.vcap
+
+    # -- prefill executables ----------------------------------------------
+    def _prefill_example(self, B: int, S: int, warm: bool) -> tuple:
+        """The signature of a prefill call: the weights and the pool, then
+        tables, tokens, lengths, slot ids (and ``starts``) as int32."""
+        spec = (TensorSpec((B, self.pool.pages_per_slot), torch.int32),
+                TensorSpec((B, S), torch.int32),
+                *[TensorSpec((B,), torch.int32)] * (3 if warm else 2))
+        return (self.params, self.kv) + spec
+
+    def _prefill_exec(self, B: int, S: int):
+        """The batched prefill of a (B, S) bucket: writes the pool in place
+        and returns the last-real-token logits (B, 1, V)."""
+        exe = self._prefill_by_shape.get((B, S))
+        if exe is None:
+            cfg, kern = self.cfg, self.kernel
+
+            def prefill_fn(p, kv, trows, toks, lens, sids):
+                return paged_prefill(p, kv, trows, toks, lens, cfg,
+                                     slot_ids=sids, kernel=kern)[0]
+
+            exe = self._prefill_by_shape[(B, S)] = self._executable(
+                f"prefill_b{B}_s{S}", prefill_fn,
+                self._prefill_example(B, S, warm=False),
+                ("serve-paged-prefill", cfg.name, self.pool.n_pages,
+                 self.pool.page_size, self.pool.pages_per_slot, kern))
+        return exe
+
+    def _warm_exec(self, S: int):
+        """Suffix-continuation prefill (B=1): rows start at ``starts`` and
+        attend the slot's already-resident prefix pages through the
+        table."""
+        exe = self._warm_by_len.get(S)
+        if exe is None:
+            cfg, kern = self.cfg, self.kernel
+
+            def warm_fn(p, kv, trows, toks, lens, sids, starts):
+                return paged_prefill(p, kv, trows, toks, lens, cfg,
+                                     slot_ids=sids, starts=starts,
+                                     kernel=kern)[0]
+
+            exe = self._warm_by_len[S] = self._executable(
+                f"warm_s{S}", warm_fn, self._prefill_example(1, S, warm=True),
+                ("serve-paged-warm", cfg.name, self.pool.n_pages,
+                 self.pool.page_size, self.pool.pages_per_slot, kern))
+        return exe
 
     # -- prefix sharing ----------------------------------------------------
     @staticmethod
@@ -703,19 +787,13 @@ class PagedServeEngine(_EngineBase):
             return False
         S_suf = S - suffix_start
         S_pad = min(bucket_len(S_suf), self.pool.vcap)
-        toks = np.zeros((1, S_pad), np.int64)
+        toks = np.zeros((1, S_pad), np.int32)
         toks[0, :S_suf] = req.prompt[suffix_start:]
-        dev = self.device
-        logits, self.kv = paged_prefill(
+        logits = self._warm_exec(S_pad)(
             self.params, self.kv,
-            self._table_tensor(self.pool.table_array()[slot][None]),
-            torch.as_tensor(toks, dtype=torch.int32).to(dev),
-            torch.tensor([S_suf], dtype=torch.int32, device=dev), self.cfg,
-            slot_ids=[slot],
-            starts=torch.tensor([suffix_start], dtype=torch.int32,
-                                device=dev),
-            kernel=self.kernel)
-        self.stats["compile_sources"].setdefault(f"warm_s{S_pad}", "eager")
+            self._ints(self.pool.table_array()[slot][None]),
+            self._ints(toks), self._ints([S_suf]), self._ints([slot]),
+            self._ints([suffix_start]))
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_rows"] += S_suf
         self.stats["prefix_hits"] += 1
@@ -747,10 +825,10 @@ class PagedServeEngine(_EngineBase):
         else:
             S = len(placed[0][1].prompt)     # exact shape, no padding
             B = 1
-        toks = np.zeros((B, S), np.int64)
-        lens = np.zeros((B,), np.int64)
+        toks = np.zeros((B, S), np.int32)
+        lens = np.zeros((B,), np.int32)
         trows = np.full((B, self.pool.pages_per_slot), -1, np.int32)
-        sids = np.full((B,), self.slots, np.int64)      # OOB = dummy row
+        sids = np.full((B,), self.slots, np.int32)      # OOB = dummy row
         table = self.pool.table_array()
         for r, (slot, req) in enumerate(placed):
             n = len(req.prompt)
@@ -758,14 +836,9 @@ class PagedServeEngine(_EngineBase):
             lens[r] = n
             trows[r] = table[slot]
             sids[r] = slot
-        dev = self.device
-        logits, self.kv = paged_prefill(
-            self.params, self.kv, self._table_tensor(trows),
-            torch.as_tensor(toks, dtype=torch.int32).to(dev),
-            torch.as_tensor(lens, dtype=torch.int32).to(dev), self.cfg,
-            slot_ids=sids, kernel=self.kernel)
-        self.stats["compile_sources"].setdefault(f"prefill_b{B}_s{S}",
-                                                 "eager")
+        logits = self._prefill_exec(B, S)(
+            self.params, self.kv, self._ints(trows),
+            self._ints(toks), self._ints(lens), self._ints(sids))
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_rows"] += int(lens.sum())
         first = torch.argmax(logits[:, -1], -1).cpu().numpy()
@@ -852,7 +925,7 @@ class PagedServeEngine(_EngineBase):
 
     def _step_executable(self) -> np.ndarray:
         if self._tables_dirty:
-            self.tables = self._table_tensor(self.pool.table_array())
+            self.tables = self._ints(self.pool.table_array())
             self._tables_dirty = False
         tbl, live = self.tables, self._live
         if self._stalled:
@@ -865,7 +938,7 @@ class PagedServeEngine(_EngineBase):
             # and its SSM state must not absorb the retried token (live)
             masked = self.pool.table_array()
             masked[list(self._stalled)] = -1
-            tbl = self._table_tensor(masked)
+            tbl = self._ints(masked)
             live = torch.as_tensor(keep).to(self.device)
         logits = self._decode(tbl, live)
         if self.kernel == "paged":

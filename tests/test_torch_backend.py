@@ -224,6 +224,7 @@ def test_serve_and_launch_share_compile_cache(cache):
                             backend=ArrayBackend(cache=cache, device=CPU))
     stats = eng2.run(list(reqs), max_steps=50)
     assert stats["compile_sources"]["step"] == "memory"
+    assert all(v == "memory" for v in stats["compile_sources"].values())
     assert all(r.done for r in reqs)
     assert [list(r.out) for r in reqs] == first
 

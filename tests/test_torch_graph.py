@@ -276,7 +276,7 @@ def test_engine_step_goes_through_the_cache_and_eager_on_request():
     from repro_torch.serve.engine import PagedServeEngine, Request
     cfg, params = _model("qwen3-14b")
     cache = cc.CompileCache()
-    outs = {}
+    outs, keys = {}, {}
     for capture in (True, False):
         eng = PagedServeEngine(cfg, params, slots=2, page_size=4,
                                pages_per_slot=8, device="cpu",
@@ -289,8 +289,12 @@ def test_engine_step_goes_through_the_cache_and_eager_on_request():
         outs[capture] = [r.out for r in reqs]
         want = "compiled" if capture else "eager"
         assert eng.stats["compile_sources"]["step"] == want
+        # and every prefill executable with it
+        assert set(eng.stats["compile_sources"].values()) == {want}
+        keys[capture] = set(eng.stats["compile_sources"])
     assert outs[True] == outs[False]
-    assert cache.stats["misses"] == 1
+    assert keys[True] == keys[False]
+    assert cache.stats["misses"] == len(keys[True])
 
 
 # ---------------------------------------------------------------------------

@@ -75,8 +75,8 @@ def test_fixed_engine_matches_reference(arch):
     assert all(r.done for r in ref) and all(r.done for r in port)
     assert stats["admitted"] == stats["prefill_dispatches"] == len(lens)
     assert stats["compile_sources"]["step"] in ("compiled", "memory")
-    assert {stats["compile_sources"][f"prefill_s{n}"] for n in lens} == {
-        "eager"}
+    assert {stats["compile_sources"][f"prefill_s{n}"] for n in lens} <= {
+        "compiled", "memory"}
     te._assert_match_modulo_ties(cfg, params, [r.prompt for r in ref],
                                  [r.out for r in ref], [r.out for r in port])
 
@@ -176,9 +176,13 @@ def test_cuda_fixed_engine_replays_over_rings_written_in_place(cuda_device,
         assert [x.data_ptr() for x in pytree.tree_leaves(eng.caches)] == ptrs
         outs[capture] = [r.out for r in reqs]
         if capture:
-            assert stats["compile_sources"]["step"] == "compiled"
-            assert be.cache.stats["captures"] == 1
-            assert be.cache.stats["replays"] == stats["steps"] - 1
+            # the step and one prefill executable a prompt length, each
+            # captured once and replayed after
+            lens = len(stats["compile_sources"]) - 1
+            assert set(stats["compile_sources"].values()) == {"compiled"}
+            assert be.cache.stats["captures"] == 1 + lens
+            assert be.cache.stats["replays"] == (
+                stats["steps"] - 1 + stats["prefill_dispatches"] - lens)
     assert outs[True] == outs[False]
 
 

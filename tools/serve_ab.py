@@ -15,7 +15,9 @@ call (200 calls back to back, then one sync; 400 kernels at most, within
 the launch queue) and its call time with CUDA events around one call (the
 wrapper's host work and the kernels, L2 flushed). It prints one JSON line
 per process and, at the end, the medians per tree; ``--out`` also writes
-them to a file.
+them to a file. ``--eager`` serves with ``capture_step=False`` (every
+executable of the engine run eagerly, no CUDA graph), the baseline the
+graphs are measured against.
 
 Run on the machine with the card: ``python3 tools/serve_ab.py --tree
 build/ab/parent --tree . --order 0,1,1,0 --out
@@ -72,7 +74,7 @@ def _decode_problem(torch, seed=7):
             *(torch.from_numpy(x).cuda() for x in (kpos, tables, q_pos)))
 
 
-def worker(tree: Path, reps: int) -> dict:
+def worker(tree: Path, reps: int, eager: bool = False) -> dict:
     sys.path.insert(0, str(tree / "src"))
     import torch
     import repro_torch
@@ -122,7 +124,7 @@ def worker(tree: Path, reps: int) -> dict:
         with contextlib.redirect_stdout(io.StringIO()):
             eng = serve(cfg, params, waves, device="cuda", slots=4,
                         capacity=512, page_size=16, kernel="paged",
-                        prefix_sharing=True)
+                        prefix_sharing=True, capture_step=not eager)
         torch.cuda.synchronize()
         if rep == 0:
             continue                                  # warm-up
@@ -131,7 +133,7 @@ def worker(tree: Path, reps: int) -> dict:
         runs.append(dict(ttft_p50_ms=summ["p50_ttft_s"] * 1e3,
                          tpot_p50_ms=summ["p50_tpot_s"] * 1e3,
                          tokens_per_s=n_tok / eng.stats["wall_s"]))
-    return dict(tree=str(tree),
+    return dict(tree=str(tree), eager=eager,
                 wrapper_host_us=statistics.median(host_us),
                 wrapper_host_us_all=host_us,
                 decode_call_ms=statistics.median(call_ms),
@@ -146,10 +148,12 @@ def main() -> int:
                     help="indices into --tree, e.g. 0,1,1,0")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--eager", action="store_true",
+                    help="serve with capture_step=False")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.worker:
-        print(json.dumps(worker(a.tree[0], a.reps)))
+        print(json.dumps(worker(a.tree[0], a.reps, a.eager)))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -172,7 +176,8 @@ def main() -> int:
     results = []
     for i in order:
         res = subprocess.run([sys.executable, __file__, "--worker", "--tree",
-                              str(a.tree[i]), "--reps", str(a.reps)],
+                              str(a.tree[i]), "--reps", str(a.reps)]
+                             + (["--eager"] if a.eager else []),
                              capture_output=True, text=True, timeout=900)
         if res.returncode:
             sys.stderr.write(res.stderr[-4000:])
@@ -193,12 +198,13 @@ def main() -> int:
                                                 for r in mine),
             **{k: statistics.median(x[k] for x in runs) for k in keys[2:]},
             "processes": len(mine), "serves": len(runs)}
-    line = json.dumps({"card": card, "order": order, "summary": summary})
+    line = json.dumps({"card": card, "order": order, "eager": a.eager,
+                       "summary": summary})
     print(f"[serve_ab] summary {line}")
     if a.out:
         a.out.parent.mkdir(parents=True, exist_ok=True)
         a.out.write_text(json.dumps({"card": card, "order": order,
-                                     "summary": summary,
+                                     "eager": a.eager, "summary": summary,
                                      "processes": results}, indent=1))
     return 0
 
