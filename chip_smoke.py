@@ -116,8 +116,9 @@ non-zero:
             under 10% of the first one's staged bytes on the wire; then on
             thread nodes: one killed mid-wave (the wave completes, correct,
             ``failover`` recorded), one throttled to 0.05 s a shard getting
-            a smaller shard within 3 waves, and ``health_verdicts()``
-            naming it ``outlier`` and the others ``healthy``. Printed:
+            a smaller shard within 3 waves, and one throttled to 0.1 s a
+            shard that ``health_verdicts()`` names ``outlier`` and the
+            others ``healthy`` (each node's z printed). Printed:
             instances/s, t_schedule, bytes on the wire, captures and graph
             pool bytes per node, spawn to alive, beside ``[launch]``'s
             array numbers. The app launches none of the port's kernels.
@@ -219,6 +220,34 @@ non-zero:
             (flat) plus a 256-token suffix through the paged kernel, then 4
             greedy decode steps each: tokens equal up to the first near-tie;
             wall time and peak memory printed.
+8a. engine-churn  five qwen3-14b ``PagedServeEngine``s built over 5's
+            weights and one compile cache, each serving 5's second wave and
+            then dropped: after each drop ``memory_reserved()``, the pool
+            count and the pools' MiB. Gates: the pool count back to its
+            value before the first engine, ``memory_reserved()`` within 64
+            MiB of its value after the first drop, every engine's tokens
+            equal (a dropped engine's graphs go with it: none replays).
+            Then one engine is dropped in another thread while a second
+            serves: the drop's seconds, and the live engine's TPOT p50 and
+            longest decode step beside a wave with no drop (gates: its
+            tokens equal, the dropped engine's pool gone).
+8b. restart  (after the qwen3-14b weights are freed here) two processes
+            (``chip_smoke.py --restart-child A|B DIR``, an internal mode),
+            one after the other, over one compile-cache directory: A draws
+            qwen3-14b and serves 5's traffic cold; B does the same over the
+            records A left and captures the step and each prefill shape at
+            construction. Printed for each: construction seconds, sources,
+            captures ahead and on the request path, each wave's TTFT p50,
+            TPOT p50, graph pools and MiB. Gates: B's sources "disk" for
+            every key A captured, no capture on B's request path, every
+            paged launch there inside a replay, B's tokens equal A's (144
+            of 144). restart-ssm (after 9, in this process): the same for
+            mamba2-1.3b on 9's wave, B a fresh cache over A's directory
+            (A's engine dropped first); every SSD launch of B's request
+            path inside a replay, all on tc. Every run of this script
+            starts cold: ``REPRO_COMPILE_CACHE_DIR`` points at a fresh
+            directory, removed at exit, and every other phase's compile
+            cache keeps the memory tier alone.
 9. serve-ssm  ``serve`` with mamba2-1.3b at its published width (48 layers,
             d_model 2048, d_inner 4096, 64 heads of 64, d_state 128, vocab
             50280, tied embeddings; 1.34 B parameters, 2.7 GB of bf16): 4
@@ -325,8 +354,10 @@ limit (nvidia-smi), the kernels' JSON record, and
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -335,6 +366,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -352,6 +384,14 @@ ULP_TIE = 0.05                     # tests/test_paged_attention.py:_ULP_TIE
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def card_settings() -> None:
+    """TF32 off for float32 products; bf16 products reduce in f32, as the
+    reference's do (no bf16 split-K)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def card_line() -> str:
@@ -1332,7 +1372,7 @@ def phase_flash(flash_attention, attention_ref, attention, counters, card):
 # ---------------------------------------------------------------------------
 
 def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
-              backend=None, first_pool=False, **kw):
+              backend=None, first_pool=False, warm=False, **kw):
     """The main path: ``serve`` over ``waves`` with every kernel's launch
     count set to 0 just before and read just after (``kernel_fn``'s is
     returned; the others must stay 0; with ``kernel_fn`` None all must); every
@@ -1346,7 +1386,12 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
     given. ``eng.capture`` notes the sources, the cache's capture and
     replay counts, the graph pools and their bytes (with ``first_pool``,
     also as they stood after the first prefill dispatch), the launches
-    made inside replays, and each wave's TTFT p50."""
+    made inside replays, each wave's TTFT p50, the engine's construction
+    seconds and the captures made there (ahead) and on the request path.
+    ``warm``: the backend's cache directory holds the records of an
+    earlier engine of this configuration, so every executable reads
+    "disk" and is captured at construction; the request path only
+    replays."""
     from repro_torch.core.backend import ArrayBackend
     from repro_torch.core.compile_cache import COUNTED, CompileCache
     from repro_torch.core.telemetry import class_summary
@@ -1389,7 +1434,8 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
         setattr(cls, name, (watched_exec if name.endswith("_exec")
                             else watched)(fn))
     if backend is None:
-        backend = ArrayBackend(cache=CompileCache(), device=DEV)
+        backend = ArrayBackend(cache=CompileCache(persistent=False),
+                               device=DEV)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -1418,15 +1464,20 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
         ttft.append(class_summary(eng.records[done:done + len(w)])[
             "interactive"]["p50_ttft_s"])
         done += len(w)
+    ahead = eng.stats["captured_ahead"]
     eng.capture = dict(
         source=src["step"], sources=src, captures=st["captures"],
+        captured_ahead=ahead, request_captures=st["captures"] - ahead,
+        t_build_s=eng.stats["t_build_s"],
         replays=st["replays"], t_capture_s=st["t_capture_s"],
         pools=len({g.graph.pool() for g in graphs}),
         pool_bytes=_graph_pool_bytes(cache) if graphs else 0,
         launches_in_replays=in_replays, wave_ttft_p50_s=ttft,
         first_pool_bytes=pool_after_first[0] if pool_after_first else None)
     print(f"[{tag}] {cfg.name}: compile sources {json.dumps(src)}"
-          + (f"; {st['captures']} captures ({st['t_capture_s']:.2f}s with "
+          + (f"; engine built in {eng.stats['t_build_s']:.2f}s with {ahead} "
+             f"captures ahead; {st['captures']} captures "
+             f"({st['t_capture_s']:.2f}s with "
              f"their warm-up calls), {st['replays']} replays of "
              f"{eng.stats['steps']} steps + {eng.stats['prefill_dispatches']}"
              f" prefill dispatches; {eng.capture['pools']} graph pool(s) "
@@ -1436,11 +1487,16 @@ def run_serve(cfg, params, waves, kernel_fn, tag="serve", capture_step=True,
           f"{json.dumps(others)}; TTFT p50 by wave "
           f"{[round(t * 1e3, 1) for t in ttft]} ms")
     if capture_step:
-        want = dict(captures=1 + n_prefill,
-                    replays=eng.stats["steps"] - 1
-                    + eng.stats["prefill_dispatches"] - n_prefill)
-        check(set(src.values()) == {"compiled"} and n_prefill > 0
+        # cold: each executable captured on its first call, replayed after;
+        # warm: each captured ahead, at construction, every call a replay
+        calls = eng.stats["steps"] + eng.stats["prefill_dispatches"]
+        want = dict(source="disk" if warm else "compiled",
+                    captures=1 + n_prefill,
+                    ahead=1 + n_prefill if warm else 0,
+                    replays=calls - (0 if warm else 1 + n_prefill))
+        check(set(src.values()) == {want["source"]} and n_prefill > 0
               and st["captures"] == want["captures"]
+              and ahead == want["ahead"]
               and st["replays"] == want["replays"],
               f"[{tag}] executables not each captured once and replayed "
               f"after: {eng.capture}, expected {want}")
@@ -1608,20 +1664,25 @@ def phase_serve(cfg, params, paged_attention, card, capacity=512,
 def check_paged_routes(eng, launches, paged_attention, cfg, tag,
                        decode="split", prefill="tile"):
     """Every attention layer launched the paged kernel once a prefill
-    dispatch and once a decode step: every decode step on the ``decode``
-    route, every prefill dispatch on ``prefill``. Returns the routes."""
+    dispatch and once a decode step — and once a call captured ahead at
+    construction (the step, each recorded prefill): every decode step on
+    the ``decode`` route, every prefill dispatch on ``prefill``. Returns
+    the routes."""
     st = eng.stats
-    dispatches = st["prefill_dispatches"] + st["steps"]
+    ahead = st["captured_ahead"]
+    steps = st["steps"] + min(ahead, 1)
+    prefills = st["prefill_dispatches"] + max(ahead - 1, 0)
     layers = cfg.n_layers
     print(f"[{tag}] paged_attention launches={launches} = {layers} layers x "
           f"({st['prefill_dispatches']} prefill dispatches "
-          f"[{st['prefix_hits']} warm] + {st['steps']} decode steps)")
-    check(launches == layers * dispatches,
-          f"launches {launches} != {layers} x {dispatches}")
+          f"[{st['prefix_hits']} warm] + {st['steps']} decode steps"
+          + (f" + {ahead} calls captured ahead" if ahead else "") + ")")
+    check(launches == layers * (steps + prefills),
+          f"launches {launches} != {layers} x {steps + prefills}")
     routes = dict(paged_attention.routes)
     want = dict.fromkeys(routes, 0)
-    want[decode] += layers * st["steps"]
-    want[prefill] += layers * st["prefill_dispatches"]
+    want[decode] += layers * steps
+    want[prefill] += layers * prefills
     print(f"[{tag}] paged_attention routes {json.dumps(routes)}: every "
           f"decode step on {decode}, every prefill dispatch on {prefill}")
     check(routes == want, f"routes {routes}, expected {want}")
@@ -1686,7 +1747,8 @@ def phase_lockstep(cfg, params, lens=(128,) * 4, npps=32, P=128,
         pos = lens[:, None].clone()
         step = step_fn
         if mode == "graph":
-            step, _ = ArrayBackend(cache=CompileCache()).compile(
+            step, _ = ArrayBackend(
+                cache=CompileCache(persistent=False)).compile(
                 step_fn, (params, pool, tables, pos, pos, live),
                 bind_argnums=(0, 1))
         for _ in range(steps):
@@ -1749,7 +1811,7 @@ def phase_launch(card, counters):
         fn.launches = 0
     out = {}
     for name, kw, n in runs:
-        cache = CompileCache()
+        cache = CompileCache(persistent=False)
         reads = []
         for when in ("cold", "warm"):
             torch.cuda.synchronize()
@@ -1802,10 +1864,14 @@ def phase_launch(card, counters):
 # ---------------------------------------------------------------------------
 
 DIST_NODES, DIST_THROTTLE_S, DIST_GATE_WAVE = 4, 0.05, 2048
-# the health scorer floors its scale at 1e-4 s an instance, and flags an
-# outlier 6 scales above the fleet's median: 16-instance shards put a
-# 0.05 s throttle at ~3 ms an instance
-DIST_HEALTH_WAVE = 64
+# the health scorer's scale is at least half the fleet's median wall an
+# instance, and it flags an outlier 6 scales above that median: a node
+# must run ~4x slower than its peers. A healthy thread node's shard of 16
+# instances takes milliseconds on the card whatever its size (dispatch,
+# event wait and harvest on a shared host), and more when the host is
+# loaded, so a 0.05 s throttle can fall under 4x; 0.1 s doubles the margin
+# (tools/dist_health_margin.py measures it)
+DIST_HEALTH_WAVE, DIST_HEALTH_THROTTLE_S = 64, 0.1
 
 
 def _dist_reads(report, wall, n):
@@ -1849,7 +1915,7 @@ def _dist_run(name, be, x, want, name_card):
         r["max_rel_err"] = err
         r["captures_by_node"] = {}
         for nr in nrs:
-            if nr["compile_source"] == "compiled":
+            if nr["compile_source"] in ("compiled", "disk"):
                 c = r["captures_by_node"]
                 c[nr["node"]] = c.get(nr["node"], 0) + 1
         print(f"[dist] {name} {when}: {n} instances in {wall:.4f}s "
@@ -1883,8 +1949,8 @@ def phase_dist_gates(x, want, name_card):
     """The fabric's failure and measurement gates on thread nodes: a node
     killed mid-wave (the wave completes, correct, with ``failover``
     recorded), a node throttled to 0.05 s a shard getting a smaller shard
-    within 3 waves, and ``health_verdicts()`` naming it ``outlier`` and the
-    others ``healthy``."""
+    within 3 waves, and one throttled to 0.1 s a shard that
+    ``health_verdicts()`` names ``outlier`` and the others ``healthy``."""
     import threading
     from repro_torch.core.llmr import LLMapReduce
     from repro_torch.examples.massive_launch import app
@@ -1943,11 +2009,15 @@ def phase_dist_gates(x, want, name_card):
     try:
         llmr = LLMapReduce(wave_size=DIST_HEALTH_WAVE, backend=be)
         llmr.map_reduce(app, x[:DIST_HEALTH_WAVE])
-        be.agents["node1"].throttle(DIST_THROTTLE_S)
+        be.agents["node1"].throttle(DIST_HEALTH_THROTTLE_S)
         _, rep = llmr.map_reduce(app, x[:10 * DIST_HEALTH_WAVE])
         verdicts = be.health_verdicts()
-        print(f"[dist] health: verdicts {json.dumps(verdicts)}; report "
-              f"{json.dumps(rep.health)}")
+        scores = {nid: (d["z"], d["wall_per_instance_s"])
+                  for nid, d in sorted(be.registry.health.detail().items())}
+        print(f"[dist] health: node1 at {DIST_HEALTH_THROTTLE_S} s a "
+              f"shard; verdicts {json.dumps(verdicts)}; report "
+              f"{json.dumps(rep.health)}; (z, recent wall an instance s) "
+              f"by node {json.dumps(scores)}")
         check(verdicts.get("node1") == "outlier"
               and all(verdicts.get(f"node{i}") == "healthy"
                       for i in (0, 2, 3)),
@@ -2113,7 +2183,8 @@ def phase_dist_serve(cfg, params, ssd_scan, card, ssm):
     from repro_torch.dist import DistributedBackend
     waves = [ssm_wave(cfg), ssm_wave(cfg)]
     wave = waves[0]
-    fabric = DistributedBackend(n_nodes=2, device=DEV, cache=CompileCache(),
+    fabric = DistributedBackend(n_nodes=2, device=DEV,
+                                cache=CompileCache(persistent=False),
                                 heartbeat_timeout_s=5.0)
     try:
         eng, launches = run_serve(cfg, params, waves, ssd_scan,
@@ -2178,7 +2249,7 @@ def phase_wine(card, counters):
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models import lm
     from repro_torch.models.blocks import tree_map
-    cache = CompileCache()
+    cache = CompileCache(persistent=False)
     adapter = WineAdapter(backend=ArrayBackend(cache=cache))
     r = np.random.default_rng(4)
     apps = [WineApp(arch=a, mode=m, shape=f"{m}_32k", smoke=True)
@@ -2325,6 +2396,317 @@ def phase_serve_graph(cfg, params, paged_attention, card, eager):
 
 
 # ---------------------------------------------------------------------------
+# The compile cache's lifetime: a later process, and engines dropped
+# ---------------------------------------------------------------------------
+
+def restart_child(role: str, cache_dir: str) -> int:
+    """``[restart]``'s process A (``role`` "A", over an empty cache
+    directory) or B ("B", over the directory A filled): qwen3-14b at full
+    width, drawn from seed 0, on ``[serve-graph]``'s traffic through
+    ``serve`` over a compile cache on ``cache_dir``, gated by
+    ``run_serve`` — A cold; B warm, every executable captured ahead at
+    construction and only replayed on the request path. The last line is
+    one JSON object of its numbers and tokens."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    card_settings()
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.launch.serve import init_params
+    cfg = get_config("qwen3-14b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, DEV, seed=0)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    first, wave = serve_traffic(cfg)
+    tag = f"restart-{role}"
+    eng, launches = run_serve(
+        cfg, params, [first, wave], paged_attention, tag=tag, slots=4,
+        capacity=512, page_size=16, kernel="paged", prefix_sharing=True,
+        backend=ArrayBackend(cache=CompileCache(cache_dir=cache_dir),
+                             device=DEV), warm=role == "B")
+    routes = check_paged_routes(eng, launches, paged_attention, cfg, tag)
+    out = serve_numbers(eng, wave, launches)
+    one = serve_numbers(eng, first, launches)
+    out.update(routes=routes, t_draw_s=t_draw,
+               first_wave=dict(ttft_p50_s=one["ttft_p50_s"],
+                               tpot_p50_s=one["tpot_p50_s"]),
+               outs=[list(map(int, r.out)) for r in first + wave])
+    print(json.dumps(out))
+    return 0
+
+
+def _restart_line(tag, role, r, card):
+    c = r["step"]
+    print(f"[{tag}] process {role}: engine built in {c['t_build_s']:.2f}s "
+          f"({c['captured_ahead']} captures ahead), {c['request_captures']}"
+          f" captures on the request path, {c['replays']} replays; sources "
+          f"{json.dumps(c['sources'])}; TTFT p50 by wave "
+          f"{[round(t * 1e3, 1) for t in c['wave_ttft_p50_s']]} ms, TPOT "
+          f"p50 first wave {r['first_wave']['tpot_p50_s'] * 1e3:.2f} ms, "
+          f"last {r['tpot_p50_s'] * 1e3:.2f} ms; {c['pools']} graph pool(s), "
+          f"{c['pool_bytes'] / 2**20:.1f} MiB; launches "
+          f"{r['launches']}, {json.dumps(c['launches_in_replays'])} inside "
+          f"replays; on {card}")
+
+
+def _restart_gates(tag, cfg, a, b, kernel):
+    """B read "disk" for every key A captured, captured each ahead and
+    nothing on the request path, where every launch of ``kernel`` ran
+    inside a replay; B's tokens equal A's."""
+    keys = set(a["step"]["sources"])
+    check(b["step"]["sources"] == dict.fromkeys(keys, "disk"),
+          f"[{tag}] B's sources {b['step']['sources']} against A's keys "
+          f"{sorted(keys)}")
+    check(b["step"]["request_captures"] == 0
+          and b["step"]["captured_ahead"] == len(keys),
+          f"[{tag}] B captured {b['step']['captured_ahead']} ahead and "
+          f"{b['step']['request_captures']} on the request path")
+    calls = b["steps"] + b["prefill_dispatches"] if kernel == \
+        "paged_attention" else b["prefill_dispatches"]
+    inside = b["step"]["launches_in_replays"][kernel]
+    check(inside == cfg.n_layers * calls,
+          f"[{tag}] {kernel}: {inside} launches inside B's replays, "
+          f"expected {cfg.n_layers} x {calls}")
+    same = sum(x == y for p, q in zip(a["outs"], b["outs"])
+               for x, y in zip(p, q))
+    total = sum(len(p) for p in a["outs"])
+    check(same == total and total > 0,
+          f"[{tag}] B's tokens equal A's at {same}/{total}")
+    return [same, total]
+
+
+def phase_restart(card, root):
+    """Two processes over one compile-cache directory, one after the
+    other (``restart_child``): A fills it, B captures every recorded
+    shape at construction. Each draws its own 29.5 GB of weights; this
+    process holds none then (run after the qwen3-14b phases freed theirs).
+    Gates: ``_restart_gates`` (144 of 144 tokens)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-14b")
+    d = tempfile.mkdtemp(prefix="restart-",
+                         dir=os.environ["REPRO_COMPILE_CACHE_DIR"])
+    print(f"[restart] this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved while "
+          "its two children run")
+    runs = {}
+    for role in "AB":
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                            "--restart-child", role, d], cwd=root,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = p.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"[restart] {role} | {line}")
+        check(p.returncode == 0 and lines,
+              f"[restart] process {role} exited {p.returncode}: "
+              f"{p.stderr[-4000:]}")
+        runs[role] = r = json.loads(lines[-1])
+        r["process_wall_s"] = wall
+        _restart_line("restart", role, r, card)
+    a, b = runs["A"], runs["B"]
+    tokens = _restart_gates("restart", cfg, a, b, "paged_attention")
+    print(f"[restart] qwen3-14b: B's engine built in "
+          f"{b['step']['t_build_s']:.2f}s against A's "
+          f"{a['step']['t_build_s']:.2f}s, first wave TTFT p50 "
+          f"{b['first_wave']['ttft_p50_s'] * 1e3:.1f} against "
+          f"{a['first_wave']['ttft_p50_s'] * 1e3:.1f} ms, second wave "
+          f"{b['ttft_p50_s'] * 1e3:.1f} against {a['ttft_p50_s'] * 1e3:.1f}"
+          f" ms; processes {a['process_wall_s']:.1f}s / "
+          f"{b['process_wall_s']:.1f}s (weights drawn in "
+          f"{a['t_draw_s']:.1f}s / {b['t_draw_s']:.1f}s); tokens equal at "
+          f"{tokens[0]}/{tokens[1]}; on {card}")
+    for r in runs.values():
+        r.pop("outs")
+    return dict(A=a, B=b, tokens_equal=tokens)
+
+
+def phase_restart_ssm(cfg, params, ssd_scan, card):
+    """``[restart]`` for mamba2-1.3b on ``[serve-ssm]``'s wave, in this
+    process: A's engine over an empty directory, dropped; then B, a fresh
+    compile cache over the same directory (the later process's part).
+    Gates: ``_restart_gates`` — every ``ssd_scan`` launch of B's request
+    path inside a replay of a graph captured ahead — and every launch on
+    the tc route."""
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
+    d = tempfile.mkdtemp(prefix="restart-ssm-",
+                         dir=os.environ["REPRO_COMPILE_CACHE_DIR"])
+    runs = {}
+    for role in "AB":
+        wave = ssm_wave(cfg)
+        tag = f"restart-ssm-{role}"
+        eng, launches = run_serve(
+            cfg, params, [wave], ssd_scan, tag=tag, slots=4, capacity=1024,
+            page_size=16, kernel="auto",
+            backend=ArrayBackend(cache=CompileCache(cache_dir=d), device=DEV),
+            warm=role == "B")
+        routes = dict(ssd_scan.routes)
+        check(routes["tc"] == launches > 0,
+              f"[{tag}] ssd_scan: {launches} launches, routes {routes}")
+        r = runs[role] = serve_numbers(eng, wave, launches)
+        r.update(routes=routes, first_wave=dict(
+            ttft_p50_s=r["ttft_p50_s"], tpot_p50_s=r["tpot_p50_s"]),
+            outs=[list(map(int, q.out)) for q in wave])
+        del eng
+        gc.collect()
+        _restart_line("restart-ssm", role, r, card)
+    a, b = runs["A"], runs["B"]
+    tokens = _restart_gates("restart-ssm", cfg, a, b, "ssd_scan")
+    print(f"[restart-ssm] mamba2-1.3b: B's engine built in "
+          f"{b['step']['t_build_s']:.2f}s against A's "
+          f"{a['step']['t_build_s']:.2f}s, TTFT p50 "
+          f"{b['ttft_p50_s'] * 1e3:.1f} against {a['ttft_p50_s'] * 1e3:.1f}"
+          f" ms; tokens equal at {tokens[0]}/{tokens[1]}; on {card}")
+    for r in runs.values():
+        r.pop("outs")
+    return dict(A=a, B=b, tokens_equal=tokens)
+
+
+def phase_engine_churn(cfg, params, card, n=5):
+    """qwen3-14b ``PagedServeEngine``s over the same weights and one
+    compile cache, each built, serving ``[serve]``'s second wave, and
+    dropped, ``n`` times. After each drop: ``memory_reserved()``, the
+    cache's pool count and its pools' MiB. Gates: after the last drop the
+    pool count is back to its value before the first engine, and
+    ``memory_reserved()`` is within 64 MiB of its value after the first
+    drop; every engine's tokens equal the first's (no stale graph)."""
+    from repro_torch.core.backend import ArrayBackend
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.serve.engine import PagedServeEngine
+    cache = CompileCache(persistent=False)
+    backend = ArrayBackend(cache=cache, device=DEV)
+    gc.collect()
+    torch.cuda.synchronize()
+    pools0 = len(cache.pools)
+    reads, outs = [], []
+    for i in range(n):
+        _, wave = serve_traffic(cfg)
+        eng = PagedServeEngine(cfg, params, slots=4, page_size=16,
+                               pages_per_slot=32, kernel="paged",
+                               prefix_sharing=True, device=DEV,
+                               backend=backend)
+        eng.run(wave)
+        outs.append([list(map(int, r.out)) for r in wave])
+        live = dict(pools=len(cache.pools),
+                    pool_mib=_graph_pool_bytes(cache) / 2**20,
+                    reserved=torch.cuda.memory_reserved())
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        reads.append(dict(engine=i + 1, live=live,
+                          reserved=torch.cuda.memory_reserved(),
+                          pools=len(cache.pools),
+                          pool_mib=_graph_pool_bytes(cache) / 2**20,
+                          captures=cache.stats["captures"]))
+        r = reads[-1]
+        print(f"[engine-churn] engine {i + 1}: while it served "
+              f"{live['pools']} pool(s), {live['pool_mib']:.1f} MiB, "
+              f"{live['reserved'] / 2**20:,.0f} MiB reserved; dropped: "
+              f"{r['pools']} pool(s), {r['pool_mib']:.1f} MiB, "
+              f"memory_reserved() {r['reserved'] / 2**20:,.0f} MiB; "
+              f"{r['captures']} captures so far; on {card}")
+    grew = reads[-1]["reserved"] - reads[0]["reserved"]
+    check(reads[-1]["pools"] == pools0,
+          f"[engine-churn] {reads[-1]['pools']} pools after the last drop, "
+          f"{pools0} before the first engine")
+    check(grew <= 64 * 2**20,
+          f"[engine-churn] memory_reserved() grew {grew / 2**20:.1f} MiB "
+          "from the first drop to the last")
+    check(all(o == outs[0] for o in outs),
+          "[engine-churn] an engine's tokens differ from the first's")
+    print(f"[engine-churn] {n} engines built and dropped: pools "
+          f"{pools0} -> {reads[-1]['pools']}, memory_reserved() after the "
+          f"first drop {reads[0]['reserved'] / 2**20:,.0f} MiB, after the "
+          f"last {reads[-1]['reserved'] / 2**20:,.0f} MiB ({grew / 2**20:+.1f}"
+          f"); tokens of every engine equal; on {card}")
+    drop = drop_while_serving(cfg, params, backend, card)
+    gc.collect()            # the live engine's timed step made it a cycle
+    torch.cuda.synchronize()
+    check(len(cache.pools) == pools0,
+          f"[engine-churn] {len(cache.pools)} pools after the live engine "
+          f"went, {pools0} before the first engine")
+    return dict(pools_before=pools0, reads=reads, reserved_growth=grew,
+                drop_while_serving=drop)
+
+
+def drop_while_serving(cfg, params, backend, card):
+    """What dropping an engine costs one that is serving: engine L serves
+    ``[serve]``'s second wave three times (once to capture its shapes, a
+    baseline, and once while a thread drops engine D, built and served
+    before, after L's third decode step: D's graphs are released in that
+    thread — its card synchronised, the cached blocks handed back — while
+    L decodes). Printed: each wave's TPOT p50, its median and longest
+    decode step, and the drop's seconds. Gates: the drop wave's tokens
+    equal the baseline's, and D's pool goes while L's stays."""
+    import threading
+    from repro_torch.serve.engine import PagedServeEngine
+
+    def build():
+        return PagedServeEngine(cfg, params, slots=4, page_size=16,
+                                pages_per_slot=32, kernel="paged",
+                                prefix_sharing=True, device=DEV,
+                                backend=backend)
+
+    held = [build()]
+    held[0].run(serve_traffic(cfg)[1])
+    live = build()
+    steps, go, dropped = [], threading.Event(), {}
+    serve_step = live.step
+
+    def timed_step():
+        t = time.perf_counter()
+        serve_step()                   # ends on the host's read of tokens
+        steps.append(time.perf_counter() - t)
+        if len(steps) == 3:
+            go.set()
+
+    def drop():
+        go.wait()
+        t = time.perf_counter()
+        held.pop()          # the last reference: the release runs here
+        dropped["s"] = time.perf_counter() - t
+
+    live.step = timed_step
+    waves = {}
+    for name in ("capture", "baseline", "drop"):
+        steps.clear()
+        go.clear()
+        wave = serve_traffic(cfg)[1]
+        t = threading.Thread(target=drop) if name == "drop" else None
+        if t:
+            pools = len(backend.cache.pools)        # L's and D's
+            t.start()
+        live.run(wave)
+        if t:
+            t.join()
+        out = serve_numbers(live, wave, None)
+        waves[name] = dict(tpot_p50_s=out["tpot_p50_s"],
+                           step_p50_s=float(np.median(steps)),
+                           step_max_s=max(steps),
+                           outs=[list(map(int, r.out)) for r in wave])
+    base, hit = waves["baseline"], waves["drop"]
+    check(hit["outs"] == base["outs"],
+          "[engine-churn] the live engine's tokens changed under the drop")
+    check(len(backend.cache.pools) == pools - 1,
+          f"[engine-churn] {len(backend.cache.pools)} pools after the drop "
+          f"under load, {pools} before it")
+    print(f"[engine-churn] an engine dropped in another thread while one "
+          f"serves: the drop took {dropped['s'] * 1e3:.1f} ms; the live "
+          f"engine's TPOT p50 {hit['tpot_p50_s'] * 1e3:.2f} ms (baseline "
+          f"{base['tpot_p50_s'] * 1e3:.2f}), decode step p50 "
+          f"{hit['step_p50_s'] * 1e3:.2f} ms ({base['step_p50_s'] * 1e3:.2f})"
+          f", longest {hit['step_max_s'] * 1e3:.2f} ms "
+          f"({base['step_max_s'] * 1e3:.2f}); tokens equal; on {card}")
+    for w in waves.values():
+        w.pop("outs")
+    return dict(drop_s=dropped["s"], **waves)
+
+
+# ---------------------------------------------------------------------------
 # The fixed-ring engine, the engine's obs hooks, the examples
 # ---------------------------------------------------------------------------
 
@@ -2407,7 +2789,8 @@ def phase_lockstep_fixed(cfg, params, B=4, S=128, capacity=512, steps=8,
 
     pos0 = torch.full((B, 1), S, dtype=torch.int32, device=DEV)
     t0 = torch.argmax(lg0[:, 0], -1)[:, None].to(torch.int32)
-    exe, _ = ArrayBackend(cache=CompileCache(), device=DEV).compile(
+    exe, _ = ArrayBackend(cache=CompileCache(persistent=False),
+                          device=DEV).compile(
         step_fn, (params, twin, t0, pos0), bind_argnums=(0, 1))
     runs, stacks = {}, {}
     for mode, c, step in (("eager", caches, step_fn), ("graph", twin, exe)):
@@ -3132,7 +3515,7 @@ def _profile_steps(cfg, params, steps, S, tag, moe):
                                  kernel="paged")[0]
 
     # the engine's step: eager, then captured once and replayed
-    graph, _ = ArrayBackend(cache=CompileCache()).compile(
+    graph, _ = ArrayBackend(cache=CompileCache(persistent=False)).compile(
         step_fn, (params, pool, tables, t, pos, live), bind_argnums=(0, 1))
 
     def stepper(fn):
@@ -3228,7 +3611,7 @@ def phase_profile_prefill(cfg, params, B=4, S=512, tag="profile-ssm",
         return paged_prefill(p, kv, tb, tt, ln, cfg, slot_ids=sd,
                              kernel="paged")[0]
 
-    caches = [CompileCache()]
+    caches = [CompileCache(persistent=False)]
     graph, _ = ArrayBackend(cache=caches[0]).compile(
         prefill_fn, (params, pool, tables, toks, lens, sids),
         bind_argnums=(0, 1))
@@ -3283,7 +3666,7 @@ def phase_profile_prefill(cfg, params, B=4, S=512, tag="profile-ssm",
         del pool
         torch.cuda.empty_cache()
         big = paged_cache_init(cfg, more_slots, B * npps, ps, DEV)
-        caches.append(CompileCache())
+        caches.append(CompileCache(persistent=False))
         exe, _ = ArrayBackend(cache=caches[1]).compile(
             prefill_fn, (params, big, tables, toks, lens, sids),
             bind_argnums=(0, 1))
@@ -3332,7 +3715,7 @@ def phase_lockstep_prefill(cfg, params, shapes, npps=32, pool_pages=128,
     from repro_torch.serve.engine import PagedServeEngine
     from torch.utils import _pytree as pytree
     slots, ps = 4, 16
-    cache = CompileCache()
+    cache = CompileCache(persistent=False)
     eng = PagedServeEngine(cfg, params, slots=slots, page_size=ps,
                            pages_per_slot=npps, pool_pages=pool_pages,
                            kernel="paged", device=DEV,
@@ -3622,7 +4005,7 @@ def phase_train(cfg, tag, B, S, counters, card, note="", microbatch=False):
         mode = "replayed" if capture else "eager"
         state = train_state(cfg)
         state_gb = torch.cuda.memory_allocated() / 1e9
-        cache = CompileCache()
+        cache = CompileCache(persistent=False)
         step, source = compile_step(
             cfg, opt, state, batches[0], capture_step=capture,
             backend=ArrayBackend(cache=cache, device=DEV))
@@ -3900,7 +4283,7 @@ def phase_train_fault(counters, card, n=8, fail_at=5):
         state = train_state(cfg)
         ptrs = [x.data_ptr() for _, x in leaves_with_path(state)]
         step, _ = compile_step(cfg, opt, state, get(0), backend=ArrayBackend(
-            cache=CompileCache(), device=DEV))
+            cache=CompileCache(persistent=False), device=DEV))
         if name == "uninterrupted":
             losses = []
             for s in range(n):
@@ -3991,8 +4374,8 @@ def phase_mesh(card, counters, launch):
     x = np.random.default_rng(0).standard_normal((LAUNCH_N, 64)).astype(
         np.float32)
     want, _ = LLMapReduce(scheduler="array", wave_size=LAUNCH_WAVE,
-                          cache=CompileCache(), device=DEV).map_reduce(
-                              launch_app, x)
+                          cache=CompileCache(persistent=False),
+                          device=DEV).map_reduce(launch_app, x)
     card0 = card_device()
     meshes = (("host", make_host_mesh(None if DEV == "cuda" else DEV)),
               ("card-twice", Mesh([[card0], [card0]], ("data", "model"))))
@@ -4000,7 +4383,7 @@ def phase_mesh(card, counters, launch):
         fn.launches = 0
     out = {}
     for name, mesh in meshes:
-        cache = CompileCache()
+        cache = CompileCache(persistent=False)
         be = make_backend("array", mesh=mesh, cache=cache)
         reads = []
         for when in ("cold", "warm"):
@@ -4368,6 +4751,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # every run starts cold: the compile cache's records go to a fresh
+    # directory (a leftover one would turn "compiled" into "disk"), set
+    # before the first import of repro_torch and removed at exit
+    graphs = tempfile.mkdtemp(prefix="chip-smoke-graphs-")
+    os.environ["REPRO_COMPILE_CACHE_DIR"] = graphs
+    atexit.register(shutil.rmtree, graphs, ignore_errors=True)
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     # flex_attention's compiled kernels (the softcap yardstick) stay in build/
@@ -4386,10 +4775,7 @@ def main() -> int:
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # bf16 products reduce in f32, as the reference's do (no bf16 split-K)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    card_settings()
     print(f"[card] {name} | nvidia-smi: {card} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | tf32 off | bf16 reductions in f32")
 
@@ -4508,8 +4894,14 @@ def main() -> int:
     srv["prefill_profile"] = phase_profile_prefill(
         cfg, params, S=128, tag="profile", kernel="paged")
     blocked = phase_blocked(cfg, params, card)
+    t0 = time.perf_counter()
+    churn = phase_engine_churn(cfg, params, card)
+    print(f"[engine-churn] phase wall {time.perf_counter() - t0:.1f}s")
     del params
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restart = phase_restart(card, root)
+    print(f"[restart] phase wall {time.perf_counter() - t0:.1f}s")
 
     cfg = get_config("mamba2-1.3b")
     s = cfg.groups[0].pattern[0].ssm
@@ -4523,6 +4915,9 @@ def main() -> int:
           f"embeddings; {cfg.param_count() / 1e9:.2f} B params drawn on the "
           f"card in {time.perf_counter() - t0:.1f}s")
     ssm = phase_serve_ssm(cfg, params, ssd_scan, card)
+    t0 = time.perf_counter()
+    restart["mamba2-1.3b"] = phase_restart_ssm(cfg, params, ssd_scan, card)
+    print(f"[restart-ssm] phase wall {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     dist_serve = phase_dist_serve(cfg, params, ssd_scan, card, ssm)
     t_dist_serve = time.perf_counter() - t0
@@ -4635,7 +5030,10 @@ def main() -> int:
     print(f"[dryrun] phase wall {time.perf_counter() - t0:.1f}s")
 
     paged_phases = {"serve": srv, "serve-graph": graph, "serve-obs": obs,
+                    "restart A": restart["A"], "restart B": restart["B"],
                     "serve-window": win, "serve-moe": moe, "serve-mla": mla}
+    ssm_restart = {f"restart-ssm {k}": restart["mamba2-1.3b"][k]
+                   for k in "AB"}
     for r in (srv, graph, moe, mla):
         r.pop("outs", None)
     dec = rec["decode"]
@@ -4674,7 +5072,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:63",
         "launches": ssm["launches"] + dist_serve["launches"]
-        + fixed_ssm["launches"] + int8["launches"] + sum(
+        + fixed_ssm["launches"] + int8["launches"]
+        + sum(r["launches"] for r in ssm_restart.values()) + sum(
             train_ssm[m]["launches"]["ssd_scan"]
             for m in ("eager", "replayed"))
         + fault["launches"]["ssd_scan"] + wine["launches"]["ssd_scan"]
@@ -4684,6 +5083,7 @@ def main() -> int:
             "dist-serve": dist_serve["launches"],
             "serve-fixed-ssm": fixed_ssm["launches"],
             "serve-int8": int8["launches"],
+            **{n: r["launches"] for n, r in ssm_restart.items()},
             "train-ssm eager": train_ssm["eager"]["launches"]["ssd_scan"],
             "train-ssm replayed":
                 train_ssm["replayed"]["launches"]["ssd_scan"],
@@ -4696,7 +5096,7 @@ def main() -> int:
             n: r["step"]["launches_in_replays"]["ssd_scan"]
             for n, r in (("serve-ssm", ssm), ("dist-serve", dist_serve),
                          ("serve-fixed-ssm", fixed_ssm),
-                         ("serve-int8", int8))},
+                         ("serve-int8", int8), *ssm_restart.items())},
         "train_launches_a_step": {
             m: [r["ssd_scan"] for r in train_ssm[m]["launches_a_step"]]
             for m in ("eager", "replayed")},
@@ -4709,6 +5109,7 @@ def main() -> int:
                             "dist-serve": dist_serve["routes"],
                             "serve-fixed-ssm": fixed_ssm["routes"],
                             "serve-int8": int8["routes"],
+                            **{n: r["routes"] for n, r in ssm_restart.items()},
                             **{f"train-ssm {m}":
                                train_ssm[m]["routes"]["ssd_scan"]
                                for m in ("eager", "replayed")}},
@@ -4740,6 +5141,8 @@ def main() -> int:
     print(f"[wine] summary {json.dumps(wine)}")
     print(f"[serve] summary {json.dumps(srv)}")
     print(f"[serve-graph] summary {json.dumps(graph)}")
+    print(f"[restart] summary {json.dumps(restart)}")
+    print(f"[engine-churn] summary {json.dumps(churn)}")
     print(f"[serve-obs] summary {json.dumps(obs)}")
     print(f"[serve-fixed] summary {json.dumps(fixed)}")
     print(f"[serve-ssm] summary {json.dumps(ssm)}")
@@ -4769,4 +5172,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--restart-child"]:
+        sys.exit(restart_child(*sys.argv[2:4]))
     sys.exit(main())

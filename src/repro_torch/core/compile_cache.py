@@ -16,9 +16,32 @@ whole recorded kernel sequence.
     name and index (two cards of one model get keys of their own: a graph
     holds one card's addresses). Never ``id(fn)``, which CPython reuses
     after garbage collection;
-  * one memory tier. There is no disk tier: a CUDA graph holds raw device
-    addresses and cannot be serialized. What the port does keep across
-    processes is the nvcc-built kernel library (``kernels._build``).
+  * two tiers, memory and disk. A CUDA graph holds raw device addresses, so
+    the graph itself cannot go to disk. What does is the RECORD of what was
+    captured: the key, the executable's name and ``extras``, the input
+    signature (the tree's shapes and dtypes as ``TensorSpec``s) and
+    ``bind_argnums``, one JSON file a key (``RECORD_SUFFIX``). ``compile``
+    returns source ``"disk"`` for a key this cache has no executable for
+    but the directory has a record of, and records every new key. A later
+    process lists the records of a configuration (``records``) and
+    captures those shapes AHEAD of its first request, where the reference
+    compiles (``serve.engine``): the record is the pre-staged environment,
+    the capture ahead is its set-up. A disk hit by itself saves no work in
+    ``compile``: an executable that nobody captures ahead still captures on
+    its first call (the launch backends' wave graphs do; their source reads
+    ``"disk"`` and their cost does not change). The tier follows the
+    reference's policy: records stamped with another version (torch, CUDA,
+    the card's name, the port's source salt: ``_version_tag``) are deleted
+    on sight, ``max_bytes`` (default ``REPRO_COMPILE_CACHE_MAX_BYTES``)
+    bounds the directory least-recently-used first by bytes (a disk hit
+    refreshes a record's mtime), a record is published atomically (a
+    temporary file, then ``os.replace``), and a failure to spill counts in
+    ``stats["spill_errors"]`` and never raises; an unreadable record is a
+    miss and is recorded again. The directory is the port's own
+    (``default_cache_dir``) and its prunes touch only its own suffix, so
+    the reference's ``.aotx`` spills and the port's records never delete
+    each other. The nvcc-built kernel library persists on its own
+    (``kernels._build``).
 
 On CUDA ``compile`` returns a ``GraphExecutable``. Its graph is captured on
 the FIRST call of a binding (see below): that call runs the function
@@ -45,13 +68,31 @@ by the graph.
 Graphs of one cache that bind the same tensors (an engine's decode step
 and its prefill executables, one a shape, all over the same weights and
 pool) capture into ONE shared memory pool, so the number of shapes does
-not multiply the card's graph memory; a graph that binds nothing keeps a
-pool of its own (the launch backends' wave graphs, which may replay on
-several streams at once). Such graphs write the same tensors, so they
-replay one at a time on one stream, and the contract is: **an
+not multiply the card's graph memory. Such graphs write the same tensors,
+so they replay one at a time on one stream, and the contract is: **an
 executable's outputs are valid until the next replay of any graph in its
 pool** (a later capture may place its outputs where an earlier graph keeps
 its temporaries). Callers consume or copy them at once.
+
+How long a graph lives:
+
+  * a graph that BINDS tensors (an engine's step and prefills, a Wine
+    instance's step) lives as long as every tensor it binds. Each bound
+    storage is watched (``weakref.finalize``, ``_Binding``); when one is
+    freed — the engine is dropped, its pool goes — every graph of that
+    binding is unlinked from its executable at once and its pool entry
+    leaves ``CompileCache.pools``, so no call can replay it again: a new
+    engine whose tensors land at the same addresses captures its own.
+    The unlinked graphs, their static buffers and outputs are destroyed as
+    soon as no capture is running (a finalizer may fire inside one), in
+    the thread that dropped the last reference, after their own card is
+    synchronised (no replay of them in flight; no other card waits), and
+    the cached blocks are then returned (``empty_cache``), so
+    ``memory_reserved()`` falls back;
+  * a graph that binds NOTHING (the launch backends' wave graphs, the
+    fabric's thread nodes: one a shard shape) keeps a pool of its own,
+    owned by its executable (several may replay on several streams at
+    once), and goes when the executable goes: with its cache.
 
 The kernels' launch counters (``paged_attention.launches`` / ``.routes``,
 ``ssd_scan``'s, ``flash_attention.launches``) count in Python, so a replay
@@ -69,14 +110,17 @@ is folded into that capture's change (the launch path's applications
 launch none of the counted kernels).
 
 On the CPU the executable is the function itself behind the same
-signature check and bookkeeping, so the cache's tests run without a card.
+signature check and bookkeeping, so the cache's tests (the disk tier's
+among them) run without a card.
 """
 from __future__ import annotations
 
 import hashlib
 import inspect
+import json
 import os
 import re
+import tempfile
 import threading
 import time
 import weakref
@@ -94,6 +138,40 @@ from repro_torch.models.spec import TensorSpec
 
 # the wrappers whose launch counters a replay must keep true
 COUNTED = (paged_attention, ssd_scan, flash_attention)
+
+_DEFAULT_DIR_ENV = "REPRO_COMPILE_CACHE_DIR"
+_MAX_BYTES_ENV = "REPRO_COMPILE_CACHE_MAX_BYTES"
+#: the records' suffix: the port's own (the reference spills ``.aotx``)
+RECORD_SUFFIX = ".graph.json"
+
+
+def default_cache_dir() -> str:
+    """The port's record directory: ``$REPRO_COMPILE_CACHE_DIR/repro_torch``
+    where that variable is set (a folder of its own inside the reference's
+    directory), else ``~/.cache/repro-torch-graphs``."""
+    base = os.environ.get(_DEFAULT_DIR_ENV)
+    if base:
+        return os.path.join(base, "repro_torch")
+    return os.path.join(os.path.expanduser("~"), ".cache",
+                        "repro-torch-graphs")
+
+
+_VERSION_TAG: Optional[str] = None
+
+
+def _version_tag() -> str:
+    """Short digest of what a record's keys depend on beyond the program:
+    torch's version, its CUDA version, the card's name and the port's
+    source salt. A record stamped with another tag can never hit (the
+    fingerprint folds the same in), so pruning deletes it on sight."""
+    global _VERSION_TAG
+    if _VERSION_TAG is None:
+        card = (torch.cuda.get_device_name(0) if torch.cuda.is_available()
+                else "cpu")
+        _VERSION_TAG = hashlib.sha256(
+            f"torch:{torch.__version__} cuda:{torch.version.cuda} "
+            f"card:{card} src:{_source_tree_salt()}".encode()).hexdigest()[:8]
+    return _VERSION_TAG
 
 
 # ----------------------------------------------------------------------
@@ -321,6 +399,39 @@ def fingerprint(fn: Callable, abstract_args: tuple, extras: tuple = (),
     return hashlib.sha256(blob.encode()).hexdigest()
 
 
+def _jsonable(x: Any) -> Any:
+    """``x`` as JSON reads it back (tuples become lists; what JSON cannot
+    hold becomes its ``repr``)."""
+    return json.loads(json.dumps(x, default=repr))
+
+
+def signature_record(args: tuple) -> list:
+    """The input signature of ``args`` for a record: per argument, its tree
+    (``treespec_dumps``) and its leaves, ``[shape, dtype]`` for a tensor,
+    an array or a ``TensorSpec``, ``{"const": value}`` otherwise."""
+    out = []
+    for a in args:
+        leaves, spec = pytree.tree_flatten(abstractify(a))
+        out.append({"tree": pytree.treespec_dumps(spec), "leaves": [
+            [list(x.shape), str(x.dtype).replace("torch.", "")]
+            if isinstance(x, TensorSpec) else {"const": _jsonable(x)}
+            for x in leaves]})
+    return out
+
+
+def record_args(record: dict) -> tuple:
+    """The abstract arguments (``TensorSpec`` trees) a record was made for:
+    what ``compile`` takes as ``example_args`` to rebuild its executable."""
+    args = []
+    for a in record["signature"]:
+        leaves = [TensorSpec(tuple(x[0]), getattr(torch, x[1]))
+                  if isinstance(x, list) else x["const"]
+                  for x in a["leaves"]]
+        args.append(pytree.tree_unflatten(leaves,
+                                          pytree.treespec_loads(a["tree"])))
+    return tuple(args)
+
+
 # ----------------------------------------------------------------------
 # Executables
 # ----------------------------------------------------------------------
@@ -378,21 +489,53 @@ class Executable:
         return self.fn(*args)
 
 
+def _view_key(x: torch.Tensor) -> tuple:
+    return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+
+
 class _Graph:
     """One captured graph: its static input buffers (None where a leaf is
-    bound or not a tensor), its outputs, and the counter changes a replay
-    adds."""
+    bound or not a tensor), its outputs, the counter changes a replay
+    adds, and the ``_Binding`` it captured over (None: it binds nothing).
 
-    def __init__(self, graph, static_leaves, out, counts):
+    An output that IS one of the bound tensors (a train step returns its
+    state) is not kept: holding it would keep the binding alive as long
+    as the graph, and the graph as long as its executable. A replay
+    returns the call's own bound tensor in its place (``outputs``)."""
+
+    def __init__(self, graph, static_leaves, out, counts, bound=None,
+                 bound_leaves=()):
         self.graph = graph
         self.static_leaves = static_leaves
-        self.out = out
         self.counts = counts
+        self.bound = bound
         self.replays = 0
+        where = {_view_key(x): k for k, x in enumerate(bound_leaves)
+                 if isinstance(x, torch.Tensor)}
+        leaves, self.out_spec = pytree.tree_flatten(out)
+        self.alias = [where.get(_view_key(x))
+                      if isinstance(x, torch.Tensor) else None
+                      for x in leaves]
+        self.aliased = any(a is not None for a in self.alias)
+        self.out = None if self.aliased else out
+        self.out_leaves = [None if a is not None else x
+                           for x, a in zip(leaves, self.alias)]
+
+    def outputs(self, bound_leaves: list):
+        """The outputs of a replay whose bound tensors are
+        ``bound_leaves``."""
+        if not self.aliased:
+            return self.out
+        return pytree.tree_unflatten(
+            [bound_leaves[a] if a is not None else x
+             for x, a in zip(self.out_leaves, self.alias)], self.out_spec)
 
 
 _CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 _CAPTURE_LOCK = threading.RLock()
+_capturing = 0                  # captures running (under _CAPTURE_LOCK)
+_GRAVE: List[_Graph] = []       # graphs released, not yet destroyed
+_GRAVE_LOCK = threading.Lock()
 
 
 def capture_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -404,12 +547,78 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return s
 
 
+class _Binding:
+    """The tensors a set of graphs read and write at their own addresses
+    (an engine's weights and caches), keyed ``(device, data pointers)`` in
+    a cache's ``pools``, and the memory pool those graphs share. Each bound
+    storage is watched: when any is freed, ``_release`` unlinks every
+    graph captured over the binding."""
+
+    def __init__(self, key: tuple, storages, pools: dict):
+        self.key = key
+        self.pools = pools
+        self.pool = None                    # a graph pool, on first capture
+        self.holders = weakref.WeakSet()    # executables with a graph here
+        self._watch = [weakref.finalize(s, _release, self) for s in storages]
+        for f in self._watch:
+            f.atexit = False                # nothing to free at exit
+
+    def unlink(self) -> List[_Graph]:
+        """Take the binding out of its cache and its graphs out of their
+        executables (idempotent) -> the graphs taken."""
+        for f in self._watch:
+            f.detach()
+        if self.pools.get(self.key) is self:
+            del self.pools[self.key]
+        ptrs, graphs = self.key[1], []
+        for exe in list(self.holders):
+            g = exe.graphs.get(ptrs)
+            if g is not None and g.bound is self:
+                graphs.append(exe.graphs.pop(ptrs))
+        self.holders.clear()
+        return graphs
+
+
+def _release(bound: _Binding) -> None:
+    """A bound storage was freed: no call may find the binding's graphs
+    again (unlinked now, in whatever thread freed it); they are destroyed
+    once no capture is running."""
+    graphs = bound.unlink()
+    with _GRAVE_LOCK:
+        _GRAVE.extend(graphs)
+    _bury()
+
+
+def _bury() -> None:
+    """Destroy the released graphs and hand the card's cached blocks back,
+    unless a capture is running (another thread's, or this thread's: a
+    finalizer can fire inside one); the capture's end buries them."""
+    if not _GRAVE or not _CAPTURE_LOCK.acquire(blocking=False):
+        return
+    try:
+        if _capturing:
+            return
+        with _GRAVE_LOCK:
+            dead = list(_GRAVE)
+            _GRAVE.clear()
+        if dead and torch.cuda.is_initialized():
+            # no replay of them in flight: their own cards alone, so no
+            # other card's work stalls for a drop
+            for dev in {g.bound.key[0] for g in dead}:
+                torch.cuda.synchronize(dev)
+        dead.clear()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+    finally:
+        _CAPTURE_LOCK.release()
+
+
 class GraphExecutable(Executable):
     """A function captured as CUDA graphs, one per binding (see the module
     docstring). ``stream`` is the side stream its warm-ups and captures
     run on (default: the device's shared capture stream); ``pools`` maps a
-    (device, binding) to the memory pool its graphs share (None: every
-    graph a pool of its own)."""
+    (device, binding) to its ``_Binding`` (the cache's, shared by every
+    executable of the cache; default a map of its own)."""
 
     def __init__(self, fn: Callable, signature: tuple,
                  bind_argnums: Sequence[int] = (), device=None,
@@ -421,19 +630,29 @@ class GraphExecutable(Executable):
         self.device = torch.device(device)
         self.stream = stream
         self.stats = stats if stats is not None else {}
-        self.pools = pools
+        self.pools = pools if pools is not None else {}
         self.graphs: Dict[tuple, _Graph] = {}
 
-    def _pool(self, binding: tuple):
-        """The memory pool a graph of ``binding`` captures into: the one
-        its bound tensors' other graphs share, or (nothing bound, no
-        ``pools``) None, a pool of its own."""
-        if self.pools is None or not binding:
+    def _bound(self, binding: tuple, per_arg: list) -> Optional[_Binding]:
+        """The ``_Binding`` a graph of ``binding`` captures over: the one
+        its bound tensors' other graphs share (made, and its storages
+        watched, on the first), or None when nothing is bound (a pool of
+        its own)."""
+        if not binding:
             return None
         key = (self.device, binding)
-        if key not in self.pools:
-            self.pools[key] = torch.cuda.graph_pool_handle()
-        return self.pools[key]
+        b = self.pools.get(key)
+        if b is None:
+            storages = {}
+            for i in self.bind_argnums:
+                for x in per_arg[i][0]:
+                    if isinstance(x, torch.Tensor):
+                        s = x.untyped_storage()
+                        storages[id(s)] = s
+            b = self.pools[key] = _Binding(key, storages.values(),
+                                           self.pools)
+        b.holders.add(self)
+        return b
 
     def __call__(self, *args):
         per_arg = [pytree.tree_flatten(a) for a in args]
@@ -452,7 +671,10 @@ class GraphExecutable(Executable):
         g.replays += 1
         self.stats["replays"] = self.stats.get("replays", 0) + 1
         _apply_counts(g.counts)
-        return g.out
+        if not g.aliased:
+            return g.out
+        return g.outputs([x for i in self.bind_argnums
+                          for x in per_arg[i][0]])
 
     def _buffer(self, x):
         """A static input buffer on the card holding ``x`` (None for a
@@ -464,8 +686,16 @@ class GraphExecutable(Executable):
         return None
 
     def _capture(self, args, per_arg, binding):
+        global _capturing
         with _CAPTURE_LOCK:
-            return self._capture_locked(args, per_arg, binding)
+            _bury()                 # released graphs' memory, before ours
+            _capturing += 1
+            try:
+                out = self._capture_locked(args, per_arg, binding)
+            finally:
+                _capturing -= 1
+        _bury()
+        return out
 
     def _capture_locked(self, args, per_arg, binding):
         t0 = time.perf_counter()
@@ -496,10 +726,13 @@ class GraphExecutable(Executable):
         # blocks the warm-up left cached: release them first (a train
         # step's activations would otherwise be held twice)
         torch.cuda.empty_cache()
+        bound = self._bound(binding, per_arg)
+        if bound is not None and bound.pool is None:
+            bound.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         before = _counts()
         with torch.cuda.stream(side):
-            graph.capture_begin(pool=self._pool(binding),
+            graph.capture_begin(pool=bound.pool if bound else None,
                                 capture_error_mode="thread_local")
             try:
                 g_out = self.fn(*static_args)
@@ -516,7 +749,9 @@ class GraphExecutable(Executable):
         delta = _count_delta(before, _counts())
         _apply_counts(delta, sign=-1)       # the capture launched nothing
         cur.wait_stream(side)
-        self.graphs[binding] = _Graph(graph, static_leaves, g_out, delta)
+        self.graphs[binding] = _Graph(
+            graph, static_leaves, g_out, delta, bound,
+            [x for i in self.bind_argnums for x in per_arg[i][0]])
         self.stats["captures"] = self.stats.get("captures", 0) + 1
         self.stats["t_capture_s"] = (self.stats.get("t_capture_s", 0.0)
                                      + time.perf_counter() - t0)
@@ -534,8 +769,8 @@ def make_executable(fn: Callable, example_args: tuple, *, device=None,
                     pools: Optional[dict] = None) -> Executable:
     """A fresh executable of ``fn`` for the signature of ``example_args``:
     a graph executable on the card (the default), the function itself on
-    the CPU. ``pools`` is the cache's map of shared graph pools (None:
-    outside any cache, a pool a graph)."""
+    the CPU. ``pools`` is the cache's map of bindings and their shared
+    graph pools (None: outside any cache, a map of the executable's own)."""
     dev = resolve_device(device)
     sig = _signature(tuple(example_args))
     if dev.type == "cuda":
@@ -572,25 +807,161 @@ class LazyGraph:
 # ----------------------------------------------------------------------
 
 class CompileCache:
-    """A memory tier of executables keyed by content fingerprint (no disk
-    tier: see the module docstring). ``stats`` counts hits and misses and,
-    for the graphs of its executables, captures and replays; ``pools``
-    holds the memory pool each binding's graphs share."""
+    """Two tiers (memory, disk) of executables keyed by content
+    fingerprint (see the module docstring). ``cache_dir`` holds the disk
+    tier's records (default ``default_cache_dir()``); ``persistent=False``
+    keeps the memory tier alone; ``max_bytes`` (default
+    ``REPRO_COMPILE_CACHE_MAX_BYTES``; None = unbounded) caps the records'
+    bytes, least recently used first. ``stats`` counts hits, misses and the
+    disk tier's work, and, for the graphs of its executables, captures and
+    replays; ``pools`` holds the ``_Binding`` each set of bound tensors'
+    graphs share (its memory pool), while those tensors live."""
 
-    def __init__(self):
+    def __init__(self, cache_dir: Optional[str] = None,
+                 persistent: bool = True,
+                 max_bytes: Optional[int] = None):
+        self.cache_dir = (cache_dir if cache_dir is not None
+                          else default_cache_dir())
+        self.persistent = persistent
+        if max_bytes is None:
+            env = os.environ.get(_MAX_BYTES_ENV)
+            max_bytes = int(env) if env else None
+        self.max_bytes = max_bytes
         self._mem: dict = {}
         self._lock = threading.Lock()
+        self._version_pruned = False
         self.pools: dict = {}
-        self.stats = {"mem_hits": 0, "misses": 0, "captures": 0,
-                      "replays": 0, "t_capture_s": 0.0}
+        self.stats = {"mem_hits": 0, "disk_hits": 0, "misses": 0,
+                      "spills": 0, "spill_errors": 0, "evictions": 0,
+                      "version_drops": 0, "captures": 0, "replays": 0,
+                      "t_capture_s": 0.0}
 
+    # -- the disk tier ------------------------------------------------------
+    def _path(self, key: str) -> str:
+        return os.path.join(self.cache_dir,
+                            f"{key}.{_version_tag()}{RECORD_SUFFIX}")
+
+    def _prune_stale_versions(self) -> None:
+        """Drop records stamped with another version (once a cache): they
+        can never hit. Only the port's suffix is listed."""
+        if self._version_pruned:
+            return
+        self._version_pruned = True
+        mine = f".{_version_tag()}{RECORD_SUFFIX}"
+        try:
+            for name in os.listdir(self.cache_dir):
+                if name.endswith(RECORD_SUFFIX) and not name.endswith(mine):
+                    os.remove(os.path.join(self.cache_dir, name))
+                    self.stats["version_drops"] += 1
+        except OSError:
+            pass
+
+    def _prune_lru(self) -> None:
+        """LRU by bytes: evict the least recently USED records (a disk hit
+        refreshes a record's mtime) until the directory fits
+        ``max_bytes``."""
+        if self.max_bytes is None:
+            return
+        try:
+            entries = []
+            for name in os.listdir(self.cache_dir):
+                if not name.endswith(RECORD_SUFFIX):
+                    continue
+                p = os.path.join(self.cache_dir, name)
+                st = os.stat(p)
+                entries.append((st.st_mtime_ns, st.st_size, p))
+            total = sum(sz for _, sz, _ in entries)
+            for _, sz, p in sorted(entries):
+                if total <= self.max_bytes:
+                    break
+                os.remove(p)
+                total -= sz
+                self.stats["evictions"] += 1
+        except OSError:
+            pass
+
+    def _disk_get(self, key: str) -> Optional[dict]:
+        """The record of ``key``, its recency refreshed, or None (none, or
+        one that cannot be read: a miss)."""
+        if not self.persistent:
+            return None
+        try:
+            self._prune_stale_versions()
+            path = self._path(key)
+            with open(path) as f:
+                record = json.load(f)
+            if record.get("key") != key:
+                return None
+            try:
+                os.utime(path)               # refresh LRU recency
+            except OSError:
+                pass                         # read-only dir: still a hit
+            return record
+        except Exception:
+            return None
+
+    def _disk_put(self, key: str, name: str, example_args: tuple,
+                  extras: tuple, bind_argnums: tuple,
+                  device: torch.device) -> None:
+        if not self.persistent:
+            return
+        try:
+            record = {
+                "version": _version_tag(), "key": key, "name": name,
+                "extras": _jsonable(list(extras)),
+                "bind_argnums": list(bind_argnums),
+                "device": _device_sig(device),
+                "signature": signature_record(tuple(example_args))}
+            os.makedirs(self.cache_dir, exist_ok=True)
+            self._prune_stale_versions()
+            fd, tmp = tempfile.mkstemp(dir=self.cache_dir, suffix=".tmp")
+            with os.fdopen(fd, "w") as f:
+                json.dump(record, f)
+            os.replace(tmp, self._path(key))     # atomic publish
+            self.stats["spills"] += 1
+            self._prune_lru()
+        except Exception:
+            self.stats["spill_errors"] += 1
+
+    def records(self, prefix: tuple = (), device=None) -> List[dict]:
+        """The readable records of this version whose ``extras`` start with
+        ``prefix`` (and, with ``device``, made for that device) and whose
+        key this cache's memory tier does not hold — what ``compile``
+        would serve from disk — in the order of their files: the shapes
+        earlier processes of one configuration met (``record_args`` reads
+        a record's shapes back)."""
+        if not self.persistent:
+            return []
+        want = _jsonable(list(prefix))
+        dev = _device_sig(resolve_device(device)) if device else None
+        mine = f".{_version_tag()}{RECORD_SUFFIX}"
+        out = []
+        try:
+            names = sorted(os.listdir(self.cache_dir))
+        except OSError:
+            return []
+        for fname in names:
+            if not fname.endswith(mine):
+                continue
+            try:
+                with open(os.path.join(self.cache_dir, fname)) as f:
+                    rec = json.load(f)
+            except Exception:
+                continue
+            if (rec.get("extras", [])[:len(want)] == want
+                    and (dev is None or rec.get("device") == dev)
+                    and rec.get("key") not in self._mem):
+                out.append(rec)
+        return out
+
+    # -- public API ---------------------------------------------------------
     def get(self, key: str):
-        """-> (executable, source) where source in {"memory", None}."""
+        """-> (executable, "memory") from the memory tier, or (None, None)
+        (``compile`` consults the disk tier)."""
         with self._lock:
             if key in self._mem:
                 self.stats["mem_hits"] += 1
                 return self._mem[key], "memory"
-            self.stats["misses"] += 1
         return None, None
 
     def put(self, key: str, executable) -> None:
@@ -608,20 +979,32 @@ class CompileCache:
 
         ``key_fn`` fingerprints the entry when ``fn`` is a transform wrapper
         (e.g. a vmap of the user function) whose own source is not
-        distinguishing. -> (executable, source), source in {"memory",
-        "compiled"}."""
+        distinguishing; its qualified name names the record. ->
+        (executable, source), source in
+        {"memory", "disk", "compiled"}: "disk" when this cache had no
+        executable for the key but the directory had its record (an
+        earlier process, or cache, made it)."""
         dev = resolve_device(device)
-        key = fingerprint(key_fn if key_fn is not None else fn,
-                          tuple(example_args), device=dev,
-                          extras=tuple(extras) + (tuple(bind_argnums),))
+        extras = tuple(extras) + (tuple(bind_argnums),)
+        keyed = key_fn if key_fn is not None else fn
+        key = fingerprint(keyed, tuple(example_args), device=dev,
+                          extras=extras)
         exe, source = self.get(key)
         if exe is not None:
             return exe, source
         exe = make_executable(fn, tuple(example_args), device=dev,
                               bind_argnums=bind_argnums, stream=stream,
                               stats=self.stats, pools=self.pools)
+        if self._disk_get(key) is not None:
+            source = "disk"
+            self.stats["disk_hits"] += 1
+        else:
+            source = "compiled"
+            self.stats["misses"] += 1
+            self._disk_put(key, getattr(keyed, "__qualname__", repr(keyed)),
+                           example_args, extras, bind_argnums, dev)
         self.put(key, exe)
-        return exe, "compiled"
+        return exe, source
 
 
 _default_cache: Optional[CompileCache] = None

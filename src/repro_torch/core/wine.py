@@ -25,6 +25,19 @@ graph, with the state bound at its addresses); ``prefill`` runs
 replaces the state; ``decode`` runs ``decode_step`` on the instance's KV
 rings and advances them.
 
+The compile cache's disk tier (``core.compile_cache``) records every app
+``load`` compiles, so a later process — or another cache over the same
+directory — loads it with ``load_report["compile_source"] == "disk"``.
+Whether a mode then captures ahead, at load (``load_report
+["capture_ahead"]``; ``["captured_ahead"]`` says whether it did, on the
+card, for a "disk" app), depends on what its first call does:
+``prefill`` does — it is a pure function of the bound weights, so ``load``
+runs it once on zero inputs and the first ``run`` replays; ``train`` does
+not — its first call is a real step and advances the state; ``decode``
+does not — its first call writes the bound caches. Those two capture on
+their first ``run``, as the launch backends' wave graphs capture on their
+first dispatch (their source reads "disk", their cost is unchanged).
+
 ``WineAdapter(mesh=...)`` runs every app under ``sharding_ctx(mesh,
 mode)`` (train, serve for decode, prefill) and places a train state on the
 mesh (``runtime.elastic.reshard_state``): the state it draws, and a state
@@ -43,11 +56,16 @@ from torch.utils import _pytree as pytree
 from repro_torch.configs import get_config, input_specs
 from repro_torch.core.compile_cache import LazyGraph
 from repro_torch.models import lm as lm_mod
-from repro_torch.models.spec import SHAPES_BY_NAME, ModelConfig, ShapeCell
+from repro_torch.models.spec import (SHAPES_BY_NAME, ModelConfig, ShapeCell,
+                                     TensorSpec)
 from repro_torch.runtime.elastic import reshard_state
 from repro_torch.sharding.partition import sharding_ctx
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import init_state, make_train_step
+
+
+#: the modes whose first call changes no state, captured at load
+CAPTURE_AHEAD_MODES = ("prefill",)
 
 
 @dataclass(frozen=True)
@@ -180,11 +198,20 @@ class WineAdapter:
             fn, (state, specs), bind_argnums=(0,),
             extras=("wine", app.arch, app.mode, app.shape, app.smoke,
                     app.microbatches))
+        ahead = app.mode in CAPTURE_AHEAD_MODES
+        captured = ahead and source == "disk" and self.device.type == "cuda"
+        if captured:
+            compiled(state, pytree.tree_map(
+                lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                      device=self.device)
+                if isinstance(s, TensorSpec) else s, specs))
         t_compile = time.perf_counter() - t0 - t_stage
         return Instance(app, cfg, compiled, state,
                         {"t_stage": t_stage, "t_compile": t_compile,
                          "compile_source": source,
-                         "compile_cached": source == "memory"},
+                         "compile_cached": source in ("memory", "disk"),
+                         "capture_ahead": ahead,
+                         "captured_ahead": captured},
                         raw_fn=fn, device=self.device)
 
     def _init_state(self, app: WineApp, cfg: ModelConfig, seed: int):

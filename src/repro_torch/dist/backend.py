@@ -425,16 +425,18 @@ class DistributedBackend:
         node must answer the challenge or its connection is dropped
         before a single frame is processed).
         ``cache=None`` gives every spawned node its OWN ``CompileCache``
-        (the paper's node-local staging disk); an explicit cache is the
-        driver's, and on the CPU it is shared by all thread nodes. On the
-        card each node keeps a cache of its own all the same: a graph
-        replays from its static buffers, so two nodes replaying one graph
-        at once would overwrite each other's inputs. Process nodes always
-        keep their own (no object crosses the spawn boundary, and the
-        port's cache has no disk tier). ``overlap_staging=False`` disables
-        the STAGE-ahead path (payloads ride inside SUBMIT and stage on
-        the worker's critical path — the unoverlapped baseline the
-        ``fig_dist`` benchmark contrasts). ``stage_dedup`` (default on;
+        over a directory of its own (the paper's node-local staging
+        disk); an explicit cache is the driver's, and on the CPU it is
+        shared by all thread nodes. On the card each node keeps a cache
+        object of its own all the same (a graph replays from its static
+        buffers, so two nodes replaying one graph at once would overwrite
+        each other's inputs), and process nodes keep their own (no object
+        crosses the spawn boundary); both point their cache at the
+        caller's directory, whose disk tier is multi-process safe.
+        ``overlap_staging=False`` disables the STAGE-ahead path (payloads
+        ride inside SUBMIT and stage on the worker's critical path — the
+        unoverlapped baseline the ``fig_dist`` benchmark contrasts).
+        ``stage_dedup`` (default on;
         requires the overlapped path) makes staging content-addressed:
         payloads split into ``chunk_bytes`` chunks keyed by digest, each
         node keeps an LRU ``chunk_cache_bytes`` chunk cache, the shared
@@ -498,9 +500,16 @@ class DistributedBackend:
                           directory=self.directory)
             if heartbeat_s is not None:
                 kw["heartbeat_s"] = heartbeat_s
-            if (cache is not None and node_mode == "thread"
-                    and self.device.type == "cpu"):
-                kw["cache"] = cache          # shared in-process cache
+            if cache is not None:
+                if node_mode == "thread" and self.device.type == "cpu":
+                    kw["cache"] = cache      # shared in-process cache
+                else:
+                    # a node that cannot share the caller's cache object
+                    # (another process, or a thread replaying on the
+                    # card) shares its DISK tier: every node points at
+                    # the caller's directory (max_bytes stays a
+                    # driver-side policy)
+                    kw["cache_dir"] = cache.cache_dir
             nodes = spawn_local_nodes(n_nodes or 2, self.registry,
                                       mode=node_mode, capacities=capacities,
                                       transport=self.transport, **kw)

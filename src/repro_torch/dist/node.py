@@ -101,6 +101,14 @@ from repro_torch.obs import metrics as _obs
 from repro_torch.obs.trace import TRACER, new_span_id, new_trace_id
 
 
+def _node_cache_dir(node_id: str) -> str:
+    """Per-node compile-cache directory: each node keeps its own record
+    tier (on a real cluster this is node-local disk), under the port's
+    base directory so hermetic test environments stay hermetic."""
+    from repro_torch.core.compile_cache import default_cache_dir
+    return os.path.join(default_cache_dir(), "nodes", node_id)
+
+
 #: the wire form of a bf16 tensor: its 16 bits, tagged by the field name
 BF16_WIRE = np.dtype([("bfloat16", "<u2")])
 
@@ -586,6 +594,7 @@ def _worker_loop(node_id: str, channel, ctl: _WorkerCtl,
                  backend: Optional[Any] = None,
                  backend_kind: str = "array",
                  cache: Optional[Any] = None,
+                 cache_dir: Optional[str] = None,
                  device: Optional[str] = None,
                  numpy_out: bool = False,
                  stage_dedup: bool = False,
@@ -698,7 +707,9 @@ def _worker_loop(node_id: str, channel, ctl: _WorkerCtl,
     # is where the CUDA context comes up
     from repro_torch.core.staging import Stager
     if backend is None:
-        backend = _node_backend(backend_kind, device, cache)
+        backend = _node_backend(
+            backend_kind, device, cache,
+            cache_dir=cache_dir or _node_cache_dir(node_id))
     stager = Stager(busy_clock=ctl.busy_clock)
     assembler = (_ChunkAssembler(node_id, channel, stager, chunk_cache)
                  if stage_dedup else None)
@@ -780,12 +791,14 @@ def _worker_loop(node_id: str, channel, ctl: _WorkerCtl,
 
 def _node_backend(kind: str, device: Optional[str],
                   cache: Optional[Any] = None,
-                  devices: Optional[list] = None):
+                  devices: Optional[list] = None,
+                  cache_dir: Optional[str] = None):
     """A node's own launch backend on ``device`` (the card unless "cpu";
     without a card it raises — a node never falls back to the CPU), with
-    ``cache`` or a compile cache of its own. A ``devices`` subset takes
-    the place of ``device``: one device runs the node, more make a
-    ``("data",)`` mesh over them, as the reference's nodes do."""
+    ``cache`` or a compile cache of its own over ``cache_dir``. A
+    ``devices`` subset takes the place of ``device``: one device runs the
+    node, more make a ``("data",)`` mesh over them, as the reference's
+    nodes do."""
     from repro_torch.core.backend import make_backend
     from repro_torch.core.compile_cache import CompileCache
     from repro_torch.launch.mesh import Mesh
@@ -795,11 +808,12 @@ def _node_backend(kind: str, device: Optional[str],
         if len(devices) > 1:
             mesh = Mesh(list(devices), ("data",))
     return make_backend(kind, mesh=mesh, device=device,
-                        cache=cache if cache is not None else CompileCache())
+                        cache=cache if cache is not None
+                        else CompileCache(cache_dir=cache_dir))
 
 
 def _process_main(node_id: str, endpoint: tuple, heartbeat_s: float,
-                  backend_kind: str, device: str,
+                  backend_kind: str, device: str, cache_dir: str,
                   stage_dedup: bool = False,
                   chunk_cache_bytes: int = DEFAULT_CHUNK_CACHE_BYTES,
                   obs_metrics: bool = False) -> None:
@@ -817,7 +831,8 @@ def _process_main(node_id: str, endpoint: tuple, heartbeat_s: float,
     spec = endpoint[1] if isinstance(endpoint[1], dict) else {}
     _worker_loop(node_id, channel, _WorkerCtl(), heartbeat_s,
                  backend_kind=backend_kind, device=device,
-                 numpy_out=True, stage_dedup=stage_dedup,
+                 cache_dir=cache_dir, numpy_out=True,
+                 stage_dedup=stage_dedup,
                  chunk_cache_bytes=chunk_cache_bytes, peer_mode=peer_mode,
                  peer_bind_host=spec.get("peer_bind_host", "127.0.0.1"),
                  peer_advertise_host=spec.get("peer_advertise_host"),
@@ -845,6 +860,7 @@ class NodeAgent:
                  backend: Optional[Any] = None,
                  backend_kind: str = "array",
                  cache: Optional[Any] = None,
+                 cache_dir: Optional[str] = None,
                  device=None,
                  devices: Optional[list] = None,
                  heartbeat_s: Optional[float] = None,
@@ -905,7 +921,9 @@ class NodeAgent:
                            or getattr(self.transport, "name", "") == "socket")
         if host == "thread":
             if backend is None:
-                backend = _node_backend(backend_kind, device, cache, devices)
+                backend = _node_backend(
+                    backend_kind, device, cache, devices,
+                    cache_dir=cache_dir or _node_cache_dir(node_id))
             self.backend = backend
             self._ctl = _WorkerCtl()
             self._port = self.transport.create(node_id)
@@ -920,10 +938,13 @@ class NodeAgent:
             # spawns; the child's compile cache is its own (no object is
             # shared across the spawn boundary)
             from repro_torch.kernels.ops import resolve_device
+            if cache_dir is None:
+                cache_dir = (cache.cache_dir if cache is not None
+                             else _node_cache_dir(node_id))
             self._proc = ctx.Process(
                 target=_process_main,
                 args=(node_id, self._port.endpoint, self.heartbeat_s,
-                      backend_kind, str(resolve_device(device)),
+                      backend_kind, str(resolve_device(device)), cache_dir,
                       self.stage_dedup,
                       self.chunk_cache_bytes,
                       # obs enablement snapshotted at spawn: the child
@@ -1414,6 +1435,8 @@ def _connect_main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--heartbeat-s", type=float, default=0.25)
     parser.add_argument("--device", default=None,
                         help="where the node runs: the card unless 'cpu'")
+    parser.add_argument("--cache-dir", default=None,
+                        help="node-local compile-cache record directory")
     parser.add_argument("--chunk-cache-bytes", type=int,
                         default=DEFAULT_CHUNK_CACHE_BYTES)
     parser.add_argument("--peer-bind-host", default="0.0.0.0",
@@ -1445,7 +1468,7 @@ def _connect_main(argv: Optional[List[str]] = None) -> None:
         torch.set_num_threads(1)
     _worker_loop(node_id, channel, _WorkerCtl(), args.heartbeat_s,
                  backend_kind=args.backend, device=device,
-                 numpy_out=True, stage_dedup=True,
+                 cache_dir=args.cache_dir, numpy_out=True, stage_dedup=True,
                  chunk_cache_bytes=args.chunk_cache_bytes,
                  peer_mode="tcp",
                  peer_bind_host=args.peer_bind_host,

@@ -8,6 +8,7 @@ paper-scale model comparison. Port of the reference's
     PYTHONPATH=src python -m repro_torch.examples.massive_launch
         [--n 16384] [--wave auto|<int>] [--backend pipelined|array|serial]
         [--nodes N] [--transport inproc|socket] [--compare] [--device cpu]
+        [--cache-dir D]
 
 Everything runs on the card unless ``--device cpu`` is given; without a
 card and without ``--device cpu`` it fails.
@@ -31,9 +32,13 @@ measured re-weighting are printed after the launch: the paper's scheduler
 -> node -> core tree with all three levels real. ``--transport socket``
 swaps the fabric's wire from in-process queues to length-prefixed frames
 over localhost TCP (one connection per node), so every shard payload
-really serializes and travels. The reference's ``--cache-dir`` (its
-compile cache's disk tier) has no counterpart: a CUDA graph cannot be
-saved.
+really serializes and travels.
+
+``--cache-dir`` is the compile cache's record directory (the reference's
+flag): run twice over one directory, the second launch prints
+``compile=disk`` — its wave graphs were recorded by the first process.
+A wave graph still captures on its first dispatch (the dispatch is its
+real execution), so the second launch's cost is the first's.
 """
 import argparse
 import time
@@ -130,6 +135,10 @@ def parse_args(argv=None):
                     help="also time the array backend for contrast")
     ap.add_argument("--device", default=None,
                     help="where everything runs: the card unless 'cpu'")
+    ap.add_argument("--cache-dir", default=None,
+                    help="compile cache record directory (default: "
+                         "$REPRO_COMPILE_CACHE_DIR/repro_torch or "
+                         "~/.cache/repro-torch-graphs)")
     return ap.parse_args(argv)
 
 
@@ -146,7 +155,7 @@ def main(argv=None):
 
     # Step 2: the array launch (paper Figs 6/7), pipelined by default:
     # wave k+1 is sliced/staged/enqueued while wave k executes
-    cache = CompileCache()
+    cache = CompileCache(cache_dir=args.cache_dir)
     inputs = np.random.default_rng(0).standard_normal(
         (args.n, 32)).astype(np.float32)
     outs, report, dt, fabric = run_launch(args.backend, cache, args, inputs)

@@ -2,7 +2,8 @@
 architecture.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
-        --smoke --requests 8 --gen-len 16 [--engine fixed] [--device cpu]
+        --smoke --requests 8 --gen-len 16 [--engine fixed] [--device cpu] \
+        [--cache-dir D] [--no-cache-spill]
 
 Port of ``repro.launch.serve`` (every architecture but whisper's
 encoder-decoder). Default engine is the paged one (shared KV page pool,
@@ -15,9 +16,13 @@ as batch-class filler so the priority split shows up in the per-class
 TTFT/TPOT table. ``serve()`` is the entry point the CLI and
 ``chip_smoke.py`` share. The engine's decode step is compiled through one
 ``ArrayBackend`` (on the card: a captured CUDA graph, replayed every step).
-The last line names the compile cache's sources and counters. The
-reference's ``--cache-dir`` / ``--no-cache-spill`` (its compile cache's
-disk tier) have no counterpart: a CUDA graph cannot be saved.
+The last line names the compile cache's sources and counters.
+``--cache-dir`` is the compile cache's record directory (default
+``$REPRO_COMPILE_CACHE_DIR/repro_torch`` or ``~/.cache/repro-torch-graphs``)
+and ``--no-cache-spill`` keeps the cache in memory only, as the
+reference's flags. Run twice over one directory, the second process
+reads ``step=disk``: its engine captures the step and the prefill shapes
+the first met at construction, before its first request.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.backend import ArrayBackend
+from repro_torch.core.compile_cache import CompileCache
 from repro_torch.core.telemetry import (class_summary, serve_table,
                                         slo_attainment)
 from repro_torch.kernels.ops import resolve_device
@@ -117,7 +123,8 @@ def serve(cfg: ModelConfig, params: dict, waves: Sequence[List[Request]], *,
     src = stats["compile_sources"]
     print(f"compile cache: step={src.get('step')} "
           f"prefills={sorted(v for k, v in src.items() if k != 'step')} "
-          f"stats={backend.cache.stats}")
+          f"captured_ahead={stats['captured_ahead']} "
+          f"built_in={stats['t_build_s']:.2f}s stats={backend.cache.stats}")
     return eng
 
 
@@ -151,6 +158,13 @@ def main(argv=None):
     ap.add_argument("--target-first-result-s", type=float, default=None,
                     help="interactive first-result SLO: gates admission "
                          "preemption of batch-class work")
+    ap.add_argument("--cache-dir", default=None,
+                    help="compile cache record directory (default: "
+                         "$REPRO_COMPILE_CACHE_DIR/repro_torch or "
+                         "~/.cache/repro-torch-graphs); a warm directory "
+                         "captures the recorded shapes at construction")
+    ap.add_argument("--no-cache-spill", action="store_true",
+                    help="keep the compile cache in memory only")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -165,12 +179,16 @@ def main(argv=None):
                     priority=("batch" if rng.random() < args.batch_frac
                               else "interactive"))
             for i in range(args.requests)]
+    backend = ArrayBackend(
+        cache=CompileCache(cache_dir=args.cache_dir,
+                           persistent=not args.no_cache_spill),
+        device=args.device, target_first_result_s=args.target_first_result_s)
     serve(cfg, params, [reqs], device=args.device, slots=args.slots,
           capacity=args.capacity, page_size=args.page_size,
           pool_pages=args.pool_pages,
           batched_prefill=not args.one_slot_prefill,
           target_first_result_s=args.target_first_result_s,
-          engine=args.engine)
+          backend=backend, engine=args.engine)
 
 
 if __name__ == "__main__":

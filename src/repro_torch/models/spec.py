@@ -156,6 +156,11 @@ class ModelConfig:
         from repro_torch.models.lm import count_params  # avoids an import cycle
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token reads (a MoE layer's routed experts only)."""
+        from repro_torch.models.lm import count_params
+        return count_params(self, active_only=True)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -64,6 +64,30 @@ the logits with ``argmax`` at once.
 the CPU an executable is the function itself. Entry points run on the
 card unless the caller passes ``device="cpu"``; without a card they raise.
 
+Capture ahead, where the reference compiles. The compile cache's disk
+tier records every executable an engine makes (``core.compile_cache``).
+An engine built over a cache whose directory holds records of its own
+configuration — an earlier process's, or another cache's over the same
+directory — makes those executables at construction (source ``"disk"``:
+its decode step, and every prefill shape an earlier engine met) and, on
+the card, calls each once with inputs that change no state, so its
+warm-up and capture happen there and the request path only replays
+(``stats["captured_ahead"]``). The paged engine's step runs with ``live``
+all False over blank tables and its prefills with lengths 0, blank tables
+and every slot id out of range: every KV row goes to the pool's sink
+page and the SSM store rewrites slot 0 with its own state. The fixed
+engine's rings have no sink: after capturing ahead it refills each leaf
+in place with the one value ``cache_init`` gave it. A record's prefill
+shape is read from its input signature (``record_args``); the slot count
+is part of a configuration's prefix. A cold engine (no record) captures each executable on
+its first call, as the reference's engine compiles its prefill shapes.
+
+Admission rejects, each with a finish reason of its own, a prompt over
+the engine's capacity (``rejected_over_capacity``) and, on a config with
+SSM blocks, a prompt the chunked scan cannot take: one longer than the
+SSD chunk and not a multiple of it, or one shorter than ``d_conv - 1``,
+which cannot fill the conv state (``rejected_ssm_length``).
+
 While ``obs.metrics.REGISTRY`` is enabled both engines record, as the
 reference's do: ``serve.ttft_s`` / ``serve.tpot_s`` (histograms and
 series, a finished request with tokens each), ``serve.preemptions``,
@@ -86,6 +110,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.backend import ArrayBackend
+from repro_torch.core.compile_cache import record_args
 from repro_torch.core.telemetry import (RequestRecord, class_summary,
                                         slo_attainment)
 from repro_torch.kernels.ops import resolve_device
@@ -139,6 +164,7 @@ class _EngineBase:
             raise ValueError(f"{cfg.name}: {type(self).__name__} serves "
                              "decoder-only models (it takes no encoder "
                              "output)")
+        self._t_init = time.perf_counter()
         self.device = resolve_device(device)
         emb = params["embed"]["embedding"]
         if emb.device.type != self.device.type:
@@ -162,7 +188,13 @@ class _EngineBase:
                       "rejected_over_capacity": 0, "capacity_clamped": 0,
                       "preemptions": 0, "pool_exhausted": 0,
                       "stall_steps": 0, "prefill_dispatches": 0,
-                      "compile_sources": {}}
+                      "rejected_ssm_length": 0, "captured_ahead": 0,
+                      "t_build_s": 0.0, "compile_sources": {}}
+        ssm = [b.ssm for g in cfg.groups for b in g.pattern
+               if b.ssm is not None]
+        # (chunk, d_conv) of each SSM block: the prompt lengths a chunked
+        # scan can prefill
+        self._ssm_shapes = sorted({(m.chunk, m.d_conv) for m in ssm})
         # registry instruments (created once; observed only while enabled)
         self._m_ttft = _obs.histogram("serve.ttft_s")
         self._m_tpot = _obs.histogram("serve.tpot_s")
@@ -175,7 +207,7 @@ class _EngineBase:
         """``fn`` through ``backend.compile`` for ``example``'s signature,
         the weights (and the caches) bound, or ``fn`` itself, run eagerly,
         when the engine was built with ``capture_step=False``; its source
-        is recorded under ``name``."""
+        is noted under ``name`` in ``stats["compile_sources"]``."""
         if self.capture_step:
             exe, src = self.backend.compile(fn, example, extras=extras,
                                             bind_argnums=bind_argnums)
@@ -183,6 +215,50 @@ class _EngineBase:
             exe, src = fn, "eager"
         self.stats["compile_sources"][name] = src
         return exe
+
+    def _recorded(self, prefix: tuple, tokens_at: int) -> List[tuple]:
+        """The tokens' shape (argument ``tokens_at``) of each executable the
+        compile cache's disk tier records under ``prefix`` on this engine's
+        device and does not hold in memory: the prefill shapes an earlier
+        engine of this configuration met."""
+        cache = getattr(self.backend, "cache", None)
+        if not self.capture_step or not hasattr(cache, "records"):
+            return []
+        shapes = []
+        for r in cache.records(prefix, device=self.device):
+            try:
+                shapes.append(tuple(record_args(r)[tokens_at].shape))
+            except Exception:       # a record that cannot be read: a miss
+                continue
+        return shapes
+
+    def _make_recorded(self) -> None:
+        """Make the prefill executables of every shape the disk tier
+        records for this configuration (``_recorded``)."""
+        raise NotImplementedError
+
+    def _ahead_calls(self) -> list:
+        """(executable, harmless arguments) for each executable whose
+        source is ``"disk"`` (see the module docstring)."""
+        raise NotImplementedError
+
+    def _run_ahead(self, calls: list) -> None:
+        for exe, args in calls:
+            exe(*args)
+
+    def _capture_ahead(self) -> None:
+        """Capture ahead, where the reference compiles: on the card, each
+        recorded executable is called once with inputs that change no
+        state, so its warm-up and capture are paid at construction. The
+        last step of construction: ``stats["t_build_s"]`` is the engine's
+        construction seconds, this included."""
+        self._make_recorded()
+        calls = self._ahead_calls()
+        if calls and self.device.type == "cuda":
+            self._run_ahead(calls)
+            torch.cuda.synchronize(self.device)
+            self.stats["captured_ahead"] = len(calls)
+        self.stats["t_build_s"] = time.perf_counter() - self._t_init
 
     def _ints(self, x) -> torch.Tensor:
         """A host index array (tokens, tables, lengths, slot ids) as an
@@ -194,21 +270,19 @@ class _EngineBase:
         raise NotImplementedError
 
     def _screen(self, req: Request) -> bool:
-        """Admission guard: reject a prompt that cannot fit; clamp the
-        generation budget so decode never wraps the ring past live
-        history. Prompt rows occupy [0, S); generated token t is written
-        at S + t - 1 when fed back, and the last token is never fed, so
-        S + budget - 1 <= capacity."""
+        """Admission guard: reject a prompt that cannot fit, or that an SSM
+        block's chunked scan cannot prefill; clamp the generation budget so
+        decode never wraps the ring past live history. Prompt rows occupy
+        [0, S); generated token t is written at S + t - 1 when fed back,
+        and the last token is never fed, so S + budget - 1 <= capacity."""
         cap = self._request_capacity()
         S = len(req.prompt)
         allowed = cap - S + 1
         if S > cap or allowed <= 0:
-            req.done = True
-            req.finish_reason = "rejected_over_capacity"
-            req.t_done = time.perf_counter()
-            self.stats["rejected_over_capacity"] += 1
-            self.records.append(req.record())
-            return False
+            return self._reject(req, "rejected_over_capacity")
+        if any((S > chunk and S % chunk) or S < d_conv - 1
+               for chunk, d_conv in self._ssm_shapes):
+            return self._reject(req, "rejected_ssm_length")
         if req.max_new > allowed:
             if req.budget is None:           # count once per request
                 self.stats["capacity_clamped"] += 1
@@ -218,6 +292,14 @@ class _EngineBase:
         req.done = False
         req.finish_reason = None
         return True
+
+    def _reject(self, req: Request, reason: str) -> bool:
+        req.done = True
+        req.finish_reason = reason
+        req.t_done = time.perf_counter()
+        self.stats[reason] += 1
+        self.records.append(req.record())
+        return False
 
     # -- per-engine hooks --------------------------------------------------
     def _admit(self) -> int:
@@ -337,16 +419,46 @@ class ServeEngine(_EngineBase):
             "step", step_fn, (params, self.caches, self.tokens, self.pos),
             ("serve-step", cfg.name, slots, capacity))
         self._prefill_by_len: dict = {}     # prompt length -> executable
+        self._prefill_extras = ("serve-prefill", cfg.name, slots, capacity)
+        self._capture_ahead()
 
     def _request_capacity(self) -> int:
         return self.capacity
 
-    def _prefill(self, tokens: torch.Tensor, slot: torch.Tensor):
-        """One unpadded prompt (1, S) prefilled into slot ``slot`` ((1,)
-        int32 on the device) of every ring, in place, through the prompt
-        length's executable -> its logits (1, 1, V) (on the card they live
-        in the graph's memory until the next replay of its pool)."""
-        S = tokens.shape[1]
+    def _make_recorded(self) -> None:
+        for _, S in self._recorded(self._prefill_extras, 2):
+            self._prefill_exec(S)
+
+    def _ahead_calls(self) -> list:
+        """The step over the engine's own tokens and positions, and each
+        prompt length into slot 0: both write the rings, which
+        ``_run_ahead`` puts back as construction made them."""
+        src = self.stats["compile_sources"]
+        calls = []
+        if src.get("step") == "disk":
+            calls.append((self._step, (self.params, self.caches,
+                                       self.tokens, self.pos)))
+        for S, exe in sorted(self._prefill_by_len.items()):
+            if src[f"prefill_s{S}"] == "disk":
+                calls.append((exe, (self.params, self.caches,
+                                    self._ints(np.zeros((1, S))),
+                                    self._ints([0]))))
+        return calls
+
+    def _run_ahead(self, calls: list) -> None:
+        """The rings have no sink page. They are run ahead over just after
+        ``cache_init`` made them, when each leaf holds one value (0, or -1
+        for positions): every leaf is refilled with it in place, so the
+        engine starts bit-equal to a cold one and never holds a second
+        ring set."""
+        super()._run_ahead(calls)
+        fresh = pytree.tree_leaves(cache_init(self.cfg, 1, 1, "cpu"))
+        for x, f in zip(pytree.tree_leaves(self.caches), fresh):
+            x.fill_(f.reshape(-1)[0].item())
+
+    def _prefill_exec(self, S: int):
+        """The prefill of one unpadded prompt of length ``S``: writes its
+        rings into a slot in place and returns its logits."""
         exe = self._prefill_by_len.get(S)
         if exe is None:
             cfg, capacity = self.cfg, self.capacity
@@ -364,9 +476,17 @@ class ServeEngine(_EngineBase):
 
             exe = self._prefill_by_len[S] = self._executable(
                 f"prefill_s{S}", prefill_fn,
-                (self.params, self.caches, tokens, slot),
-                ("serve-prefill", cfg.name, capacity))
-        return exe(self.params, self.caches, tokens, slot)
+                (self.params, self.caches, TensorSpec((1, S), torch.int32),
+                 TensorSpec((1,), torch.int32)), self._prefill_extras)
+        return exe
+
+    def _prefill(self, tokens: torch.Tensor, slot: torch.Tensor):
+        """One unpadded prompt (1, S) prefilled into slot ``slot`` ((1,)
+        int32 on the device) of every ring, in place, through the prompt
+        length's executable -> its logits (1, 1, V) (on the card they live
+        in the graph's memory until the next replay of its pool)."""
+        return self._prefill_exec(tokens.shape[1])(
+            self.params, self.caches, tokens, slot)
 
     def admit(self, req: Request) -> bool:
         """Prefill a request into a free slot (one-slot batch prefill)."""
@@ -501,12 +621,19 @@ class PagedServeEngine(_EngineBase):
              pages_per_slot, kernel))
         self._prefill_by_shape: dict = {}      # (B, S) -> executable
         self._warm_by_len: dict = {}           # S_pad  -> executable
+        # the slots too: a prefill's batch never exceeds them, and another
+        # slot count's records are not this configuration's shapes
+        geometry = (cfg.name, slots, pool_pages, page_size, pages_per_slot,
+                    kernel)
+        self._prefill_extras = ("serve-paged-prefill",) + geometry
+        self._warm_extras = ("serve-paged-warm",) + geometry
         self.stats.update({"prefix_hits": 0, "prefix_misses": 0,
                            "prefix_registered": 0, "cow_pages": 0,
                            "prefill_rows": 0, "kv_bytes_avoided": 0})
         self._m_phit = _obs.counter("serve.prefix.hits")
         self._m_pmiss = _obs.counter("serve.prefix.misses")
         self._m_bytes = _obs.counter("serve.kernel.bytes_avoided")
+        self._capture_ahead()
 
     def _kv_geometry(self) -> Tuple[int, int]:
         """(bytes of dense per-slot views the gather path materializes per
@@ -552,9 +679,7 @@ class PagedServeEngine(_EngineBase):
 
             exe = self._prefill_by_shape[(B, S)] = self._executable(
                 f"prefill_b{B}_s{S}", prefill_fn,
-                self._prefill_example(B, S, warm=False),
-                ("serve-paged-prefill", cfg.name, self.pool.n_pages,
-                 self.pool.page_size, self.pool.pages_per_slot, kern))
+                self._prefill_example(B, S, warm=False), self._prefill_extras)
         return exe
 
     def _warm_exec(self, S: int):
@@ -572,9 +697,42 @@ class PagedServeEngine(_EngineBase):
 
             exe = self._warm_by_len[S] = self._executable(
                 f"warm_s{S}", warm_fn, self._prefill_example(1, S, warm=True),
-                ("serve-paged-warm", cfg.name, self.pool.n_pages,
-                 self.pool.page_size, self.pool.pages_per_slot, kern))
+                self._warm_extras)
         return exe
+
+    def _make_recorded(self) -> None:
+        for B, S in self._recorded(self._prefill_extras, 3):
+            self._prefill_exec(B, S)
+        for _, S in self._recorded(self._warm_extras, 3):
+            self._warm_exec(S)
+
+    def _ahead_calls(self) -> list:
+        """The step with ``live`` all False over blank tables, and each
+        prefill shape with lengths 0, blank tables and every slot id out of
+        range (``starts`` 0 for a warm suffix): every KV row they write
+        lands in the pool's sink page, and the SSM store rewrites slot 0
+        with its own state."""
+        src = self.stats["compile_sources"]
+        blank = np.full((self.slots, self.pool.pages_per_slot), -1)
+        calls = []
+        if src.get("step") == "disk":
+            calls.append((self._step, (
+                self.params, self.kv, self._ints(blank), self.tokens,
+                self.pos, torch.zeros_like(self._live))))
+        shapes = [(f"prefill_b{B}_s{S}", exe, B, S, False)
+                  for (B, S), exe in sorted(self._prefill_by_shape.items())]
+        shapes += [(f"warm_s{S}", exe, 1, S, True)
+                   for S, exe in sorted(self._warm_by_len.items())]
+        for name, exe, B, S, warm in shapes:
+            if src[name] != "disk":
+                continue
+            zeros = self._ints(np.zeros((B,)))
+            calls.append((exe, (
+                self.params, self.kv, self._ints(blank[:B]),
+                self._ints(np.zeros((B, S))), zeros,
+                self._ints(np.full((B,), self.slots)))
+                + ((zeros,) if warm else ())))
+        return calls
 
     # -- prefix sharing ----------------------------------------------------
     @staticmethod

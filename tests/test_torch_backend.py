@@ -36,7 +36,7 @@ def app(x):
 
 @pytest.fixture()
 def cache():
-    return CompileCache()
+    return CompileCache(persistent=False)
 
 
 def _backends(cache):
@@ -81,7 +81,7 @@ def test_factory_rejects_unknown_kind():
 @settings(max_examples=10, deadline=None)
 def test_backend_outputs_identical(n):
     """The tentpole contract: every backend computes the same launch."""
-    cache = CompileCache()
+    cache = CompileCache(persistent=False)
     inputs = np.random.default_rng(n).standard_normal((n, 8)).astype(
         np.float32)
     expect = inputs.sum(-1) * 3.0

@@ -2,9 +2,9 @@
 port: a case's source is taken from its file in ``tests/``, its ``repro.``
 imports renamed to ``repro_torch.``, and the calls that build a launch
 path pointed at the CPU — ``device="cpu"`` added where a fabric, a node,
-a backend or an ``LLMapReduce`` is built, and ``cache_dir=`` dropped
-from ``CompileCache`` (the port's cache has no disk tier). Every
-assertion stays as the reference wrote it.
+a backend or an ``LLMapReduce`` is built (``CompileCache`` keeps its
+``cache_dir=``: the port's disk tier takes it). Every assertion stays as
+the reference wrote it.
 
 The tests below hold the transform itself.
 """
@@ -21,8 +21,7 @@ ON_DEVICE = frozenset({"DistributedBackend", "NodeAgent", "ProcessNodeAgent",
 
 class _Rename(ast.NodeTransformer):
     """``repro`` / ``repro.x`` imports -> ``repro_torch`` / ``repro_torch.x``;
-    launch-path constructors get ``device="cpu"``; ``CompileCache`` loses
-    ``cache_dir=``."""
+    launch-path constructors get ``device="cpu"``."""
 
     @staticmethod
     def _name(mod):
@@ -49,9 +48,6 @@ class _Rename(ast.NodeTransformer):
                                          for k in node.keywords):
             node.keywords.append(ast.keyword(arg="device",
                                              value=ast.Constant("cpu")))
-        elif name == "CompileCache":
-            node.keywords = [k for k in node.keywords
-                             if k.arg != "cache_dir"]
         return node
 
 
@@ -128,5 +124,5 @@ def test_launch_constructors_are_pointed_at_the_cpu():
         "b = mod.NodeAgent('n0', reg, device='cpu')",
         "c = LLMapReduce(wave_size=4, backend=be, device='cpu')",
         "d = make_backend('dist', device='cuda')",
-        "e = CompileCache()",
+        "e = CompileCache(cache_dir=str(p))",
         "f = other(cache_dir=1)"]

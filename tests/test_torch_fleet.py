@@ -4,9 +4,9 @@ split's properties at 1,000 nodes, the weight floor, the sharded
 registry under parallel load, the pump coalescing 500 beats, the HMAC
 handshake, and ``transport_options`` reaching the listener and the peer
 chunk servers. The remote-node case is re-stated below for the port's
-CLI — ``python -m repro_torch.dist.node ... --device cpu``, without the
-reference's ``--cache-dir`` (the port's compile cache has no disk tier);
-its assertions are the reference's.
+CLI — ``python -m repro_torch.dist.node ... --device cpu``, with the
+reference's ``--cache-dir``; its assertions are the reference's, and the
+node's records land in its own directory.
 """
 import os
 import subprocess
@@ -42,11 +42,13 @@ def test_fleet__remote_cli_node_joins_and_takes_shards(tmp_path):
     --connect``, answers the HMAC challenge from its --secret-file,
     self-registers through the elastic-join path, and the very next
     waves shard onto it — results exactly once."""
+    from repro_torch.core.compile_cache import RECORD_SUFFIX, CompileCache
     from repro_torch.dist import DistributedBackend
     secret_file = tmp_path / "secret"
     secret_file.write_bytes(b"s3cret-tok3n\n")
     be = DistributedBackend(
         n_nodes=1, device="cpu",
+        cache=CompileCache(cache_dir=str(tmp_path / "graphs")),
         transport="socket",
         transport_options={"secret": "s3cret-tok3n"},
         heartbeat_timeout_s=5.0)
@@ -60,6 +62,7 @@ def test_fleet__remote_cli_node_joins_and_takes_shards(tmp_path):
          "--node-id", "remote1", "--capacity", "2",
          "--secret-file", str(secret_file),
          "--heartbeat-s", "0.1",
+         "--cache-dir", str(tmp_path / "remote-graphs"),
          "--device", "cpu",
          "--peer-bind-host", "127.0.0.1",
          "--peer-advertise-host", "127.0.0.1"],
@@ -86,6 +89,9 @@ def test_fleet__remote_cli_node_joins_and_takes_shards(tmp_path):
         # and it reported where it ran
         assert all(nr["device"] == "cpu"
                    for nr in rec.extra["node_records"])
+        # and recorded what it compiled in its own directory
+        assert any(f.endswith(RECORD_SUFFIX)
+                   for f in os.listdir(tmp_path / "remote-graphs"))
     finally:
         proc.terminate()
         try:

@@ -224,7 +224,7 @@ def test_live_all_true_equals_live_none(arch):
 # ---------------------------------------------------------------------------
 
 def test_cpu_executable_checks_the_signature():
-    cache = cc.CompileCache()
+    cache = cc.CompileCache(persistent=False)
     exe, src = cache.compile(lambda x, y: x + y,
                              (torch.zeros(3), cc.TensorSpec((3,),
                                                             torch.float32)),
@@ -275,7 +275,7 @@ def test_engine_step_goes_through_the_cache_and_eager_on_request():
     from repro_torch.core.backend import ArrayBackend
     from repro_torch.serve.engine import PagedServeEngine, Request
     cfg, params = _model("qwen3-14b")
-    cache = cc.CompileCache()
+    cache = cc.CompileCache(persistent=False)
     outs, keys = {}, {}
     for capture in (True, False):
         eng = PagedServeEngine(cfg, params, slots=2, page_size=4,
@@ -337,7 +337,7 @@ def test_cuda_captured_step_equals_eager(cuda_device, arch):
     live = torch.ones(B, dtype=torch.bool, device=cuda_device)
     t = torch.argmax(lg[:, 0], -1)[:, None].to(torch.int32)
     pos = lens[:, None].clone()
-    exe, _ = ArrayBackend(cache=cc.CompileCache()).compile(
+    exe, _ = ArrayBackend(cache=cc.CompileCache(persistent=False)).compile(
         step, (params, pools[1], tables, t, pos, live), bind_argnums=(0, 1))
     for i in range(4):
         eager = step(params, pools[0], tables, t, pos, live)
@@ -355,8 +355,9 @@ def test_cuda_backends_match_numpy(cuda_device, kind):
     x = np.random.default_rng(5).standard_normal((512, 64)).astype(
         np.float32)
     n = 64 if kind == "serial" else 512
-    out, _ = LLMapReduce(scheduler=kind, wave_size=128,
-                         cache=None if kind == "serial" else cc.CompileCache()
+    cache = (None if kind == "serial"
+             else cc.CompileCache(persistent=False))
+    out, _ = LLMapReduce(scheduler=kind, wave_size=128, cache=cache
                          ).map_reduce(lambda v: (v * v).sum(), x[:n])
     got = torch.stack(out) if isinstance(out, list) else out
     assert got.device.type == "cuda"
@@ -377,7 +378,7 @@ def test_cuda_launch_rate_array_beats_serial(cuda_device):
     from repro_torch.core.backend import SerialBackend
     from repro_torch.core.llmr import LLMapReduce
     inputs = np.ones((64, 8), np.float32)
-    cache = cc.CompileCache()
+    cache = cc.CompileCache(persistent=False)
     LLMapReduce(scheduler="array", cache=cache).map_reduce(_launch_app,
                                                            inputs)
     torch.cuda.synchronize()
@@ -422,9 +423,10 @@ def test_cuda_waves_split_over_distinct_cards(cuda_device, kind):
     n = 64 * n_cards
     base = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (n, 8)).astype(np.float32)).to(cards[0])
-    whole = make_backend(kind, device=cards[0], cache=cc.CompileCache())
+    whole = make_backend(kind, device=cards[0],
+                         cache=cc.CompileCache(persistent=False))
     be = make_backend(kind, mesh=Mesh(cards, ("data",)),
-                      cache=cc.CompileCache())
+                      cache=cc.CompileCache(persistent=False))
     assert be.device == cards[0]
     big = torch.full((2048, 2048), 1.0 / 2048, device=cards[0])
     for i in range(4):
@@ -465,7 +467,8 @@ def test_cuda_captured_train_step_equals_eager(cuda_device, arch):
         ptrs = [x.data_ptr() for _, x in leaves_with_path(state)]
         step, source = compile_step(
             cfg, opt, state, get(0), capture_step=capture,
-            backend=ArrayBackend(cache=CompileCache(), device=cuda_device))
+            backend=ArrayBackend(cache=CompileCache(persistent=False),
+                                 device=cuda_device))
         ssd0, losses = ssd_scan.launches, []
         for s in range(3):
             state, m = step(state, get(s))

@@ -44,7 +44,7 @@ def app(x):
 
 @pytest.fixture()
 def cache():
-    return CompileCache()
+    return CompileCache(persistent=False)
 
 
 def _llmr(kind, cache, **kw):
@@ -279,19 +279,22 @@ def test_fingerprint_tracks_in_place_array_mutation(kind):
     assert fingerprint(fn, (a,)) != fp1
 
 
-def test_fresh_cache_has_no_disk_tier():
-    """In place of the reference's persistence test: a CUDA graph holds
-    device addresses and cannot be serialized, so a new cache (a new
-    process) compiles again; within one cache the second launch hits."""
+def test_fresh_cache_has_no_disk_tier(tmp_path):
+    """A cache kept in memory alone (``persistent=False``) writes no
+    record, so a new one (a new process) compiles again; within one cache
+    the second launch hits. The disk tier's own cases are in
+    ``test_torch_compile_cache_disk.py``."""
     inputs = np.ones((8, 4), np.float32)
-    _, rec1 = ArrayBackend(cache=CompileCache(), device=CPU).launch(
-        app, inputs, 8)
-    _, rec2 = ArrayBackend(cache=CompileCache(), device=CPU).launch(
-        app, inputs, 8)
+
+    def launch():
+        cache = CompileCache(cache_dir=str(tmp_path), persistent=False)
+        return ArrayBackend(cache=cache, device=CPU).launch(app, inputs, 8)
+
+    _, rec1 = launch()
+    _, rec2 = launch()
     assert rec1.extra["compile_source"] == "compiled"
     assert rec2.extra["compile_source"] == "compiled"
-    import inspect
-    assert "cache_dir" not in inspect.signature(CompileCache).parameters
+    assert not list(tmp_path.iterdir())
 
 
 def test_straggler_speculative_redispatch():

@@ -87,7 +87,7 @@ def test_waves_split_over_the_task_axis(kind, k):
     devices), whole where it does not; outputs equal the mesh-less run."""
     want, _ = LLMapReduce(device="cpu", wave_size=32).map_reduce(app, X)
     mesh = Mesh([CPU] * k, ("data",))
-    cache = CompileCache()
+    cache = CompileCache(persistent=False)
     be = make_backend(kind, mesh=mesh, cache=cache)
     assert be.device == CPU and be.mesh is mesh and be.task_axis == "data"
     out, rep = LLMapReduce(backend=be, wave_size=32).map_reduce(app, X)
@@ -105,7 +105,8 @@ def test_waves_split_over_the_task_axis(kind, k):
 
 def test_split_keeps_the_node_core_fan_out():
     mesh = twice()
-    be = ArrayBackend(mesh=mesh, inner_lanes=4, cache=CompileCache())
+    be = ArrayBackend(mesh=mesh, inner_lanes=4,
+                      cache=CompileCache(persistent=False))
     out, rep = LLMapReduce(backend=be, wave_size=48).map_reduce(app, X)
     want, _ = LLMapReduce(device="cpu", wave_size=48).map_reduce(app, X)
     assert torch.equal(out, want)
@@ -115,11 +116,12 @@ def test_split_keeps_the_node_core_fan_out():
 
 def test_task_axis_names_the_split_axis():
     mesh = Mesh([[CPU, CPU, CPU]], ("data", "model"))
-    be = ArrayBackend(mesh=mesh, task_axis="model", cache=CompileCache())
+    be = ArrayBackend(mesh=mesh, task_axis="model",
+                      cache=CompileCache(persistent=False))
     out, rep = be.launch(app, X[:48], 48)
     assert rep.extra["mesh_devices"] == ["cpu"] * 3
-    _, rep = ArrayBackend(mesh=mesh, cache=CompileCache()).launch(
-        app, X[:48], 48)
+    _, rep = ArrayBackend(mesh=mesh, cache=CompileCache(
+        persistent=False)).launch(app, X[:48], 48)
     assert "mesh_devices" not in rep.extra       # data has one position
     want, _ = LLMapReduce(device="cpu").map_reduce(app, X[:48])
     assert torch.equal(out, want)
@@ -146,7 +148,7 @@ def test_serial_and_abstract_meshes():
     assert len(out) == 4
     with pytest.raises(ValueError, match="abstract"):
         ArrayBackend(mesh=make_production_mesh())
-    p = PipelinedBackend(mesh=twice(), cache=CompileCache())
+    p = PipelinedBackend(mesh=twice(), cache=CompileCache(persistent=False))
     assert p.max_in_flight == 2 and p.device == CPU
 
 
@@ -209,7 +211,7 @@ def test_wine_adapter_runs_apps_on_a_mesh(arch):
     """Train, prefill and decode apps on the host mesh equal the mesh-less
     adapter's; the train state is placed on the mesh; the mesh is part of
     the cache key."""
-    cache = CompileCache()
+    cache = CompileCache(persistent=False)
     plain = WineAdapter(backend=ArrayBackend(cache=cache, device="cpu"))
     meshed = WineAdapter(mesh=make_host_mesh("cpu"), cache=cache)
     assert meshed.backend.mesh is meshed.mesh and meshed.device == CPU

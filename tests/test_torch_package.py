@@ -69,6 +69,15 @@ def test_param_count_matches_reference(arch, smoke):
     assert tcfg.param_count() == t_count_params(tcfg)
 
 
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_active_param_count_matches_reference(arch, smoke):
+    jcfg, tcfg = (m.get_config(arch, smoke) for m in (jconfigs, tconfigs))
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+    assert tcfg.active_param_count() == t_count_params(tcfg,
+                                                       active_only=True)
+
+
 @pytest.mark.parametrize("arch", sorted(PUBLISHED))
 def test_param_count_in_published_range(arch):
     lo, hi = PUBLISHED[arch]
@@ -280,8 +289,8 @@ def test_launch_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
                  lambda d: LLMapReduce(scheduler="serial", device=d),
                  lambda d: make_backend("pipelined", device=d),
                  lambda d: WineAdapter(device=d),
-                 lambda d: CompileCache().compile(lambda v: v, (x,),
-                                                  device=d)):
+                 lambda d: CompileCache(persistent=False).compile(
+                     lambda v: v, (x,), device=d)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(None)
         make("cpu")

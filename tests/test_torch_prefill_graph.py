@@ -186,13 +186,14 @@ def test_engine_prefill_executables_match_eager_and_reference(kind, arch,
     from test_torch_engine import _assert_match_modulo_ties, _load
     jcfg, _, cfg, params = _load(arch)
     ssm = arch == "mamba2-1.3b"
-    cache = cc.CompileCache()
+    cache = cc.CompileCache(persistent=False)
     outs, sources = {}, {}
     for run, capture in (("eager", False), ("compiled", True),
                          ("memory", True)):
         eng = _port_engine(kind, cfg, params,
-                           cache if capture else cc.CompileCache(), capture,
-                           kernel)
+                           cache if capture
+                           else cc.CompileCache(persistent=False),
+                           capture, kernel)
         waves = _waves(Request, cfg.vocab, ssm)
         for w in waves:
             eng.run(w, max_steps=500)
@@ -334,7 +335,8 @@ def test_cuda_prefill_replay_with_new_inputs_is_bit_equal(cuda_device, arch,
         n_eager = (paged_attention.launches - before[0],
                    ssd_scan.launches - before[1])
         if exe is None:
-            exe, _ = ArrayBackend(cache=cc.CompileCache()).compile(
+            exe, _ = ArrayBackend(
+                cache=cc.CompileCache(persistent=False)).compile(
                 fn, (params, pools[1], *ints), bind_argnums=(0, 1))
         before = (paged_attention.launches, ssd_scan.launches)
         graph = exe(params, pools[1], *ints).clone()
@@ -353,7 +355,7 @@ def test_cuda_two_shapes_alternate_in_one_shared_pool(cuda_device):
     P, ps = 24, 4
     pools = [tlm.paged_cache_init(cfg, 3, P, ps, cuda_device)
              for _ in range(2)]
-    cache = cc.CompileCache()
+    cache = cc.CompileCache(persistent=False)
     be = ArrayBackend(cache=cache)
     shapes = {False: (3, 16, 5), True: (1, 8, 5)}
     exes = {}
@@ -393,7 +395,7 @@ def test_cuda_one_pool_an_engine_whatever_the_shapes(cuda_device, kind,
     cfg, params = _model(arch, cuda_device)
     outs = {}
     for capture in (False, True):
-        cache = cc.CompileCache()
+        cache = cc.CompileCache(persistent=False)
         be = ArrayBackend(cache=cache, device=cuda_device)
         if kind == "fixed":
             eng = ServeEngine(cfg, params, slots=2, capacity=64, backend=be,
@@ -442,7 +444,7 @@ def test_cuda_fixed_engine_pool_does_not_grow_a_ring_set_a_length(
     capacity = 32768
     ring = sum(x.numel() * x.element_size() for x in pytree.tree_leaves(
         cache_init(cfg, 1, capacity, cuda_device)))
-    cache = cc.CompileCache()
+    cache = cc.CompileCache(persistent=False)
     eng = ServeEngine(cfg, params, slots=2, capacity=capacity,
                       backend=ArrayBackend(cache=cache, device=cuda_device),
                       device=cuda_device)

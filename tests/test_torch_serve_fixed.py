@@ -166,7 +166,8 @@ def test_cuda_fixed_engine_replays_over_rings_written_in_place(cuda_device,
     params = init_params(cfg, cuda_device)
     outs = {}
     for capture in (True, False):
-        be = ArrayBackend(cache=CompileCache(), device=cuda_device)
+        be = ArrayBackend(cache=CompileCache(persistent=False),
+                          device=cuda_device)
         eng = ServeEngine(cfg, params, slots=2, capacity=48, backend=be,
                           device=cuda_device, capture_step=capture)
         ptrs = [x.data_ptr() for x in pytree.tree_leaves(eng.caches)]

@@ -52,7 +52,7 @@ SHAPE = {"prefill": "prefill_32k", "decode": "decode_32k"}
 
 @pytest.fixture()
 def cache():
-    return CompileCache()
+    return CompileCache(persistent=False)
 
 
 def _adapter(cache):
