@@ -344,8 +344,26 @@ non-zero:
             step's state / HBM rate); the share is bound / measured device
             busy. Gate: 0 < share <= 1.05 for both.
 24. dryrun  ``launch.dryrun.run_cell`` on the abstract 16 x 16 production
-            mesh (meta tensors, no card): qwen3-14b decode_32k and
-            mamba2-1.3b train_4k; each row's status "ok"; rows printed.
+            mesh (meta tensors, no card; the step under the SPMD runtime on
+            a fake process group): qwen3-14b decode_32k and mamba2-1.3b
+            train_4k; each row's status "ok", with a collectives table and
+            collective bytes a chip above 0; rows and bounds printed.
+25. spmd    the SPMD runtime (``sharding.spmd``) across every card of the
+            machine, one rank a card (NCCL; one rank on a one-card
+            machine), on a mesh of n ranks along ``model``: qwen3-14b
+            ``decode_step`` on rings
+            (4 slots of 512 rows) and a mamba2-1.3b 4 x 512 ``prefill``
+            at full width, seeded bf16 weights drawn on the card. Gates on
+            every rank: the live collectives (``CollectiveCounter``) equal
+            those of the same steps counted on meta under ``counting``; the
+            sharded prefill launches the SSD kernel on the tc route (> 0);
+            logits bit-equal to the same step with no mesh on one rank; on
+            more, the qwen3 decode's within 3e-2 of the logit scale (greedy
+            tokens equal unless at a near tie) and the mamba2 prefill's in
+            f32 within 1e-4 (its bf16 gap printed). Prints each rank's collectives, the host
+            wall beside the unsharded step's, and with two ranks or more
+            the profiler's NCCL time beside the counted t_collective.
+            ``python3 chip_smoke.py --spmd`` runs this phase alone.
 
 Every model's weights are freed before the next one is drawn; the script's
 total time is printed. The last three lines: the card's name and power
@@ -357,6 +375,7 @@ from __future__ import annotations
 import atexit
 import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -368,6 +387,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 import warnings
 from pathlib import Path
 
@@ -4727,10 +4747,289 @@ def phase_roofline(card, serve_profile, train_profile):
     return out
 
 
+SPMD_RINGS = (4, 512, 128)     # qwen3-14b: slots, rows a slot, prompt
+SPMD_SSM = (4, 512)            # mamba2-1.3b prefill: batch, tokens
+SPMD_TOL = 3e-2                # n >= 2 ranks: of the logit scale (bf16)
+SPMD_TOL_F32 = 1e-4            # n >= 2: the mamba2 prefill in f32 (below)
+# n >= 2: the mamba2 prefill in bf16, of the logit scale: above the sound
+# runs' readings (0.046-0.059 on 2 and 4 H100 80GB HBM3 cards at 700 W,
+# torch 2.11) and below what logits of the wrong rows read (gated too)
+SPMD_TOL_SSM = 0.1
+
+
+def _spmd_steps(mesh, qcfg, mcfg, qp, qc, qin, mp, min_, count=True):
+    """[spmd]'s two sharded steps on ``mesh`` (a mesh of ranks, or the
+    counting one on meta): qwen3-14b ``decode_step`` on rings and a
+    mamba2-1.3b ``prefill``; the params, rings and inputs placed as the
+    dry run places them. Returns [(logits, CollectiveStats or None where
+    not ``count``, host s)]: the counter's dispatch hook is timed only
+    where it counts."""
+    from contextlib import nullcontext
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models import lm
+    from repro_torch.sharding.partition import (batch_sharding,
+                                                cache_sharding,
+                                                param_sharding, place,
+                                                sharding_ctx)
+    from repro_torch.sharding.spmd import CollectiveCounter
+
+    def put(tree, shardings, mode):
+        return pytree.tree_map(place, tree, shardings(tree, mesh, mode))
+
+    out = []
+    qp, qc = put(qp, param_sharding, "serve"), put(qc, cache_sharding,
+                                                   "serve")
+    qin = put(qin, batch_sharding, "serve")
+    sync = torch.cuda.synchronize if mesh.local_device.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with (CollectiveCounter() if count else nullcontext()) as cc, \
+            sharding_ctx(mesh, "serve"):
+        logits, _ = lm.decode_step(qp, qc, qin["tokens"], qin["positions"],
+                                   qcfg)
+    sync()
+    out.append((logits, cc and cc.stats, time.perf_counter() - t0))
+    mp, min_ = put(mp, param_sharding, "prefill"), put(min_, batch_sharding,
+                                                       "prefill")
+    sync()
+    t0 = time.perf_counter()
+    with (CollectiveCounter() if count else nullcontext()) as cc, \
+            sharding_ctx(mesh, "prefill"):
+        logits, _ = lm.prefill(mp, min_, mcfg)
+    sync()
+    out.append((logits, cc and cc.stats, time.perf_counter() - t0))
+    return out
+
+
+def spmd_rank(rank, n, store, device, out_dir):
+    """``[spmd]``'s rank ``rank`` of ``n``, one a card, NCCL over a
+    ``FileStore``: both steps first counted on ``meta`` under
+    ``spmd.counting`` at the same mesh and shapes, then run live on the
+    mesh of n ranks along ``model`` at full width (seeded bf16 weights
+    drawn on the card) beside the same steps with no mesh, and each host
+    wall timed on a second call with no counter (the sharded step's holds
+    DTensor's dispatch; the first, counted call's is kept beside it). The
+    unsharded bf16 prefill with the SSD scan forced onto the simt route,
+    a control of how far two sound bf16 routes drift apart. With n >= 2
+    the mamba2 prefill again in f32, and the profiler's NCCL device time
+    of both sharded steps. Writes ``spmd-rank{r}.json``."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    card_settings()
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.roofline import LINK_BW
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models import lm, ssm
+    from repro_torch.sharding.spmd import counting, spmd_mesh
+    # one axis: the (1, n) mesh without its axis of one position, which
+    # the rules would leave whole anyway
+    sizes, names = (n,), ("model",)
+    qcfg, mcfg = get_config("qwen3-14b"), get_config("mamba2-1.3b")
+    B, cap, prompt = SPMD_RINGS
+    Bm, Sm = SPMD_SSM
+
+    def inputs(dev, gen=None):
+        def ints(shape, vocab):
+            if dev == "meta":
+                return torch.empty(shape, dtype=torch.int32, device=dev)
+            return torch.randint(1, vocab, shape, generator=gen, device=dev,
+                                 dtype=torch.int32)
+        return ({"tokens": ints((B, 1), qcfg.vocab),
+                 "positions": torch.full((B, 1), prompt, dtype=torch.int32,
+                                         device=dev)},
+                {"tokens": ints((Bm, Sm), mcfg.vocab)})
+
+    t0 = time.perf_counter()
+    with counting(Mesh.abstract(sizes, names), rank=rank) as cm:
+        qin, min_ = inputs("meta")
+        counted = [st.table() for _, st, _ in _spmd_steps(
+            cm, qcfg, mcfg, lm.lm_init(None, qcfg, "meta"),
+            lm.cache_init(qcfg, B, cap, "meta"), qin,
+            lm.lm_init(None, mcfg, "meta"), min_)]
+    t_count = time.perf_counter() - t0
+    mesh = spmd_mesh(sizes, names, device=device, rank=rank,
+                     store_path=store)
+    dev = mesh.local_device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    qp = init_params(qcfg, dev, seed=0)
+    _, rings = lm.prefill(qp, {"tokens": torch.randint(
+        1, qcfg.vocab, (B, prompt), generator=gen, device=dev,
+        dtype=torch.int32)}, qcfg, capacity=cap)
+    qin, min_ = inputs(dev, gen)
+    mp = init_params(mcfg, dev, seed=0)
+
+    def copy(tree):
+        return pytree.tree_map(torch.clone, tree)
+
+    for _ in range(2):                  # the second call is timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_q, _ = lm.decode_step(qp, copy(rings), qin["tokens"],
+                                    qin["positions"], qcfg)
+        torch.cuda.synchronize()
+        t_plain_q = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain_m, _ = lm.prefill(mp, min_, mcfg)
+        torch.cuda.synchronize()
+        t_plain_m = time.perf_counter() - t0
+    with unittest.mock.patch.object(ssm, "ssd_scan", functools.partial(
+            ssd_scan, route="simt")):
+        simt_m, _ = lm.prefill(mp, min_, mcfg)
+    tc0 = ssd_scan.routes["tc"]
+    n0 = ssd_scan.launches
+    (q, q_st, t_q1), (m, m_st, t_m1) = _spmd_steps(
+        mesh, qcfg, mcfg, qp, copy(rings), qin, mp, min_)
+    tc, launches = ssd_scan.routes["tc"] - tc0, ssd_scan.launches - n0
+    (_, _, t_q), (_, _, t_m) = _spmd_steps(
+        mesh, qcfg, mcfg, qp, copy(rings), qin, mp, min_, count=False)
+    rec = {"rank": rank, "ranks": n, "mesh": "x".join(map(str, sizes)),
+           "t_count_s": t_count}
+    for name, got, plain, st, cnt, t, t1, tp in (
+            ("qwen3-14b decode_step", q, plain_q, q_st, counted[0], t_q,
+             t_q1, t_plain_q),
+            ("mamba2-1.3b prefill", m, plain_m, m_st, counted[1], t_m,
+             t_m1, t_plain_m)):
+        full = got.full_tensor().float()
+        plain = plain.float()
+        top2 = plain.topk(2, dim=-1).values
+        rec[name] = {
+            "collectives": st.table(), "counted": cnt,
+            "collective_bytes": st.total_bytes,
+            "t_collective_ms": st.total_bytes / LINK_BW * 1e3,
+            "bit_equal": bool(torch.equal(full, plain)),
+            "max_abs_err": float((full - plain).abs().max()),
+            "scale": float(plain.abs().max()),
+            # a fault's reading: the logits of the wrong batch rows
+            "wrong_rows_err": float((full - plain.roll(1, 0)).abs().max()),
+            "tokens_equal": bool(torch.equal(full.argmax(-1),
+                                             plain.argmax(-1))),
+            "min_top2_gap": float((top2[..., 0] - top2[..., 1]).min()),
+            "host_ms": t * 1e3, "counted_host_ms": t1 * 1e3,
+            "plain_host_ms": tp * 1e3}
+    rec["mamba2-1.3b prefill"].update(
+        ssd_launches=launches, ssd_tc=tc,
+        simt_err=float((simt_m.float() - plain_m.float()).abs().max()))
+    if n >= 2:
+        # the bf16 prefill of 48 SSM layers carries another GEMM shape's
+        # roundings a rank through the recurrence: the same prefill in f32
+        # is gated beside it, tighter
+        m32 = pytree.tree_map(lambda t: t.float(), mp)
+        plain32, _ = lm.prefill(m32, min_, mcfg)
+        got32 = _spmd_steps(mesh, qcfg, mcfg, qp, copy(rings), qin, m32,
+                            min_, count=False)[1][0].full_tensor()
+        rec["mamba2-1.3b prefill"].update(
+            f32_max_abs_err=float((got32 - plain32).abs().max()),
+            f32_scale=float(plain32.abs().max()))
+        del m32, plain32, got32
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _spmd_steps(mesh, qcfg, mcfg, qp, copy(rings), qin, mp, min_,
+                        count=False)
+        nccl = sum(e.self_device_time_total for e in prof.key_averages()
+                   if "nccl" in e.key.lower())
+        rec["nccl_device_ms_both_steps"] = nccl / 1e3
+    with open(os.path.join(out_dir, f"spmd-rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_spmd(card):
+    """``[spmd]``: the SPMD runtime across every card of the machine, one
+    rank a card (``spmd.spawn``; NCCL; one rank on a one-card machine).
+    Gates, on every rank: the live collectives of each step equal those
+    counted under ``counting`` (kind, count, bytes); the mamba2 prefill
+    launches the SSD kernel on the tc route on each rank's heads (> 0);
+    the logits against the unsharded step — bit-equal on one rank; on
+    more, the qwen3 decode's within SPMD_TOL of the logit scale and the
+    mamba2 prefill's within SPMD_TOL_SSM (a wrong-rows reading above it)
+    and, in f32, within SPMD_TOL_F32; greedy tokens equal unless the
+    top-2 gap is a near tie. Printed beside them: the unsharded bf16
+    prefill's drift between the SSD routes tc and simt."""
+    from repro_torch.sharding.spmd import spawn
+    n = torch.cuda.device_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-spmd-")
+    t0 = time.perf_counter()
+    spawn(spmd_rank, n, out_dir)
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"spmd-rank{r}.json")) as f:
+            recs.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for rec in recs:
+        for name in ("qwen3-14b decode_step", "mamba2-1.3b prefill"):
+            x = rec[name]
+            tag = f"[spmd] rank {rec['rank']} of {n} ({rec['mesh']}) {name}"
+            check(x["collectives"] == x["counted"],
+                  f"{tag}: live collectives {x['collectives']} != counted "
+                  f"{x['counted']}")
+            if n == 1:
+                check(x["bit_equal"], f"{tag}: not bit-equal to the "
+                      f"unsharded step (max |d| {x['max_abs_err']})")
+            else:
+                tol = SPMD_TOL_SSM if name.startswith("mamba2") else SPMD_TOL
+                check(x["max_abs_err"] <= tol * x["scale"],
+                      f"{tag}: max |d| {x['max_abs_err']} > {tol} of "
+                      f"{x['scale']}")
+                check(x["wrong_rows_err"] > tol * x["scale"],
+                      f"{tag}: the wrong rows' logits read "
+                      f"{x['wrong_rows_err']}, within {tol} of "
+                      f"{x['scale']}: the gate tells nothing")
+                check(x["tokens_equal"] or x["min_top2_gap"]
+                      < tol * x["scale"],
+                      f"{tag}: greedy tokens differ past a near tie")
+            if "f32_max_abs_err" in x:
+                check(x["f32_max_abs_err"] <= SPMD_TOL_F32 * x["f32_scale"],
+                      f"{tag}: f32 max |d| {x['f32_max_abs_err']} > "
+                      f"{SPMD_TOL_F32} of {x['f32_scale']}")
+                print(f"{tag}: bf16 max |d| {x['max_abs_err']:.4g} of "
+                      f"{x['scale']:.4g} (gated at {SPMD_TOL_SSM}; the wrong "
+                      f"rows read {x['wrong_rows_err']:.4g}); f32 max |d| "
+                      f"{x['f32_max_abs_err']:.3g} of {x['f32_scale']:.3g} "
+                      f"(gated at {SPMD_TOL_F32}); tokens equal "
+                      f"{x['tokens_equal']}")
+            if "simt_err" in x:
+                print(f"{tag}: control, no mesh: the bf16 prefill with the "
+                      f"SSD scan on simt against tc max |d| "
+                      f"{x['simt_err']:.4g} of {x['scale']:.4g}")
+            print(f"{tag}: {n} rank(s), collectives {x['collectives']} "
+                  f"({x['collective_bytes']} B a rank; counted the same "
+                  f"on meta), t_collective at 450 GB/s "
+                  f"{x['t_collective_ms']:.4f} ms; host wall "
+                  f"{x['host_ms']:.1f} ms sharded (the first call, counted: "
+                  f"{x['counted_host_ms']:.1f}) vs {x['plain_host_ms']:.1f}"
+                  f" ms unsharded; max |d| {x['max_abs_err']:.3g} of "
+                  f"{x['scale']:.3g} (bit-equal {x['bit_equal']}); {card}")
+        m = rec["mamba2-1.3b prefill"]
+        check(m["ssd_tc"] > 0 and m["ssd_tc"] == m["ssd_launches"],
+              f"[spmd] rank {rec['rank']}: the sharded mamba2 prefill "
+              f"launched {m['ssd_launches']} SSD kernels, {m['ssd_tc']} tc")
+        if "nccl_device_ms_both_steps" in rec:
+            print(f"[spmd] rank {rec['rank']} of {n}: NCCL device time "
+                  f"{rec['nccl_device_ms_both_steps']:.3f} ms over both "
+                  f"steps beside the counted t_collective "
+                  f"{sum(rec[k]['t_collective_ms'] for k in ('qwen3-14b decode_step', 'mamba2-1.3b prefill')):.4f} ms")
+    print(f"[spmd] {n} rank(s), one a card: SSD tc launches "
+          f"{[r['mamba2-1.3b prefill']['ssd_tc'] for r in recs]} a rank; "
+          f"counted on meta in {recs[0]['t_count_s']:.1f}s; phase wall "
+          f"{wall:.1f}s; torch {torch.__version__}; {card}")
+    return recs
+
+
 def phase_dryrun(card):
     """``launch.dryrun.run_cell`` on the 16 x 16 production mesh (abstract,
-    meta tensors, the host's CPU): qwen3-14b ``decode_32k`` and mamba2-1.3b
-    ``train_4k``; each row's status must be ``ok``."""
+    meta tensors, the host's CPU; the step under the SPMD runtime on a fake
+    process group): qwen3-14b ``decode_32k`` and mamba2-1.3b ``train_4k``;
+    each row's status must be ``ok``, with collectives counted (bytes a
+    chip above 0 and a table by kind)."""
     from repro_torch.launch.dryrun import run_cell
     out = {}
     for arch, shape in (("qwen3-14b", "decode_32k"),
@@ -4739,8 +5038,16 @@ def phase_dryrun(card):
         check(rec["status"] == "ok",
               f"[dryrun] {arch} {shape}: {rec.get('error')}\n"
               f"{rec.get('trace', '')}")
+        check(rec["collective_bytes_per_chip"] > 0 and rec["collectives"],
+              f"[dryrun] {arch} {shape}: no collective counted")
         out[f"{arch} {shape}"] = rec
         print(f"[dryrun] {json.dumps(rec)}")
+        print(f"[dryrun] {arch} {shape}: bound {rec['bound']} (compute "
+              f"{rec['t_compute'] * 1e3:.3f} ms, memory "
+              f"{rec['t_memory'] * 1e3:.3f} ms, collective "
+              f"{rec['t_collective'] * 1e3:.3f} ms: "
+              f"{rec['collective_bytes_per_chip']:.0f} B a chip, "
+              f"{rec['collectives']})")
     print(f"[dryrun] {len(out)} rows on the abstract 16 x 16 mesh at the "
           f"H100 data-sheet constants, counted on this host's CPU (the card "
           f"the times elsewhere ran on: {card})")
@@ -5028,6 +5335,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dry = phase_dryrun(card)
     print(f"[dryrun] phase wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    spmd = phase_spmd(card)
+    print(f"[spmd] phase wall {time.perf_counter() - t0:.1f}s")
 
     paged_phases = {"serve": srv, "serve-graph": graph, "serve-obs": obs,
                     "restart A": restart["A"], "restart B": restart["B"],
@@ -5077,7 +5387,8 @@ def main() -> int:
             train_ssm[m]["launches"]["ssd_scan"]
             for m in ("eager", "replayed"))
         + fault["launches"]["ssd_scan"] + wine["launches"]["ssd_scan"]
-        + pipe["mamba2-1.3b"]["ssd_routes"]["bfloat16 pipeline"]["tc"],
+        + pipe["mamba2-1.3b"]["ssd_routes"]["bfloat16 pipeline"]["tc"]
+        + spmd[0]["mamba2-1.3b prefill"]["ssd_launches"],
         "launches_by_phase": {
             "serve-ssm": ssm["launches"],
             "dist-serve": dist_serve["launches"],
@@ -5091,7 +5402,9 @@ def main() -> int:
             "wine (prefill and train replays)":
                 wine["launches"]["ssd_scan"],
             "pipeline (bf16, 4 stages x 4 microbatches)":
-                pipe["mamba2-1.3b"]["ssd_routes"]["bfloat16 pipeline"]["tc"]},
+                pipe["mamba2-1.3b"]["ssd_routes"]["bfloat16 pipeline"]["tc"],
+            f"spmd (rank 0 of {len(spmd)}: the sharded prefill)":
+                spmd[0]["mamba2-1.3b prefill"]["ssd_launches"]},
         "launches_in_replays_by_phase": {
             n: r["step"]["launches_in_replays"]["ssd_scan"]
             for n, r in (("serve-ssm", ssm), ("dist-serve", dist_serve),
@@ -5171,7 +5484,32 @@ def main() -> int:
     return 0
 
 
+def spmd_only() -> int:
+    """``python3 chip_smoke.py --spmd``: the card line, the SSD kernel's
+    build and ``[spmd]`` alone, across every card of the machine (for a
+    machine of several cards, where the whole script is not needed)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import _build
+    card = card_line()
+    print(f"[card] {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()} | nvidia-smi: {card} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.build(["ssd_scan"])
+    print(f"[build] ssd_scan.cu in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_spmd(card)
+    print(f"[spmd] phase wall {time.perf_counter() - t0:.1f}s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--restart-child"]:
         sys.exit(restart_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--spmd"]:
+        sys.exit(spmd_only())
     sys.exit(main())

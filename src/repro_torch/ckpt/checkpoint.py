@@ -18,7 +18,11 @@ captured as a CUDA graph over them stays valid. With ``sharding`` (a
 ``NamedSharding`` tree, e.g. ``runtime.elastic.state_sharding(state,
 mesh)`` for a mesh other than the one that wrote the checkpoint), each
 restored tensor is then placed as ``runtime.elastic.reshard_state`` would
-place it: kept where its sharding's device is already its own.
+place it: kept where its sharding's device is already its own. On a mesh
+of ranks (``sharding.spmd``) each rank reads each array and keeps only its
+shard, copied from the host to its device, and the tensors of ``like``
+(which may be ``meta`` tensors: shapes and dtypes alone) are not written:
+the restored tree is new DTensors.
 """
 from __future__ import annotations
 
@@ -39,6 +43,17 @@ from repro_torch.train.optimizer import leaves_with_path
 def _flatten(tree) -> dict:
     return {"/".join(str(p) for p in path): leaf
             for path, leaf in leaves_with_path(tree)}
+
+
+def _rebuild(tree, flat: dict, path=()):
+    """``tree``'s structure with the leaf at each flattened path taken from
+    ``flat``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, flat, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, flat, path + (i,))
+                          for i, v in enumerate(tree))
+    return flat["/".join(str(p) for p in path)]
 
 
 def _to_numpy(t) -> np.ndarray:
@@ -109,19 +124,30 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
         raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
     step = steps[-1] if step is None else step
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    shardings = None
+    if sharding is not None:
+        flat_sh = _flatten(sharding)
+        if any(sh.mesh.is_spmd for sh in flat_sh.values()):
+            shardings = flat_sh
     with np.load(os.path.join(d, "arrays.npz")) as data:
         flat_like = _flatten(like)
         missing = set(flat_like) - set(data.files)
         if missing:
             raise ValueError(
                 f"checkpoint missing keys: {sorted(missing)[:5]}...")
+        placed = {}
         for key, leaf in flat_like.items():
             arr = torch.from_numpy(np.array(data[key]))
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"checkpoint {key}: shape "
                                  f"{tuple(arr.shape)}, state "
                                  f"{tuple(leaf.shape)}")
-            leaf.copy_(arr.to(leaf.dtype))
+            if shardings is not None:
+                placed[key] = place(arr, shardings[key]).to(leaf.dtype)
+            else:
+                leaf.copy_(arr.to(leaf.dtype))
+    if shardings is not None:
+        return _rebuild(like, placed), step
     if sharding is not None:
         like = pytree.tree_map(place, like, sharding)
     return like, step

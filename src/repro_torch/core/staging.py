@@ -23,7 +23,10 @@ Two layers:
     On one card both are one copy: degenerate, but real.
 
 ``bytes_total`` counts bytes DELIVERED to devices (every replica), and the
-effective rate is surfaced as ``extra["gb_per_s"]``.
+effective rate is surfaced as ``extra["gb_per_s"]``. On a mesh of ranks
+(``sharding.spmd``) ``parallel_pull`` takes a sharding tree, as the
+reference's does, and each rank pulls only its shard (``delivered_bytes``:
+the shards that landed, a replicated leaf once a replica).
 """
 from __future__ import annotations
 
@@ -37,12 +40,32 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core.telemetry import LaunchRecord
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.sharding.partition import place
 
 
 def tree_bytes(tree: Any) -> int:
     return sum(int(l.numel()) * l.element_size() if isinstance(
         l, torch.Tensor) else l.size * l.dtype.itemsize
         for l in pytree.tree_leaves(tree))
+
+
+def delivered_bytes(placed) -> int:
+    """Bytes that landed on devices: on a mesh of ranks the sum of every
+    rank's shards (a replicated leaf counted once a replica: its bytes
+    times the ranks that hold it whole on each mesh dim it is not cut
+    on); a plain tensor's own bytes."""
+    from torch.distributed.tensor import DTensor, Shard
+    total = 0
+    for leaf in pytree.tree_leaves(placed):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        n = leaf.numel() * leaf.element_size()
+        if isinstance(leaf, DTensor):
+            for m, p in enumerate(leaf.placements):
+                if not isinstance(p, Shard):
+                    n *= leaf.device_mesh.size(m)
+        total += n
+    return total
 
 
 class Stager:
@@ -236,12 +259,31 @@ def stage_point_to_point(host_tree: Any,
 
 
 def stage_parallel_pull(host_tree: Any, devices: Optional[Sequence] = None,
-                        n_instances: Optional[int] = None) -> tuple:
+                        n_instances: Optional[int] = None, *,
+                        sharding: Any = None) -> tuple:
     """Every device's copy enqueued at once, each on its own side stream,
     then one wait: the pull-initiated parallel copy. Returns the first
-    device's placement."""
-    devices = [resolve_device(d) for d in (devices or [None])]
+    device's placement.
+
+    With ``sharding`` (a ``NamedSharding`` tree on a mesh of ranks, as the
+    reference's ``sharding_tree``), one sharded placement instead: each
+    rank pulls only its shard of each leaf from the host (``place``), and
+    ``bytes_total`` is ``delivered_bytes`` of the placement: the shards
+    that landed on every rank, a replicated leaf once a replica."""
     pinned = _pinned(host_tree)
+    if sharding is not None:
+        mesh = pytree.tree_leaves(sharding)[0].mesh
+        rec = LaunchRecord("stage-pull", n_instances or mesh.size)
+        t0 = time.perf_counter()
+        placed = pytree.tree_map(place, pinned, sharding)
+        if mesh.local_device.type == "cuda":
+            torch.cuda.synchronize(mesh.local_device)
+        rec.t_stage = time.perf_counter() - t0
+        rec.extra["bytes_total"] = delivered_bytes(placed)
+        rec.extra["gb_per_s"] = (rec.extra["bytes_total"] / rec.t_stage / 1e9
+                                 if rec.t_stage > 0 else 0.0)
+        return placed, rec
+    devices = [resolve_device(d) for d in (devices or [None])]
     rec = LaunchRecord("stage-pull", n_instances or len(devices))
     t0 = time.perf_counter()
     puts = [_put(pinned, d) for d in devices]

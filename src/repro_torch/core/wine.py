@@ -43,6 +43,14 @@ mode)`` (train, serve for decode, prefill) and places a train state on the
 mesh (``runtime.elastic.reshard_state``): the state it draws, and a state
 passed to ``load`` (a restored checkpoint). Its default backend is an
 ``ArrayBackend`` over the same mesh.
+
+On a mesh of ranks (``sharding.spmd.spmd_mesh``: one process a card, every
+rank running the same apps) each rank holds its shard of the state —
+params and caches laid out as ``param_sharding`` / ``cache_sharding`` lay
+them out for the app's mode, each batch as ``batch_sharding`` — and the
+apps run eagerly (``load_report["compile_source"] == "eager"``): a sharded
+step is not captured as a CUDA graph. Outputs are DTensors
+(``.full_tensor()`` gathers one).
 """
 from __future__ import annotations
 
@@ -59,7 +67,9 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.models.spec import (SHAPES_BY_NAME, ModelConfig, ShapeCell,
                                      TensorSpec)
 from repro_torch.runtime.elastic import reshard_state
-from repro_torch.sharding.partition import sharding_ctx
+from repro_torch.sharding.partition import (batch_sharding, cache_sharding,
+                                            param_sharding, place,
+                                            sharding_ctx)
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import init_state, make_train_step
 
@@ -194,6 +204,13 @@ class WineAdapter:
         t_stage = time.perf_counter() - t0
 
         specs = input_specs(cfg, self._cell(app))
+        if self._spmd:
+            return Instance(app, cfg, self._eager(app, fn), state,
+                            {"t_stage": t_stage, "t_compile": 0.0,
+                             "compile_source": "eager",
+                             "compile_cached": False, "capture_ahead": False,
+                             "captured_ahead": False},
+                            raw_fn=fn, device=self.device)
         compiled, source = self.backend.compile(
             fn, (state, specs), bind_argnums=(0,),
             extras=("wine", app.arch, app.mode, app.shape, app.smoke,
@@ -214,6 +231,21 @@ class WineAdapter:
                          "captured_ahead": captured},
                         raw_fn=fn, device=self.device)
 
+    @property
+    def _spmd(self) -> bool:
+        return self.mesh is not None and self.mesh.is_spmd
+
+    def _eager(self, app: WineApp, fn: Callable) -> Callable:
+        """A step on a mesh of ranks: each batch laid out as
+        ``batch_sharding`` lays it out, the step run eagerly."""
+        mode = "serve" if app.mode == "decode" else app.mode
+
+        def step(state, inputs):
+            inputs = pytree.tree_map(
+                place, inputs, batch_sharding(inputs, self.mesh, mode))
+            return fn(state, inputs)
+        return step
+
     def _init_state(self, app: WineApp, cfg: ModelConfig, seed: int):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -223,10 +255,17 @@ class WineAdapter:
                 state = reshard_state(state, self.mesh)
             return state
         params = lm_mod.lm_init(gen, cfg, self.device)
+        mode = "serve" if app.mode == "decode" else "prefill"
+        if self._spmd:
+            params = pytree.tree_map(
+                place, params, param_sharding(params, self.mesh, mode=mode))
         if app.mode == "decode":
             cell = self._cell(app)
             caches = lm_mod.cache_init(cfg, cell.global_batch, cell.seq_len,
                                        self.device)
+            if self._spmd:
+                caches = pytree.tree_map(
+                    place, caches, cache_sharding(caches, self.mesh, mode))
             return (params, caches)
         return params
 

@@ -100,6 +100,15 @@ def _launcher():
     return fn
 
 
+def _refuse_sharded(*ts) -> None:
+    """flash_attention is on no sharded path (no model calls it, in the reference as here): a DTensor raises rather than
+    take the plain version on a gathered copy."""
+    from repro_torch.sharding.spmd import is_sharded
+    if any(t is not None and is_sharded(t) for t in ts):
+        raise NotImplementedError(
+            "flash_attention: sharded (DTensor) inputs are not taken: no model calls it, in the reference as here")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     softcap=None, scale=None):
     """Blocked online-softmax attention.
@@ -114,6 +123,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     zeros. CPU (and ``meta``) tensors take ``attention_ref``; CUDA tensors launch the
     kernel (D and Dv multiples of 8 up to 256, contiguous tensors).
     """
+    _refuse_sharded(q, k, v)
     _check(q, k, v)
     if q.device.type in PLAIN_DEVICES:
         return attention_ref(q, k, v, causal=causal, window=window,

@@ -202,6 +202,15 @@ def _launcher(route: str):
     return fn
 
 
+def _refuse_sharded(*ts) -> None:
+    """paged_attention is on no sharded path (the paged engine serves on one device, in the reference as here): a DTensor raises rather than
+    take the plain version on a gathered copy."""
+    from repro_torch.sharding.spmd import is_sharded
+    if any(t is not None and is_sharded(t) for t in ts):
+        raise NotImplementedError(
+            "paged_attention: sharded (DTensor) inputs are not taken: the paged engine serves on one device, in the reference as here")
+
+
 def paged_attention(q, k, v, kpos, tables, q_pos, *, q2=None, k2=None,
                     scale=None, causal: bool = True, window=None,
                     softcap=None):
@@ -223,6 +232,7 @@ def paged_attention(q, k, v, kpos, tables, q_pos, *, q2=None, k2=None,
     route ``_route`` picks (the split and tile routes take 16-byte aligned
     tensors and raise on others).
     """
+    _refuse_sharded(q, k, v, kpos, tables, q_pos, q2, k2)
     _check(q, k, v, kpos, tables, q_pos, q2, k2)
     if q.device.type in PLAIN_DEVICES:
         return paged_attention_ref(q, k, v, kpos, tables, q_pos, q2=q2, k2=k2,

@@ -30,6 +30,14 @@ reference's own gradient, which is autodiff of its plain ``ssd_chunked``
 (it has no backward kernel). The counters count forward launches only;
 a recompute under remat launches the forward again and counts. The
 backward runs inside a profiler range, ``ssd_scan_backward``.
+
+Sharded inputs (DTensors of the SPMD runtime, ``sharding.spmd``): the scan
+is independent across batch rows and across heads, so each rank runs the
+wrapper above — the kernel on the card — on its own shard through
+``local_map``. A batch cut stays (dt, B and C cut alike); a head cut stays
+(dt and A cut alike; B and C, shared by the heads, whole); a sequence or
+head-dim cut, or a partial sum, is first redistributed to whole, and the
+runtime's count shows it.
 """
 from __future__ import annotations
 
@@ -198,6 +206,9 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, out_dtype=None,
     route ``_plan`` picks, or of ``route`` ("tc" or "simt") where the caller
     forces one (raising if that route does not take the shape).
     """
+    from repro_torch.sharding.spmd import is_sharded
+    if any(is_sharded(t) for t in (x, dt, A, B, C)):
+        return _sharded(x, dt, A, B, C, chunk, out_dtype, return_state, route)
     _check(x, dt, A, B, C, chunk)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if route is not None and route not in ROUTES:
@@ -214,6 +225,48 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, out_dtype=None,
         y, h = _SsdScanFn.apply(x, dt, A, B, C, chunk, out_dtype, route)
         return (y, h) if return_state else y
     return _launch(x, dt, A, B, C, chunk, out_dtype, return_state, route)
+
+
+def _sharded(x, dt, A, B, C, chunk, out_dtype, return_state, route):
+    """``ssd_scan`` on each rank's batch rows or heads (see the module
+    docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.spmd import as_sharded
+    like = next(t for t in (x, dt, A, B, C) if hasattr(t, "placements"))
+    x, dt, A, B, C = (as_sharded(t, like) for t in (x, dt, A, B, C))
+    R, S = Replicate(), Partial()
+    # per mesh dim: the (x, dt, A, B, C) placements, their gradients' (an
+    # input whole on each rank of a cut gets a partial sum: a rank's rows
+    # or heads contribute only their share), and the (y, state) ones
+    ins, grads, outs = [[] for _ in range(5)], [[] for _ in range(5)], [[], []]
+    for p in x.placements:
+        if isinstance(p, Shard) and p.dim == 0:        # batch rows
+            pi, po = (p, Shard(0), R, Shard(0), Shard(0)), (p, Shard(0))
+            pg = (p, Shard(0), S, Shard(0), Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2:      # heads
+            pi, po = (p, Shard(2), Shard(0), R, R), (p, Shard(1))
+            pg = (p, Shard(2), Shard(0), S, S)
+        else:                                          # made whole first
+            pi, po, pg = (R,) * 5, (R, R), (R,) * 5
+        for acc, q in zip(ins, pi):
+            acc.append(q)
+        for acc, q in zip(grads, pg):
+            acc.append(q)
+        for acc, q in zip(outs, po):
+            acc.append(q)
+
+    def run(x, dt, A, B, C):
+        return ssd_scan(x, dt, A, B, C, chunk=chunk, out_dtype=out_dtype,
+                        return_state=True, route=route)
+
+    y, h = local_map(run, out_placements=tuple(outs),
+                     in_placements=tuple(ins),
+                     in_grad_placements=tuple(grads),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, dt, A, B, C)
+    return (y, h) if return_state else y
 
 
 class _SsdScanFn(torch.autograd.Function):

@@ -12,25 +12,35 @@ reference does) it
     ``sharding.partition`` on the (16, 16) or (2, 16, 16) mesh, the
     reference's ``_tree_device_bytes``; ``model_flops``, ``params`` and
     ``params_active``;
-  * runs one step on ``meta`` under ``sharding_ctx`` — the train step
-    (with the reference's ``MICROBATCHES`` and ``ACCUM_DTYPE``), a prefill
-    or a ``decode_step`` — under the op counter (``launch.op_analysis``);
+  * runs one step on ``meta`` under the SPMD runtime: the mesh brought up
+    on a fake process group, one rank of it in this process
+    (``sharding.spmd.counting``), the params, caches and batch placed as
+    ``param_sharding`` / ``cache_sharding`` / ``batch_sharding`` lay them
+    out, under ``sharding_ctx`` — the train step (with the reference's
+    ``MICROBATCHES`` and ``ACCUM_DTYPE``), a prefill or a ``decode_step``
+    — under the op counter (``launch.op_analysis``) and the collective
+    counter (``sharding.spmd.CollectiveCounter``);
   * emits the Hopper roofline row (``launch.roofline``): flops a chip are
-    the counted flops over the chips (an even split; a train step's include
-    remat's recompute, which it executes: ``model_flops`` is 6ND beside
-    them); the bytes that must move are the static bytes a device, less,
-    in a forward step (prefill, decode), the rows of an untied input
-    embedding that no token gathers (``embed_rows_not_read``); the counted
-    eager traffic is printed beside them as ``op_bytes_per_chip``. A
-    decode cell's caches count whole: at ``decode_32k`` every row is
-    context. The collective term is not counted on a mesh of more than
-    one device (``None``).
+    the counted flops over the chips (an even split of the logical step's
+    flops, which the op counter sees whole: a train step's include remat's
+    recompute, which it executes; ``model_flops`` is 6ND beside them); the
+    bytes that must move are the static bytes a device, less, in a forward
+    step (prefill, decode), the rows of an untied input embedding that no
+    token gathers (``embed_rows_not_read``); the counted eager traffic is
+    printed beside them as ``op_bytes_per_chip``. A decode cell's caches
+    count whole: at ``decode_32k`` every row is context. The collective
+    term is the operand bytes of the collectives rank 0 of the sharded
+    step issues (``collectives``: ``{kind: [count, bytes]}``,
+    ``collective_bytes_per_chip``), over ``LINK_BW``; one chip sends
+    nothing (0). A step the runtime cannot run is a ``fail`` row with its
+    error.
 
 The kernels' wrappers take their plain versions on ``meta``, so the flops
 are the plain versions': the SSD scan's chunked dual form (the same
 products the ``tc`` kernel issues), the paged kernel's gathered view.
-The reference compiles each cell for its 512 fake host devices; the port
-has no SPMD runtime to compile for, and counts the single-controller step.
+The reference compiles each cell for its 512 fake host devices and reads
+the collectives XLA's partitioner put in its HLO; the port counts those
+DTensor issues, a rank's, as they run.
 """
 from __future__ import annotations
 
@@ -50,8 +60,10 @@ from repro_torch.launch.op_analysis import count
 from repro_torch.launch.roofline import Roofline
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.spec import ShapeCell
-from repro_torch.sharding.partition import (cache_sharding, param_sharding,
+from repro_torch.sharding.partition import (batch_sharding, cache_sharding,
+                                            param_sharding, place,
                                             sharding_ctx)
+from repro_torch.sharding.spmd import CollectiveCounter, counting
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import init_state, make_train_step
 
@@ -142,6 +154,36 @@ def build_cell(arch: str, cell: ShapeCell, mesh: Mesh, smoke: bool = False):
     return fn, (params, caches, data), static
 
 
+def place_args(cell: ShapeCell, mesh: Mesh, args: tuple) -> tuple:
+    """``build_cell``'s arguments laid out on a mesh of ranks as the
+    reference's ``in_shardings`` lay them out."""
+    def put(tree, shardings):
+        return pytree.tree_map(place, tree, shardings)
+
+    data = args[-1]
+    if cell.mode == "train":
+        state = args[0]
+        return (put(state, param_sharding(state, mesh)),
+                put(data, batch_sharding(data, mesh, "train")))
+    mode = "prefill" if cell.mode == "prefill" else "serve"
+    params = put(args[0], param_sharding(args[0], mesh, mode=mode))
+    data = put(data, batch_sharding(data, mesh, mode))
+    if cell.mode == "prefill":
+        return params, data
+    return params, put(args[1], cache_sharding(args[1], mesh, "serve")), data
+
+
+def count_cell(arch: str, cell: ShapeCell, mesh: Mesh, smoke: bool = False):
+    """(the op counter's ``OpCost``, the ``CollectiveStats`` of rank 0,
+    the static bytes a device, the cell's arguments on ``meta``) of one
+    step of ``cell`` on ``mesh`` (abstract) under the SPMD runtime."""
+    with counting(mesh) as spmd:
+        fn, args, static = build_cell(arch, cell, spmd, smoke=smoke)
+        with CollectiveCounter() as cc:
+            _, cost = count(fn, *place_args(cell, spmd, args))
+    return cost, cc.stats, static, args
+
+
 def embed_rows_not_read(cfg, params, tokens: int, shards: int = 1) -> int:
     """Bytes a device holds of an untied input embedding that a forward
     step gathering ``tokens`` rows need not read: all but those rows (a
@@ -169,18 +211,19 @@ def must_move_bytes(cfg, cell: ShapeCell, mesh: Mesh, args: tuple,
                                         shards)
 
 
-def roofline_row(cost, must_move: float, mflops: float,
-                 chips: int) -> dict:
+def roofline_row(cost, must_move: float, mflops: float, chips: int,
+                 coll=None) -> dict:
     """The roofline row of one counted step (``cost``: an ``OpCost``) on
     ``chips`` chips: counted flops split evenly, ``must_move`` bytes a chip
     as the bytes that must move (a lower bound: see the module docstring),
-    the eager traffic beside them. One chip sends nothing over links; on
-    more the collective bytes are not counted (None)."""
+    the eager traffic beside them, and the collectives a chip issues
+    (``coll``: a ``CollectiveStats``; None or empty: none)."""
+    total = float(coll.total_bytes) if coll is not None else 0.0
     roof = Roofline(flops=cost.flops / chips, hbm_bytes=must_move,
-                    collective_bytes=0.0 if chips == 1 else None,
-                    model_flops=mflops, chips=chips)
+                    collective_bytes=total, model_flops=mflops, chips=chips)
     return dict(roof.row(), op_bytes_per_chip=cost.hbm_bytes / chips,
-                ops=cost.ops)
+                ops=cost.ops,
+                collectives=coll.table() if coll is not None else {})
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool,
@@ -198,16 +241,16 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         return rec
     t0 = time.perf_counter()
     try:
-        fn, args, static = build_cell(arch, cell, mesh, smoke=smoke)
-        rec["t_build_s"] = round(time.perf_counter() - t0, 2)
-        _, cost = count(fn, *args)
+        cost, coll, static, args = count_cell(arch, cell, mesh, smoke=smoke)
         rec["t_count_s"] = round(time.perf_counter() - t0, 2)
         rec["static_bytes_per_device"] = int(static)
         rec["static_gb_per_device"] = round(static / 1e9, 3)
         cfg = get_config(arch, smoke=smoke)
         must = must_move_bytes(cfg, cell, mesh, args, static)
-        rec.update(roofline_row(cost, must, model_flops(cfg, cell), chips))
-        rec["counted"] = "plain versions of the kernels, eager traffic"
+        rec.update(roofline_row(cost, must, model_flops(cfg, cell), chips,
+                                coll))
+        rec["counted"] = ("plain versions of the kernels, eager traffic, "
+                          "collectives of rank 0 under the SPMD runtime")
         rec["params"] = lm_mod.count_params(cfg)
         rec["params_active"] = lm_mod.count_params(cfg, active_only=True)
     except Exception as e:  # noqa: BLE001 — a failing cell is a bug report

@@ -6,9 +6,15 @@ may list one device at several positions: torch has one CPU device and a
 machine may have one card, so a mesh over "the card twice" stands in for
 the reference's fake host devices (``--xla_force_host_platform_device_count``).
 An abstract mesh has no devices: the dry run (``launch.dryrun``) resolves
-shardings against the production meshes without a process for each of
-their 256 or 512 positions, which ``torch.distributed``'s ``DeviceMesh``
-would need.
+shardings against the production meshes without a card, and runs their
+step on ``meta`` with every one of their 256 or 512 positions a rank of a
+fake process group in one process (``sharding.spmd.counting``).
+
+A mesh of ranks (``sharding.spmd.spmd_mesh``) carries the
+``torch.distributed`` ``DeviceMesh`` of its process group
+(``device_mesh``) and this rank's device (``local_device``): one process a
+position, each holding its shard. Every other mesh is single-controller:
+one process drives all of its positions.
 
 Axis semantics, as in the reference: ``pod`` = cross-pod axis, ``data`` =
 batch/FSDP axis, ``model`` = tensor/expert-parallel axis. Functions, not
@@ -55,6 +61,13 @@ class Mesh:
         self.sizes: Tuple[int, ...] = tuple(int(s) for s in sizes)
         self.shape = dict(zip(self.axis_names, self.sizes))
         self.devices: Optional[np.ndarray] = devices
+        self.device_mesh = None          # set by sharding.spmd
+        self.local_device: Optional[torch.device] = None
+
+    @property
+    def is_spmd(self) -> bool:
+        """A mesh of ranks: one process a position (``sharding.spmd``)."""
+        return self.device_mesh is not None
 
     @property
     def size(self) -> int:
@@ -89,14 +102,19 @@ class Mesh:
         axes = ", ".join(f"{n}={s}" for n, s in self.shape.items())
         devs = ("abstract" if self.devices is None else
                 ", ".join(map(str, self.distinct_devices)))
+        if self.is_spmd:
+            devs = f"{self.size} ranks; this one on {self.local_device}"
         return f"Mesh({axes}; {devs})"
 
 
 def mesh_device(mesh: Optional[Mesh]) -> Optional[torch.device]:
     """The device a one-device consumer of ``mesh`` runs on: its first
-    device (None without a mesh or for an abstract one)."""
+    device, this rank's on a mesh of ranks (None without a mesh or for an
+    abstract one)."""
     if mesh is None or mesh.is_abstract:
         return None
+    if mesh.is_spmd:
+        return mesh.local_device
     return mesh.distinct_devices[0]
 
 

@@ -25,12 +25,34 @@ A card whose power limit is set lower runs slower under load than these.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 PEAK_FLOPS = 989e12      # bf16 dense tensor-core FLOP/s; NVIDIA H100 80GB HBM3, 700.00 W
 HBM_BW = 3.35e12         # HBM3 bytes/s; NVIDIA H100 80GB HBM3, 700.00 W
 LINK_BW = 450e9          # NVLink bytes/s a direction; NVIDIA H100 80GB HBM3, 700.00 W
+
+
+@dataclass
+class CollectiveStats:
+    """Collectives by kind (the reference's HLO names: ``all-reduce``,
+    ``all-gather``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-broadcast``): how many, and their operand bytes a rank."""
+    bytes_by_kind: dict = field(default_factory=dict)
+    count_by_kind: dict = field(default_factory=dict)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+    def add(self, kind: str, nbytes: int):
+        self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + nbytes
+        self.count_by_kind[kind] = self.count_by_kind.get(kind, 0) + 1
+
+    def table(self) -> dict:
+        """``{kind: [count, bytes]}``, the dry run row's ``collectives``."""
+        return {k: [self.count_by_kind[k], int(v)]
+                for k, v in self.bytes_by_kind.items()}
 
 
 @dataclass

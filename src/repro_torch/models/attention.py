@@ -29,6 +29,11 @@ reference.
 Cross-attention (enc-dec decoders) attends encoder keys/values without a
 mask or rope; its k/v come from ``gqa_encoder_kv`` on every call.
 
+On a mesh of ranks (DTensors, ``sharding.spmd``) the products, the
+softmax and the ring writes go through that module's ops: each rank
+computes on its shards and writes its own shard of a ring; on plain
+tensors they are the plain ops. The paged kernel takes no DTensor.
+
 MLA (DeepSeek-V2) keeps a compressed cache ``{ckv, kr, pos}``: a prefill
 without a pool runs the decompressed form; a ring decode and every call on
 a pool leaf run the weight-absorbed form, which is MQA against the
@@ -47,6 +52,8 @@ from repro_torch.models.layers import (apply_rope, fan_in_init, head_rmsnorm,
                                        softcap)
 from repro_torch.models.spec import AttentionSpec, ModelConfig
 from repro_torch.sharding.partition import constrain
+from repro_torch.sharding.spmd import (einsum, is_sharded, pad, reshape,
+                                       softmax, write_rows)
 
 BLOCKED_THRESHOLD = 8192
 KV_BLOCK = 1024            # key-block width for the blocked path
@@ -76,7 +83,7 @@ def attn_core(q, k, v, q_pos, k_pos, *, scale, causal, window, cap,
     Returns (B,Q,H,Dv). Decode (Q == 1) always takes the flat path."""
     B, Q, H, Dk = q.shape
     G = H // n_kv
-    q5 = q.reshape(B, Q, n_kv, G, Dk)
+    q5 = reshape(q, (B, Q, n_kv, G, Dk))
     # batch follows the cache's batch sharding, as in the reference
     q5 = constrain(q5, "cache_batch", "seq", "kv_heads", "q_group",
                    "head_dim")
@@ -88,7 +95,7 @@ def attn_core(q, k, v, q_pos, k_pos, *, scale, causal, window, cap,
     # the output keeps q5's layout
     out = constrain(out, "cache_batch", "seq", "kv_heads", "q_group",
                     "head_dim")
-    return out.reshape(B, Q, H, v.shape[-1])
+    return reshape(out, (B, Q, H, v.shape[-1]))
 
 
 def _attn_flat(q, k, v, q_pos, k_pos, *, scale, causal, window, cap):
@@ -98,15 +105,15 @@ def _attn_flat(q, k, v, q_pos, k_pos, *, scale, causal, window, cap):
     (the paged kernel instead scales f32 scores), scores accumulate in f32,
     and p is cast to v's dtype before the value product."""
     q = (q.float() * scale).to(q.dtype)
-    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
+    s = einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
     if cap is not None:
         s = softcap(s, cap)
     m = _mask(q_pos, k_pos, causal, window)[:, None, None]   # (B,1,1,Q,S)
     s = torch.where(m, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = softmax(s, dim=-1)
     # fully-masked rows (e.g. empty ring slots only) -> zeros, not NaN
     p = torch.where(m.any(-1, keepdim=True), p, 0.0)
-    out = torch.einsum("bkgqs,bskv->bqkgv", p.to(v.dtype).float(), v.float())
+    out = einsum("bkgqs,bskv->bqkgv", p.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
 
@@ -132,12 +139,12 @@ def _attn_blocked(q, k, v, q_pos, k_pos, *, scale, causal, window, cap):
     for lo in range(0, S, KV_BLOCK):
         kc, vc = k[:, lo:lo + KV_BLOCK], v[:, lo:lo + KV_BLOCK]
         pc = k_pos[:, lo:lo + KV_BLOCK]
-        pad = KV_BLOCK - kc.shape[1]
-        if pad:
-            kc = torch.nn.functional.pad(kc, (0, 0, 0, 0, 0, pad))
-            vc = torch.nn.functional.pad(vc, (0, 0, 0, 0, 0, pad))
-            pc = torch.nn.functional.pad(pc, (0, pad), value=-1)
-        s = torch.einsum("bqkgd,bskd->bkgqs", q, kc.float())
+        short = KV_BLOCK - kc.shape[1]
+        if short:
+            kc = pad(kc, (0, 0, 0, 0, 0, short))
+            vc = pad(vc, (0, 0, 0, 0, 0, short))
+            pc = pad(pc, (0, short), value=-1)
+        s = einsum("bqkgd,bskd->bkgqs", q, kc.float())
         if cap is not None:
             s = softcap(s, cap)
         msk = _mask(q_pos, pc, causal, window)[:, None, None]
@@ -150,7 +157,7 @@ def _attn_blocked(q, k, v, q_pos, k_pos, *, scale, causal, window, cap):
         p = (s.sub_(m_new[..., None]).exp_() if not s.requires_grad
              else torch.exp(s - m_new[..., None]))
         l_run = l_run * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + einsum(
             "bkgqs,bskv->bkgqv", p.to(v.dtype).float(), vc.float())
         m_run = m_new
     l_safe = torch.where(l_run > 0, l_run, 1.0)
@@ -245,6 +252,12 @@ def _ring_update(cache: dict, new: dict, positions: torch.Tensor) -> dict:
     B, S = positions.shape
     entries = dict(new)
     entries["pos"] = positions
+    if is_sharded(cache["pos"]):
+        first = positions[:, -cap] if S >= cap else positions[:, 0]
+        start = first % cap if S >= cap else (first % cap).clamp(max=cap - S)
+        for k, v in entries.items():
+            write_rows(cache[k], v, start)
+        return cache
     rows = torch.arange(B, device=positions.device)[:, None]
     if S >= cap:
         shift = positions[:, -cap] % cap                         # (B,)
@@ -391,7 +404,7 @@ def gqa_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
     Dh = spec.head_dim
     S = x.shape[1]
 
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
 
@@ -406,8 +419,8 @@ def gqa_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
                         cap=spec.logit_softcap, n_kv=k.shape[2])
         return _out_proj(params, out)
 
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    k = einsum("bsd,dhk->bshk", x, params["wk"])
+    v = einsum("bsd,dhk->bshk", x, params["wv"])
     if "bk" in params:
         k, v = k + params["bk"], v + params["bv"]
     if spec.qk_norm:
@@ -436,7 +449,7 @@ def gqa_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
 
 
 def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y = einsum("bshk,hkd->bsd", out, params["wo"])
     if "bo" in params:
         y = y + params["bo"]
     return y
@@ -445,8 +458,8 @@ def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
 def gqa_encoder_kv(params: dict, enc: torch.Tensor,
                    spec: AttentionSpec) -> dict:
     """Cross-attention k/v from encoder output (no rope)."""
-    k = torch.einsum("bsd,dhk->bshk", enc, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", enc, params["wv"])
+    k = einsum("bsd,dhk->bshk", enc, params["wk"])
+    v = einsum("bsd,dhk->bshk", enc, params["wv"])
     if "bk" in params:
         k, v = k + params["bk"], v + params["bv"]
     return {"k": k, "v": v}
@@ -507,7 +520,7 @@ def mla_cache_init(batch: int, capacity: int, spec: AttentionSpec,
 def _mla_compress(params, x, spec, positions):
     """x -> (ckv (B,S,kl) normalized, kr (B,S,dr) roped)."""
     kl = spec.kv_lora_rank
-    dkv = torch.einsum("bsd,dr->bsr", x, params["w_dkv"])
+    dkv = einsum("bsd,dr->bsr", x, params["w_dkv"])
     ckv = head_rmsnorm(params["kv_norm"], dkv[..., :kl])
     kr = apply_rope(dkv[..., kl:], positions, spec.rope_theta)
     return ckv, kr
@@ -516,8 +529,8 @@ def _mla_compress(params, x, spec, positions):
 def _mla_queries(params, x, spec, positions):
     dn = spec.qk_nope_head_dim
     cq = head_rmsnorm(params["q_norm"],
-                      torch.einsum("bsd,dq->bsq", x, params["w_dq"]))
-    q = torch.einsum("bsq,qhk->bshk", cq, params["w_uq"])
+                      einsum("bsd,dq->bsq", x, params["w_dq"]))
+    q = einsum("bsq,qhk->bshk", cq, params["w_uq"])
     return q[..., :dn], apply_rope(q[..., dn:], positions, spec.rope_theta)
 
 
@@ -565,7 +578,7 @@ def mla_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
     if cache is not None and ("table" in cache or S == 1):
         # weight-absorbed form: exact, and for ANY S on a pool leaf, so a
         # warm-prefix suffix prefill attends shared pages directly
-        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"])
+        q_abs = einsum("bshk,rhk->bshr", q_nope, params["w_uk"])
         if "table" in cache:                         # paged pool leaf
             cache = _paged_leaf_update(cache, {"ckv": ckv, "kr": kr},
                                        positions)
@@ -574,23 +587,26 @@ def mla_apply(params: dict, x: torch.Tensor, spec: AttentionSpec,
             cache = _ring_update(cache, {"ckv": ckv, "kr": kr}, positions)
             ctx = _mla_mqa(q_abs, q_rope, cache["ckv"], cache["kr"],
                            positions, cache["pos"], scale)
-        out = torch.einsum("bshr,rhv->bshv", ctx, params["w_uv"])
-        return torch.einsum("bshv,hvd->bsd", out, params["wo"])
+        out = einsum("bshr,rhv->bshv", ctx, params["w_uv"])
+        return einsum("bshv,hvd->bsd", out, params["wo"])
 
     # train / prefill: the full (decompressed) form; a ring is written from
     # row 0, as the reference's dynamic_update_slice at offset 0
     if cache is not None:
         for name, rows in (("ckv", ckv), ("kr", kr), ("pos", positions)):
-            cache[name][:, :S] = rows.to(cache[name].dtype)
-    k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["w_uk"])
-    v = torch.einsum("bsr,rhv->bshv", ckv, params["w_uv"])
+            if is_sharded(cache[name]):
+                write_rows(cache[name], rows)
+            else:
+                cache[name][:, :S] = rows.to(cache[name].dtype)
+    k_nope = einsum("bsr,rhk->bshk", ckv, params["w_uk"])
+    v = einsum("bsr,rhv->bshv", ckv, params["w_uv"])
     k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, dr).to(
         k_nope.dtype)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = attn_core(q, k, v, positions, positions, scale=scale, causal=True,
                     window=None, cap=spec.logit_softcap, n_kv=H,
                     prefer_blocked=spec.prefer_blocked)
-    return torch.einsum("bshv,hvd->bsd", out, params["wo"])
+    return einsum("bshv,hvd->bsd", out, params["wo"])
 
 
 # ---------------------------------------------------------------------------

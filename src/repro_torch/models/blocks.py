@@ -33,7 +33,7 @@ from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.spec import BlockSpec, ModelConfig, ScanGroup
 from repro_torch.models.ssm import ssm_apply, ssm_cache_init, ssm_init
-from repro_torch.sharding.partition import constrain
+from repro_torch.sharding.partition import constrain, recompute_context
 
 # cache entries one value serves for every repeat of a group (a paged
 # leaf's page table and sink flag, an SSM cache's stall mask): never
@@ -216,6 +216,7 @@ def group_apply(gp: dict, x: torch.Tensor, g: ScanGroup, cfg: ModelConfig,
     for r in range(g.repeats):
         if remat:
             x, a = checkpoint(body, x, r, use_reentrant=False,
+                              context_fn=recompute_context,
                               preserve_rng_state=False)
         else:
             x, a = body(x, r)

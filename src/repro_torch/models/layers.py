@@ -12,7 +12,8 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
+
+from repro_torch.sharding.spmd import embedding, matmul
 
 
 def normal_init(gen: Optional[torch.Generator], shape, std: float, dtype,
@@ -71,11 +72,11 @@ def embed_init(gen, vocab: int, d: int, dtype, device) -> dict:
 
 
 def embed_lookup(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["embedding"])
+    return embedding(tokens.long(), params["embedding"])
 
 
 def embed_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["embedding"].T
+    return matmul(x, params["embedding"].T)
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,10 @@ from repro_torch.models.layers import (embed_init, embed_logits, embed_lookup,
                                        softcap)
 from repro_torch.models.spec import ModelConfig, ScanGroup
 from repro_torch.models.ssm import ssm_cache_init
-from repro_torch.sharding.partition import constrain
+from repro_torch.sharding.partition import (cache_sharding, constrain,
+                                            current_mesh, current_mode, place,
+                                            recompute_context)
+from repro_torch.sharding.spmd import embedding, gather, is_sharded, matmul
 
 SlotIds = Union[Sequence[int], torch.Tensor]
 
@@ -136,7 +139,11 @@ def _embed_inputs(params, inputs, cfg):
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)[None].expand(x.shape[:2])
     if cfg.learned_pos:
-        x = x + params["pos"]["pos_embed"][positions.long()]
+        table = params["pos"]["pos_embed"]
+        # a sharded table's rows through the runtime's lookup (each rank's
+        # shard; torch 2.11 cannot index a cut DTensor's rows)
+        x = x + (embedding(positions.long(), table) if is_sharded(table)
+                 else table[positions.long()])
     return x, positions
 
 
@@ -164,7 +171,7 @@ def lm_logits(params: dict, hidden: torch.Tensor,
     if cfg.tie_embeddings:
         logits = embed_logits(params["embed"], hidden)
     else:
-        logits = hidden @ params["lm_head"]["lm_head"]
+        logits = matmul(hidden, params["lm_head"]["lm_head"])
     if cfg.final_logit_softcap:
         logits = softcap(logits.float(), cfg.final_logit_softcap)
     return constrain(logits, "batch", "seq", "vocab")
@@ -180,7 +187,7 @@ def _ce_chunk(params, h, labels, cfg):
     mask = labels != IGNORE
     safe = torch.where(mask, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    gold = gather(logits, -1, safe[..., None])[..., 0]
     ce = torch.where(mask, lse - gold, 0.0)
     return ce.sum(), mask.sum()
 
@@ -208,6 +215,7 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, remat: bool = True,
             hh, ll = h[:, lo:lo + chunk], labels[:, lo:lo + chunk]
             if remat:
                 s, c = checkpoint(_ce_chunk, params, hh, ll, cfg,
+                                  context_fn=recompute_context,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
             else:
@@ -230,6 +238,16 @@ def cache_init(cfg: ModelConfig, batch: int, capacity: int, device) -> list:
             for g in cfg.groups]
 
 
+def _fresh(tree):
+    """A step's fresh caches laid out as the context's mesh lays caches
+    out: on a mesh of ranks each rank keeps its shard (the writes in place
+    below then land in it); elsewhere ``tree`` itself."""
+    mesh = current_mesh()
+    if mesh is None or not mesh.is_spmd:
+        return tree
+    return tree_map(place, tree, cache_sharding(tree, mesh, current_mode()))
+
+
 def prefill(params: dict, inputs: dict, cfg: ModelConfig,
             enc_out: Optional[torch.Tensor] = None,
             capacity: Optional[int] = None):
@@ -245,7 +263,7 @@ def prefill(params: dict, inputs: dict, cfg: ModelConfig,
     capacity = max(capacity or S, S)
     caches = []
     for gi, g in enumerate(cfg.groups):
-        c = group_cache_init(cfg, g, B, capacity, x.device)
+        c = _fresh(group_cache_init(cfg, g, B, capacity, x.device))
         x, _ = group_apply(params["groups"][gi], x, g, cfg, positions,
                            caches=c, enc_out=enc_out)
         caches.append(c)
@@ -335,7 +353,8 @@ def prefill_batched(params: dict, inputs: dict, cfg: ModelConfig,
     capacity = max(capacity or S, S)
     caches = []
     for gi, g in enumerate(cfg.groups):
-        c = group_cache_init(cfg, _unwindowed(g), B, capacity, x.device)
+        c = _fresh(group_cache_init(cfg, _unwindowed(g), B, capacity,
+                                   x.device))
         x, _ = group_apply(params["groups"][gi], x, g, cfg, positions,
                            caches=c, enc_out=enc_out)
         caches.append(c)

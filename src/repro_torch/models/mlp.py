@@ -12,6 +12,7 @@ import torch
 from repro_torch.models.layers import fan_in_init
 from repro_torch.models.spec import MlpSpec, ModelConfig
 from repro_torch.sharding.partition import constrain
+from repro_torch.sharding.spmd import matmul
 
 
 def _silu(x):
@@ -50,17 +51,17 @@ def mlp_init(gen, d_model: int, spec: MlpSpec, cfg: ModelConfig,
 
 
 def mlp_apply(params: dict, x: torch.Tensor, spec: MlpSpec) -> torch.Tensor:
-    h = x @ params["w_up"]
+    h = matmul(x, params["w_up"])
     if "b_up" in params:
         h = h + params["b_up"]
     if spec.gated:
-        g = x @ params["w_gate"]
+        g = matmul(x, params["w_gate"])
         h = _act(spec.activation)(g) * h
     else:
         h = _act(spec.activation)(h)
     # Megatron-style: the hidden pinned to ff->model
     h = constrain(h, "batch", "seq", "ff")
-    y = h @ params["w_down"]
+    y = matmul(h, params["w_down"])
     if "b_down" in params:
         y = y + params["b_down"]
     return y

@@ -27,6 +27,7 @@ from repro_torch.models.layers import fan_in_init
 from repro_torch.models.mlp import _act
 from repro_torch.models.spec import ModelConfig, MoeSpec
 from repro_torch.sharding.partition import constrain
+from repro_torch.sharding.spmd import einsum, reshape
 
 
 def _einsum(sub: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -35,8 +36,8 @@ def _einsum(sub: str, *ops: torch.Tensor) -> torch.Tensor:
     product stays in the operands' dtype (float32 accumulation there)."""
     dt = ops[0].dtype
     if ops[0].device.type != "cpu" or dt == torch.float32:
-        return torch.einsum(sub, *ops)
-    return torch.einsum(sub, *(o.float() for o in ops)).to(dt)
+        return einsum(sub, *ops)
+    return einsum(sub, *(o.float() for o in ops)).to(dt)
 
 
 def moe_init(gen, d_model: int, spec: MoeSpec, cfg: ModelConfig,
@@ -77,7 +78,7 @@ def route(params: dict, xg: torch.Tensor, spec: MoeSpec):
     (G,gs,k,E)."""
     E, k = spec.n_experts, spec.top_k
     C = capacity(spec, xg.shape[1])
-    logits = torch.einsum("gtd,de->gte", xg.float(), params["router"])
+    logits = einsum("gtd,de->gte", xg.float(), params["router"])
     probs = torch.softmax(logits, dim=-1)
     gate_w, sel = _top_k(probs, k)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp(min=1e-9)
@@ -116,7 +117,7 @@ def moe_apply(params: dict, x: torch.Tensor, spec: MoeSpec):
     E = spec.n_experts
     C = capacity(spec, gs)
 
-    xg = x.reshape(G, gs, D)
+    xg = reshape(x, (G, gs, D))
     probs, gate_w, _, kept, onehot = route(params, xg, spec)
     dispatch, combine = dispatch_tensors(onehot, gate_w, kept, C, xg.dtype)
 
@@ -141,4 +142,4 @@ def moe_apply(params: dict, x: torch.Tensor, spec: MoeSpec):
     frac_tokens = onehot.sum(2).mean(1)                          # (G,E)
     frac_probs = probs.mean(1)                                   # (G,E)
     aux = E * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
-    return y.reshape(B, S, D), spec.router_aux_weight * aux
+    return reshape(y, (B, S, D)), spec.router_aux_weight * aux

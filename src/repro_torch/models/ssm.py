@@ -27,6 +27,7 @@ from repro_torch.models.layers import fan_in_init, normal_init
 from repro_torch.models.mlp import _silu
 from repro_torch.models.spec import ModelConfig, SsmSpec
 from repro_torch.sharding.partition import constrain
+from repro_torch.sharding.spmd import einsum, matmul, pad, reshape
 
 
 _SSM_CACHE_AXES = {
@@ -79,7 +80,7 @@ def ssm_init(gen, d_model: int, spec: SsmSpec, cfg: ModelConfig,
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x: (B,S,C), w: (K,C) -> (B,S,C)."""
     K = w.shape[0]
-    xp = torch.nn.functional.pad(x, (0, 0, K - 1, 0))
+    xp = pad(x, (0, 0, K - 1, 0))
     out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(K))
     return out + b
 
@@ -131,11 +132,11 @@ def ssm_apply(params: dict, x: torch.Tensor, spec: SsmSpec, cfg: ModelConfig,
     P = spec.head_dim
     A = -torch.exp(params["A_log"])
 
-    xz = constrain(x @ params["w_x"], "batch", "seq", "d_inner")
-    z = constrain(x @ params["w_z"], "batch", "seq", "d_inner")
-    Bm = x @ params["w_B"]
-    Cm = x @ params["w_C"]
-    dt_raw = (x @ params["w_dt"]).float()
+    xz = constrain(matmul(x, params["w_x"]), "batch", "seq", "d_inner")
+    z = constrain(matmul(x, params["w_z"]), "batch", "seq", "d_inner")
+    Bm = matmul(x, params["w_B"])
+    Cm = matmul(x, params["w_C"])
+    dt_raw = matmul(x, params["w_dt"]).float()
     v = dt_raw + params["dt_bias"]
     dt = torch.logaddexp(v, torch.zeros_like(v))               # softplus
 
@@ -150,15 +151,15 @@ def ssm_apply(params: dict, x: torch.Tensor, spec: SsmSpec, cfg: ModelConfig,
         cx = conv(hist_x, params["conv_x"], params["conv_bias_x"])
         cB = conv(hist_B, params["conv_B"], params["conv_bias_B"])
         cC = conv(hist_C, params["conv_C"], params["conv_bias_C"])
-        xh = cx.reshape(B, H, P).float()
+        xh = reshape(cx, (B, H, P)).float()
         dt1 = dt[:, 0]                                         # (B,H)
         decay = torch.exp(dt1 * A)                             # (B,H)
         h = cache["state"] * decay[:, :, None, None] + (
             (dt1[:, :, None] * xh)[..., None]
             * cB.float()[:, None, None, :])
-        y = torch.einsum("bn,bhvn->bhv", cC.float(), h)
+        y = einsum("bn,bhvn->bhv", cC.float(), h)
         y = y + params["D"][None, :, None] * xh
-        y = y.reshape(B, 1, d_inner)
+        y = reshape(y, (B, 1, d_inner))
         _write(cache, _constrain_cache({
             "conv_x": hist_x[:, 1:], "conv_B": hist_B[:, 1:],
             "conv_C": hist_C[:, 1:], "state": h}))
@@ -167,10 +168,10 @@ def ssm_apply(params: dict, x: torch.Tensor, spec: SsmSpec, cfg: ModelConfig,
         cx = _silu(_causal_conv(xz, params["conv_x"], params["conv_bias_x"]))
         cB = _silu(_causal_conv(Bm, params["conv_B"], params["conv_bias_B"]))
         cC = _silu(_causal_conv(Cm, params["conv_C"], params["conv_bias_C"]))
-        xh = cx.reshape(B, S, H, P)
+        xh = reshape(cx, (B, S, H, P))
         y, h_final = ssd_chunked(xh, dt, A, cB, cC, spec.chunk)
         y = y + params["D"][None, None, :, None] * xh.float()
-        y = y.reshape(B, S, d_inner)
+        y = reshape(y, (B, S, d_inner))
         if cache is not None:
             k = spec.d_conv - 1
             _write(cache, _constrain_cache({
@@ -178,4 +179,4 @@ def ssm_apply(params: dict, x: torch.Tensor, spec: SsmSpec, cfg: ModelConfig,
                 "conv_C": Cm[:, -k:], "state": h_final}))
 
     y = _gated_norm(params["norm"], y, z)
-    return y.to(x.dtype) @ params["w_out"]
+    return matmul(y.to(x.dtype), params["w_out"])

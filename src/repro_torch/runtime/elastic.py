@@ -8,10 +8,13 @@ checkpoint — the logical-axis rules ARE the layout, so any mesh the rules
 can resolve against is a valid restore target (``ckpt.restore(...,
 sharding=state_sharding(state, mesh))``).
 
-Placing follows ``sharding.partition.place``: on a mesh of one distinct
-device every tensor moves to it (``.to``: a tensor already there is kept
-as it is, at its address); a mesh of more than one distinct device raises
-``NotImplementedError`` (no SPMD runtime).
+Placing follows ``sharding.partition.place``: on a mesh of ranks
+(``sharding.spmd.spmd_mesh``) each rank keeps only its shard of each leaf
+(a DTensor; the state, whole on every rank, is cut where it lies and
+nothing is sent between ranks); on a mesh of one distinct device every
+tensor moves to it (``.to``: a tensor already there is kept as it is, at
+its address); a single-controller mesh of more than one distinct device
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 

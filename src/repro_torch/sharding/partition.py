@@ -27,18 +27,24 @@ names, or None (replicated). Trees are walked with
 ``torch.utils._pytree.tree_flatten_with_path``; its ``MappingKey.key``
 names a leaf as jax's ``DictKey.key`` does.
 
-The port has no SPMD runtime: ``constrain`` returns its input itself when
-no mesh is set, when the mesh is abstract (the dry run moves nothing) or
-when the mesh lists one distinct device (the card, however many times); on
-a mesh of more than one distinct device it raises ``NotImplementedError``
-rather than replicate silently. Under a context it asserts one logical
-name a dim.
-``place`` follows the same rule for a tensor and its ``NamedSharding``.
+On a mesh of ranks (``sharding.spmd.spmd_mesh``, or the dry run's
+``spmd.counting``) this is the SPMD runtime: ``constrain`` redistributes a
+``DTensor`` to the resolved spec (a plain tensor, which every rank holds
+whole, is cut to it), ``place`` is ``distribute_tensor`` (each rank keeps
+its own shard; nothing is sent), and ``sharding_ctx`` enters DTensor's
+``implicit_replication``, so aranges and masks made inside the step count
+as replicated. Everywhere else ``constrain`` returns its input itself: no
+mesh, an abstract mesh (shapes only), or a mesh that lists one distinct
+device (the card, however many times); a single-controller mesh of more
+than one distinct device raises ``NotImplementedError`` and names
+``spmd_mesh``, rather than replicate silently. Under a context it asserts
+one logical name a dim. ``place`` follows the same rule for a tensor and
+its ``NamedSharding``.
 """
 from __future__ import annotations
 
 import threading
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -229,9 +235,23 @@ def sharding_ctx(mesh: Optional[Mesh], mode: str = "train"):
     prev = (_ctx.mesh, _ctx.mode)
     _ctx.mesh, _ctx.mode = mesh, mode
     try:
-        yield
+        if mesh is not None and mesh.is_spmd:
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+            with implicit_replication():
+                yield
+        else:
+            yield
     finally:
         _ctx.mesh, _ctx.mode = prev
+
+
+def recompute_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recompute of a
+    checkpointed block runs under the sharding context its forward ran
+    under. The context is thread-local, and on the card autograd runs the
+    backward pass, recompute included, in a thread of its own."""
+    return nullcontext(), sharding_ctx(_ctx.mesh, _ctx.mode)
 
 
 def current_mesh() -> Optional[Mesh]:
@@ -269,31 +289,59 @@ def resolve_spec(shape: Sequence[int], logical: Sequence[Optional[str]],
 
 def _one_device(mesh: Mesh, what: str) -> Optional[torch.device]:
     """The mesh's one distinct device (None for an abstract mesh); raises
-    for more (no SPMD runtime)."""
+    for more: one process drives such a mesh, and sharding across devices
+    takes a process a device."""
     devs = mesh.distinct_devices
     if len(devs) > 1:
         raise NotImplementedError(
-            f"{what} on a mesh of {len(devs)} distinct devices ({mesh}): the "
-            "port has no SPMD runtime to shard or gather tensors across "
-            "devices")
+            f"{what} on a single-controller mesh of {len(devs)} distinct "
+            f"devices ({mesh}) has no SPMD runtime: shard across devices on "
+            "a mesh of ranks, one process a device "
+            "(repro_torch.sharding.spmd.spmd_mesh)")
     return devs[0] if devs else None
 
 
+def _to_spec(x: torch.Tensor, mesh: Mesh, spec: PartitionSpec):
+    """``x`` as a DTensor laid out as ``spec`` on a mesh of ranks: a DTensor
+    redistributed (collectives where its layout differs); a plain tensor,
+    which every rank holds whole (on the host or on its device), cut to
+    this rank's shard before it is copied to the rank's device, so a host
+    tensor sends only that shard."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.spmd import placements, shard_of
+    pl = placements(spec, mesh)
+    if isinstance(x, DTensor):
+        return x if tuple(x.placements) == pl else x.redistribute(
+            mesh.device_mesh, pl)
+    return shard_of(x, mesh.device_mesh, pl, mesh.local_device)
+
+
 def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """The sharding constraint of logical axis names: ``x`` itself (see the
-    module docstring)."""
+    """The sharding constraint of logical axis names (see the module
+    docstring): on a mesh of ranks ``x`` laid out as the resolved spec,
+    elsewhere ``x`` itself."""
     mesh = _ctx.mesh
     if mesh is None:
         return x
     assert len(logical) == x.ndim, (x.shape, logical)
+    if mesh.is_spmd:
+        spec = resolve_spec(tuple(x.shape), logical, mesh,
+                            ACT_RULES[_ctx.mode])
+        return _to_spec(x, mesh, spec)
     _one_device(mesh, "constrain")
     return x
 
 
 def place(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """``x`` on the device its sharding names: ``x.to(device)`` on a mesh of
-    one distinct device (``x`` itself when it is there already)."""
-    dev = _one_device(sharding.mesh, "place")
+    """``x`` laid out as its sharding says: on a mesh of ranks a DTensor of
+    which this rank keeps its shard (``distribute_tensor``; nothing is
+    sent); on a mesh of one distinct device ``x.to(device)`` (``x`` itself
+    when it is there already)."""
+    mesh = sharding.mesh
+    if mesh.is_spmd:
+        return _to_spec(x, mesh, sharding.spec)
+    dev = _one_device(mesh, "place")
     if dev is None:
         raise ValueError("an abstract mesh has no device to place a tensor on")
     return x.to(dev)

@@ -26,6 +26,7 @@ from repro_torch.models.blocks import tree_map
 from repro_torch.models.lm import lm_init, lm_loss
 from repro_torch.models.spec import ModelConfig
 from repro_torch.sharding.partition import constrain
+from repro_torch.sharding.spmd import like, reshape
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
 
@@ -43,7 +44,10 @@ def _grads(cfg: ModelConfig, params: dict, batch: dict, remat: bool):
     with torch.enable_grad():
         loss, metrics = lm_loss(live, batch, cfg, remat=remat)
         grads = torch.autograd.grad(loss, flat)
-    it = iter(grads)
+    # on a mesh of ranks each gradient takes its parameter's layout (a
+    # partial sum over the batch's ranks is reduced), as the reference's
+    # jit gives gradients their parameters' shardings
+    it = iter(like(g, p) for g, p in zip(grads, flat))
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_map(lambda _: next(it), live))
 
@@ -67,10 +71,11 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
             loss, metrics, grads = _grads(cfg, params, batch, remat)
         else:
             n = microbatches
-            mbs = [{k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+            mbs = [{k: reshape(v, (n, v.shape[0] // n) + v.shape[1:])[i]
                     for k, v in batch.items()} for i in range(n)]
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
-                                                   device=p.device), params)
+            # laid out as the params (DTensors on a mesh of ranks)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=accum_dtype),
+                             params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=state["opt"]["step"].device)
             for mb in mbs:

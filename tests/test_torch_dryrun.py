@@ -15,8 +15,16 @@ CPU, against the reference's ``launch.dryrun`` / ``hlo_analysis``.
   agree exactly: both count the products alone).
 * The ``Roofline`` arithmetic at the H100 constants; no TPU constant
   appears in the port.
+* Rows of the production meshes (``run_cell`` and the CLI) carry the
+  collectives the step issues under the SPMD runtime (``collectives`` by
+  kind, ``collective_bytes_per_chip`` above 0), ``t_collective`` is those
+  bytes over 450 GB/s, and no process group is left after a run; a cell
+  the runtime cannot run is a ``fail`` row with its error. The counts
+  themselves are held against the reference's in
+  ``tests/test_torch_spmd.py``.
 """
 import importlib
+import json
 import os
 import re
 from pathlib import Path
@@ -38,7 +46,7 @@ from repro.train.step import init_state as j_init_state
 from repro_torch.configs import get_config as tget
 from repro_torch.configs import input_specs as tspecs
 from repro_torch.launch import dryrun, roofline
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.launch.op_analysis import OpCounter, count
 from repro_torch.models import lm as tlm
 
@@ -176,7 +184,9 @@ def test_run_cell_and_the_cli(tmp_path, capsys):
     rec = dryrun.run_cell("qwen3-14b", "decode_32k", False, smoke=True)
     assert rec["status"] == "ok", rec.get("trace")
     assert rec["mesh"] == "16x16" and rec["chips"] == 256
-    assert rec["bound"] == "memory" and rec["collective_bytes_per_chip"] is None
+    assert rec["bound"] == "memory" and rec["collective_bytes_per_chip"] > 0
+    assert rec["collectives"] and rec["collective_bytes_per_chip"] == sum(
+        b for _, b in rec["collectives"].values())
     assert rec["flops_per_chip"] > 0 and rec["op_bytes_per_chip"] > 0
     # the untied input embedding's rows no token gathers are not counted:
     # a 1/256 share a device (the table cut over both axes), all rows but B
@@ -194,6 +204,37 @@ def test_run_cell_and_the_cli(tmp_path, capsys):
     lines = out.read_text().splitlines()
     assert len(lines) == 2 and all('"status": "ok"' in l for l in lines)
     assert '"mesh": "2x16x16"' in capsys.readouterr().out
+    for row in map(json.loads, lines):
+        assert row["collective_bytes_per_chip"] > 0 and row["collectives"]
+    assert not torch.distributed.is_initialized()
+
+
+def test_the_collective_term_is_its_bytes_over_the_link_rate():
+    """A production-mesh row's t_collective is its collective bytes a chip
+    over 450 GB/s; its bytes are the sum of its table; the run leaves no
+    process group behind; a one-chip row sends nothing."""
+    rec = dryrun.run_cell("mamba2-1.3b", "decode_32k", False, smoke=True)
+    assert rec["status"] == "ok", rec.get("trace")
+    assert rec["t_collective"] == rec["collective_bytes_per_chip"] / 450e9
+    assert rec["collective_bytes_per_chip"] == sum(
+        b for _, b in rec["collectives"].values()) > 0
+    assert set(rec["collectives"]) <= {"all-reduce", "all-gather",
+                                       "reduce-scatter", "all-to-all",
+                                       "collective-broadcast"}
+    assert not torch.distributed.is_initialized()
+    cost, coll, _, _ = dryrun.count_cell(
+        "mamba2-1.3b", SHAPES[2], Mesh.abstract((1,), ("data",)), smoke=True)
+    row = dryrun.roofline_row(cost, 1.0, 1.0, 1, coll)
+    assert row["collective_bytes_per_chip"] == 0.0 and row["collectives"] == {}
+
+
+def test_a_cell_the_runtime_cannot_run_is_a_fail_row(monkeypatch):
+    def broken(*a, **k):
+        raise RuntimeError("no strategy")
+    monkeypatch.setattr(dryrun, "count_cell", broken)
+    rec = dryrun.run_cell("qwen3-14b", "decode_32k", False, smoke=True)
+    assert rec["status"] == "fail" and "no strategy" in rec["error"]
+    assert "collective_bytes_per_chip" not in rec
 
 
 @pytest.mark.parametrize("arch,shape", [("qwen3-14b", "decode_32k"),

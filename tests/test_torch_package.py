@@ -14,6 +14,8 @@
 * Its entry points run on the card unless asked for the CPU, and raise
   without one; ``launch.serve.serve`` drives the paged engine end to end.
 * bf16 crosses ``convert`` bit for bit.
+* ``torch.testing._internal`` (the fake process group of the dry run) is
+  imported by ``sharding/spmd.py`` alone.
 """
 import ast
 import dataclasses
@@ -211,6 +213,15 @@ def test_no_jax_or_reference_import(path):
     for mod in _imported(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_fake_process_group_is_imported_only_by_the_spmd_runtime():
+    """``torch.testing._internal`` (the dry run's fake process group) is
+    internal to torch: one module of the port imports it."""
+    users = [p for p in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             if any(m.startswith("torch.testing._internal")
+                    for m in _imported(p))]
+    assert users == [PORT / "sharding" / "spmd.py"]
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
