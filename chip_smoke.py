@@ -363,6 +363,16 @@ non-zero:
             f32 within 1e-4 (its bf16 gap printed). Prints each rank's collectives, the host
             wall beside the unsharded step's, and with two ranks or more
             the profiler's NCCL time beside the counted t_collective.
+            Each rank also runs both steps through the compile cache, one
+            CUDA graph a rank a step with its NCCL collectives inside
+            (captured, then replayed), and a mamba2-1.3b train_4k Wine app
+            (``reduced``: 8 of 48 layers, 2 rows of 256) through
+            ``WineAdapter(mesh=...)``: the replays' collectives equal the
+            counted ones, their SSD launches all tc, their logits meet the
+            eager sharded step's gates (bit-equal on one rank), NCCL
+            kernels show in a profiled replay (2+ ranks), the Wine app is
+            compiled and its losses within 2e-5 of its eager sharded
+            ones.
             ``python3 chip_smoke.py --spmd`` runs this phase alone.
 
 Every model's weights are freed before the next one is drawn; the script's
@@ -4755,6 +4765,159 @@ SPMD_TOL_F32 = 1e-4            # n >= 2: the mamba2 prefill in f32 (below)
 # runs' readings (0.046-0.059 on 2 and 4 H100 80GB HBM3 cards at 700 W,
 # torch 2.11) and below what logits of the wrong rows read (gated too)
 SPMD_TOL_SSM = 0.1
+# the Wine train app of [spmd]: mamba2-1.3b train_4k at full width, cut
+# (``reduced``) to this many of its 48 layers and rows of its 256, so the
+# phase fits its time; its replayed losses against its eager sharded
+# losses, relative: tests/test_torch_spmd_cuda.py's TOL
+SPMD_WINE_LAYERS = 8
+SPMD_WINE_BATCH = 2
+SPMD_WINE_STEPS = 3
+SPMD_TOL_TRAIN = 2e-5
+
+
+def _table_delta(after: dict, before: dict) -> dict:
+    """A collectives table's change (``{kind: [count, bytes]}``)."""
+    out = {}
+    for k, (n, b) in after.items():
+        n0, b0 = before.get(k, (0, 0))
+        if n != n0:
+            out[k] = [n - n0, b - b0]
+    return out
+
+
+def _nccl_ms(prof):
+    """(NCCL kernels seen, their device ms) in a profile."""
+    ev = [e for e in prof.key_averages() if "nccl" in e.key.lower()
+          and e.self_device_time_total > 0]
+    return (sum(e.count for e in ev),
+            sum(e.self_device_time_total for e in ev) / 1e3)
+
+
+def _spmd_graph(mesh, fn, state, inputs, profile=False, reps=3):
+    """``fn(state, inputs)`` (a sharded step returning logits) through a
+    fresh compile cache with ``state`` bound: the first call captures one
+    CUDA graph on this rank (timed, its warm-up included), one replay is
+    watched (its collectives from ``exe.collectives``, its SSD launches),
+    its logits gathered whole, then ``reps`` replays are timed to a
+    synchronize each (the median kept) and, with ``profile``, one more
+    replay profiled (its NCCL kernels: issued by the graph, since a replay
+    issues nothing from the host)."""
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    cache = CompileCache(persistent=False)
+    exe, source = cache.compile(fn, (state, inputs), bind_argnums=(0,),
+                                device=mesh.local_device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe(state, inputs)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    before = exe.collectives.table()
+    n0, tc0 = ssd_scan.launches, ssd_scan.routes["tc"]
+    out = exe(state, inputs)
+    torch.cuda.synchronize()
+    rec = {"source": source, "collectives": _table_delta(
+        exe.collectives.table(), before),
+        "ssd_launches": ssd_scan.launches - n0,
+        "ssd_tc": ssd_scan.routes["tc"] - tc0,
+        "logits": out.full_tensor().float()}
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe(state, inputs)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+            exe(state, inputs)
+            torch.cuda.synchronize()
+        rec["nccl_kernels"], rec["nccl_device_ms"] = _nccl_ms(prof)
+    rec.update(captures=cache.stats["captures"], replays=exe.replays,
+               t_capture_s=cache.stats["t_capture_s"],
+               first_call_ms=first * 1e3,
+               host_ms=statistics.median(ts) * 1e3 if ts else None,
+               pool_mib=_graph_pool_bytes(cache) / 2**20)
+    del exe, out
+    cache._mem.clear()
+    return rec
+
+
+def _spmd_wine_train(mesh):
+    """The mamba2-1.3b train_4k Wine app on ``mesh`` (full width; depth and
+    batch cut, printed as ``reduced``): ``SPMD_WINE_STEPS`` eager steps of
+    the app's own translation on its seed-0 state, then the app loaded
+    through ``WineAdapter(mesh=mesh)`` from the same seed and run on the
+    same whole batches (the first call captures, the rest replay).
+    Returns its source, captures, replays, losses beside the eager ones,
+    the SSD launches inside the replays and the host walls."""
+    from repro_torch.configs import get_config, input_specs
+    from repro_torch.core import wine as wine_mod
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.wine import WineAdapter, WineApp
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.spec import ShapeCell
+    app = WineApp("mamba2-1.3b")                    # train, train_4k
+    full = get_config(app.arch)
+    cfg = cut_depth(full, SPMD_WINE_LAYERS)
+    c = app.cell()
+    cell = ShapeCell(c.name, seq_len=c.seq_len, global_batch=SPMD_WINE_BATCH,
+                     mode=c.mode)
+    gen = torch.Generator(device=mesh.local_device).manual_seed(7)
+    batches = [{k: torch.randint(1, cfg.vocab, s.shape, generator=gen,
+                                 device=mesh.local_device, dtype=s.dtype)
+                for k, s in input_specs(cfg, cell).items()}
+               for _ in range(SPMD_WINE_STEPS)]
+
+    def whole(x):
+        return float(x.full_tensor() if hasattr(x, "full_tensor") else x)
+
+    with unittest.mock.patch.object(wine_mod, "get_config",
+                                    lambda arch, smoke=False: cfg), \
+            unittest.mock.patch.object(WineAdapter, "_cell",
+                                       staticmethod(lambda app: cell)):
+        adapter = WineAdapter(mesh=mesh, cache=CompileCache(
+            persistent=False))
+        step = adapter._build_train(app, cfg)
+        state = adapter._init_state(app, cfg, 0)
+        eager, eager_ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            eager.append(whole(m["loss"]))
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        inst = adapter.load(app)
+        got, ms, ssd, tc = [], [], 0, 0
+        for i, b in enumerate(batches):
+            n0, tc0 = ssd_scan.launches, ssd_scan.routes["tc"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.append(whole(inst.run(b)["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i:                                   # a replay
+                ssd += ssd_scan.launches - n0
+                tc += ssd_scan.routes["tc"] - tc0
+        exe = inst.step_fn
+        rec = {"source": inst.load_report["compile_source"],
+               "captures": adapter.cache.stats["captures"],
+               "replays": exe.replays, "losses": got, "eager_losses": eager,
+               "rel": max(abs(a - b) / abs(b) for a, b in zip(got, eager)),
+               "ssd_launches_in_replays": ssd, "ssd_tc_in_replays": tc,
+               "t_capture_s": adapter.cache.stats["t_capture_s"],
+               "host_ms": ms, "eager_host_ms": eager_ms,
+               "reduced": f"layers {full.n_layers} -> {cfg.n_layers}, batch "
+                          f"{c.global_batch} -> {SPMD_WINE_BATCH} x "
+                          f"{c.seq_len} tokens"}
+        del inst, exe
+        adapter.cache._mem.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _spmd_steps(mesh, qcfg, mcfg, qp, qc, qin, mp, min_, count=True):
@@ -4891,12 +5054,13 @@ def spmd_rank(rank, n, store, device, out_dir):
         mesh, qcfg, mcfg, qp, copy(rings), qin, mp, min_, count=False)
     rec = {"rank": rank, "ranks": n, "mesh": "x".join(map(str, sizes)),
            "t_count_s": t_count}
+    fulls = {}
     for name, got, plain, st, cnt, t, t1, tp in (
             ("qwen3-14b decode_step", q, plain_q, q_st, counted[0], t_q,
              t_q1, t_plain_q),
             ("mamba2-1.3b prefill", m, plain_m, m_st, counted[1], t_m,
              t_m1, t_plain_m)):
-        full = got.full_tensor().float()
+        full = fulls[name] = got.full_tensor().float()
         plain = plain.float()
         top2 = plain.topk(2, dim=-1).values
         rec[name] = {
@@ -4916,6 +5080,55 @@ def spmd_rank(rank, n, store, device, out_dir):
     rec["mamba2-1.3b prefill"].update(
         ssd_launches=launches, ssd_tc=tc,
         simt_err=float((simt_m.float() - plain_m.float()).abs().max()))
+
+    # the same two steps through the compile cache: each rank captures one
+    # CUDA graph a step (its NCCL collectives and SSD launches inside) on
+    # the first call and replays it afterwards; the inputs are DTensors
+    # (static buffers of each rank's shard)
+    from repro_torch.sharding.partition import (batch_sharding,
+                                                cache_sharding,
+                                                param_sharding, place,
+                                                sharding_ctx)
+
+    def put(tree, shardings, mode):
+        return pytree.tree_map(place, tree, shardings(tree, mesh, mode))
+
+    def q_step(state, inp):
+        params, caches = state
+        with sharding_ctx(mesh, "serve"):
+            return lm.decode_step(params, caches, inp["tokens"],
+                                  inp["positions"], qcfg)[0]
+
+    def m_step(params, inp):
+        with sharding_ctx(mesh, "prefill"):
+            return lm.prefill(params, inp, mcfg)[0]
+
+    n0 = ssd_scan.launches
+    graphs = {"qwen3-14b decode_step": _spmd_graph(
+        mesh, q_step, (put(qp, param_sharding, "serve"),
+                       put(copy(rings), cache_sharding, "serve")),
+        put(qin, batch_sharding, "serve"), profile=n >= 2)}
+    n1 = ssd_scan.launches
+    graphs["mamba2-1.3b prefill"] = _spmd_graph(
+        mesh, m_step, put(mp, param_sharding, "prefill"),
+        put(min_, batch_sharding, "prefill"), profile=n >= 2)
+    rec["graph_ssd_launches"] = ssd_scan.launches - n1
+    check(n1 == n0, "[spmd] the captured qwen3 decode launched the SSD "
+          "kernel")
+    for name, plain in (("qwen3-14b decode_step", plain_q),
+                        ("mamba2-1.3b prefill", plain_m)):
+        g = graphs[name]
+        full, plain = g.pop("logits"), plain.float()
+        top2 = plain.topk(2, dim=-1).values
+        rec[name]["graph"] = dict(
+            g, bit_equal=bool(torch.equal(full, plain)),
+            eager_bit_equal=bool(torch.equal(full, fulls[name])),
+            eager_max_abs_err=float((full - fulls[name]).abs().max()),
+            max_abs_err=float((full - plain).abs().max()),
+            wrong_rows_err=float((full - plain.roll(1, 0)).abs().max()),
+            tokens_equal=bool(torch.equal(full.argmax(-1),
+                                          plain.argmax(-1))),
+            min_top2_gap=float((top2[..., 0] - top2[..., 1]).min()))
     if n >= 2:
         # the bf16 prefill of 48 SSM layers carries another GEMM shape's
         # roundings a rank through the recurrence: the same prefill in f32
@@ -4927,14 +5140,24 @@ def spmd_rank(rank, n, store, device, out_dir):
         rec["mamba2-1.3b prefill"].update(
             f32_max_abs_err=float((got32 - plain32).abs().max()),
             f32_scale=float(plain32.abs().max()))
-        del m32, plain32, got32
+        g32 = _spmd_graph(mesh, m_step, put(m32, param_sharding, "prefill"),
+                          put(min_, batch_sharding, "prefill"), reps=0)
+        rec["mamba2-1.3b prefill"]["graph"].update(
+            f32_max_abs_err=float((g32["logits"] - plain32).abs().max()),
+            f32_collectives=g32["collectives"])
+        del m32, plain32, got32, g32
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _spmd_steps(mesh, qcfg, mcfg, qp, copy(rings), qin, mp, min_,
                         count=False)
-        nccl = sum(e.self_device_time_total for e in prof.key_averages()
-                   if "nccl" in e.key.lower())
-        rec["nccl_device_ms_both_steps"] = nccl / 1e3
+        rec["nccl_device_ms_both_steps"] = _nccl_ms(prof)[1]
+    # the Wine train app on the same mesh, the models above freed first
+    del qp, mp, rings, plain_q, plain_m, simt_m, q, m, fulls, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    n0 = ssd_scan.launches
+    rec["wine train"] = _spmd_wine_train(mesh)
+    rec["wine_ssd_launches"] = ssd_scan.launches - n0
     with open(os.path.join(out_dir, f"spmd-rank{rank}.json"), "w") as f:
         json.dump(rec, f)
 
@@ -4950,7 +5173,23 @@ def phase_spmd(card):
     mamba2 prefill's within SPMD_TOL_SSM (a wrong-rows reading above it)
     and, in f32, within SPMD_TOL_F32; greedy tokens equal unless the
     top-2 gap is a near tie. Printed beside them: the unsharded bf16
-    prefill's drift between the SSD routes tc and simt."""
+    prefill's drift between the SSD routes tc and simt.
+
+    Each rank also runs both steps through the compile cache (one CUDA
+    graph a rank a step, captured on the first call, then replayed;
+    ``_spmd_graph``) and a mamba2-1.3b train_4k Wine app loaded through
+    ``WineAdapter(mesh=...)`` (``_spmd_wine_train``). Gates on every rank
+    (``check_spmd_graphs``): one capture and the replays, whose
+    collectives (``exe.collectives``) equal the counted ones; the
+    prefill's replay launches as many SSD kernels as the eager sharded
+    prefill, all tc; the replayed logits bit-equal to the unsharded step
+    on one rank, and on more within the eager sharded step's gates (bf16,
+    wrong rows, f32, greedy tokens) with NCCL kernels in a profiled
+    replay; the Wine app's source not "eager", one capture, its replays'
+    SSD launches all tc, its losses within SPMD_TOL_TRAIN of its eager
+    sharded losses. Printed: whether a replay is bit-equal to the eager
+    sharded step, the host walls, the capture's seconds, the graph pool,
+    NCCL device time a replay beside the counted t_collective."""
     from repro_torch.sharding.spmd import spawn
     n = torch.cuda.device_count()
     gc.collect()
@@ -5017,11 +5256,87 @@ def phase_spmd(card):
                   f"{rec['nccl_device_ms_both_steps']:.3f} ms over both "
                   f"steps beside the counted t_collective "
                   f"{sum(rec[k]['t_collective_ms'] for k in ('qwen3-14b decode_step', 'mamba2-1.3b prefill')):.4f} ms")
+        check_spmd_graphs(rec, n, card)
     print(f"[spmd] {n} rank(s), one a card: SSD tc launches "
           f"{[r['mamba2-1.3b prefill']['ssd_tc'] for r in recs]} a rank; "
           f"counted on meta in {recs[0]['t_count_s']:.1f}s; phase wall "
           f"{wall:.1f}s; torch {torch.__version__}; {card}")
     return recs
+
+
+def check_spmd_graphs(rec, n, card):
+    """``[spmd]``'s gates on one rank's captured steps (``_spmd_graph``)
+    and its Wine train app (``_spmd_wine_train``); see ``phase_spmd``."""
+    for name in ("qwen3-14b decode_step", "mamba2-1.3b prefill"):
+        x, g = rec[name], rec[name]["graph"]
+        tag = (f"[spmd] rank {rec['rank']} of {n} ({rec['mesh']}) {name}, "
+               f"replayed")
+        check(g["source"] == "compiled" and g["captures"] == 1
+              and g["replays"] >= 2, f"{tag}: source {g['source']}, "
+              f"{g['captures']} captures, {g['replays']} replays")
+        check(g["collectives"] == x["counted"],
+              f"{tag}: the replay's collectives {g['collectives']} != "
+              f"counted {x['counted']}")
+        if name.startswith("mamba2"):
+            check(g["ssd_tc"] == g["ssd_launches"] == x["ssd_launches"] > 0,
+                  f"{tag}: {g['ssd_launches']} SSD launches in a replay "
+                  f"({g['ssd_tc']} tc), {x['ssd_launches']} eager")
+        if n == 1:
+            check(g["bit_equal"], f"{tag}: not bit-equal to the unsharded "
+                  f"step (max |d| {g['max_abs_err']})")
+        else:
+            tol = SPMD_TOL_SSM if name.startswith("mamba2") else SPMD_TOL
+            check(g["max_abs_err"] <= tol * x["scale"],
+                  f"{tag}: max |d| {g['max_abs_err']} > {tol} of "
+                  f"{x['scale']}")
+            check(g["wrong_rows_err"] > tol * x["scale"],
+                  f"{tag}: the wrong rows read {g['wrong_rows_err']}")
+            check(g["tokens_equal"] or g["min_top2_gap"] < tol * x["scale"],
+                  f"{tag}: greedy tokens differ past a near tie")
+            check(g.get("nccl_kernels", 0) > 0,
+                  f"{tag}: no NCCL kernel in a profiled replay")
+            if "f32_max_abs_err" in g:
+                check(g["f32_max_abs_err"] <= SPMD_TOL_F32 * x["f32_scale"],
+                      f"{tag}: f32 max |d| {g['f32_max_abs_err']} > "
+                      f"{SPMD_TOL_F32} of {x['f32_scale']}")
+        nccl = (f"; NCCL device time a replay {g['nccl_device_ms']:.3f} ms "
+                f"({g['nccl_kernels']} kernels) beside the counted "
+                f"t_collective {x['t_collective_ms']:.4f} ms"
+                if "nccl_device_ms" in g else "")
+        f32 = (f"; f32 max |d| {g['f32_max_abs_err']:.3g} (its replay's "
+               f"collectives {g['f32_collectives']})"
+               if "f32_max_abs_err" in g else "")
+        print(f"{tag}: collectives {g['collectives']} (= counted); host "
+              f"wall {g['host_ms']:.2f} ms replayed vs {x['host_ms']:.1f} "
+              f"eager sharded vs {x['plain_host_ms']:.1f} unsharded; capture "
+              f"{g['t_capture_s']:.2f} s (first call {g['first_call_ms']:.0f}"
+              f" ms, its warm-up included); graph pool {g['pool_mib']:.1f} "
+              f"MiB; max |d| {g['max_abs_err']:.3g} of {x['scale']:.3g} "
+              f"(bit-equal to unsharded {g['bit_equal']}; to the eager "
+              f"sharded step {g['eager_bit_equal']}, max |d| "
+              f"{g['eager_max_abs_err']:.3g}); SSD launches in a replay "
+              f"{g['ssd_launches']} ({g['ssd_tc']} tc){f32}{nccl}; {card}")
+    w = rec["wine train"]
+    tag = f"[spmd] rank {rec['rank']} of {n} wine mamba2-1.3b train_4k"
+    check(w["source"] != "eager" and w["captures"] == 1
+          and w["replays"] == SPMD_WINE_STEPS - 1,
+          f"{tag}: source {w['source']}, {w['captures']} captures, "
+          f"{w['replays']} replays")
+    check(all(math.isfinite(v) for v in w["losses"]) and
+          w["rel"] <= SPMD_TOL_TRAIN, f"{tag}: losses {w['losses']} vs "
+          f"eager sharded {w['eager_losses']} (rel {w['rel']:.3g} > "
+          f"{SPMD_TOL_TRAIN})")
+    check(w["ssd_tc_in_replays"] == w["ssd_launches_in_replays"] > 0,
+          f"{tag}: {w['ssd_launches_in_replays']} SSD launches in the "
+          f"replays, {w['ssd_tc_in_replays']} tc")
+    print(f"{tag} (reduced: {w['reduced']}): source {w['source']}, "
+          f"{w['captures']} capture ({w['t_capture_s']:.2f} s), "
+          f"{w['replays']} replays; losses {w['losses']} vs eager sharded "
+          f"{w['eager_losses']} (rel {w['rel']:.3g}, gated at "
+          f"{SPMD_TOL_TRAIN}); SSD launches in the replays "
+          f"{w['ssd_launches_in_replays']} ({w['ssd_tc_in_replays']} tc); "
+          f"host ms a step {[round(v, 1) for v in w['host_ms']]} vs eager "
+          f"sharded {[round(v, 1) for v in w['eager_host_ms']]}; {card}")
 
 
 def phase_dryrun(card):
@@ -5388,7 +5703,8 @@ def main() -> int:
             for m in ("eager", "replayed"))
         + fault["launches"]["ssd_scan"] + wine["launches"]["ssd_scan"]
         + pipe["mamba2-1.3b"]["ssd_routes"]["bfloat16 pipeline"]["tc"]
-        + spmd[0]["mamba2-1.3b prefill"]["ssd_launches"],
+        + spmd[0]["mamba2-1.3b prefill"]["ssd_launches"]
+        + spmd[0]["graph_ssd_launches"] + spmd[0]["wine_ssd_launches"],
         "launches_by_phase": {
             "serve-ssm": ssm["launches"],
             "dist-serve": dist_serve["launches"],
@@ -5404,12 +5720,20 @@ def main() -> int:
             "pipeline (bf16, 4 stages x 4 microbatches)":
                 pipe["mamba2-1.3b"]["ssd_routes"]["bfloat16 pipeline"]["tc"],
             f"spmd (rank 0 of {len(spmd)}: the sharded prefill)":
-                spmd[0]["mamba2-1.3b prefill"]["ssd_launches"]},
+                spmd[0]["mamba2-1.3b prefill"]["ssd_launches"],
+            f"spmd (rank 0 of {len(spmd)}: the captured sharded prefill, "
+            f"its warm-up and replays)": spmd[0]["graph_ssd_launches"],
+            f"spmd (rank 0 of {len(spmd)}: the Wine train app, eager and "
+            f"compiled)": spmd[0]["wine_ssd_launches"]},
         "launches_in_replays_by_phase": {
-            n: r["step"]["launches_in_replays"]["ssd_scan"]
-            for n, r in (("serve-ssm", ssm), ("dist-serve", dist_serve),
-                         ("serve-fixed-ssm", fixed_ssm),
-                         ("serve-int8", int8), *ssm_restart.items())},
+            **{n: r["step"]["launches_in_replays"]["ssd_scan"]
+               for n, r in (("serve-ssm", ssm), ("dist-serve", dist_serve),
+                            ("serve-fixed-ssm", fixed_ssm),
+                            ("serve-int8", int8), *ssm_restart.items())},
+            f"spmd (rank 0 of {len(spmd)})":
+                spmd[0]["mamba2-1.3b prefill"]["graph"]["replays"]
+                * spmd[0]["mamba2-1.3b prefill"]["graph"]["ssd_launches"]
+                + spmd[0]["wine train"]["ssd_launches_in_replays"]},
         "train_launches_a_step": {
             m: [r["ssd_scan"] for r in train_ssm[m]["launches_a_step"]]
             for m in ("eager", "replayed")},

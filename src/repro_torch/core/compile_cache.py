@@ -100,6 +100,27 @@ would add nothing: the executable takes each counter's change during the
 capture back out (the capture launched nothing) and adds it on every
 replay.
 
+A sharded step (a DTensor among its arguments: a rank of a mesh of ranks,
+``sharding.spmd``) is captured the same way, ONE graph a rank, with that
+rank's NCCL collectives and kernel launches inside. Its key and signature
+hold each DTensor's layout (the mesh's sizes and axis names, placements,
+local shape beside the global one: ``spmd.ShardedSpec``), so the same
+global shape laid out otherwise is another executable. It binds, buffers
+and copies through local tensors: a bound DTensor's shard is read at its
+own address, a static buffer holds a shard (the replay copies the
+argument's ``to_local()`` in, and runs no DTensor op), and the outputs are
+the capture's DTensors over the graph's memory, returned on every replay.
+The warm-up (whose collectives set up the rank's NCCL communicators) and
+the capture settle their outputs (``spmd.settle``), so every collective is
+waited inside the capture and every NCCL stream joins it. The ranks of a
+mesh run one program, so they capture and replay the same executables in
+the same order: a rank that replays while another captures would wait on
+it forever. A replay dispatches nothing, so the capture's collectives are
+recorded (a ``CollectiveCounter`` held over it) and added on every replay
+to ``exe.collectives`` and to every counter open in the thread, as the
+launch counts below are; the warm-up's are counted as they run. On the CPU
+(gloo) a sharded executable counts each call's.
+
 Captures are serialized process-wide (``_CAPTURE_LOCK``): a warm-up and
 its capture run on the device's one shared capture stream, and the
 counter change a capture takes back out is read from process-global
@@ -124,6 +145,7 @@ import tempfile
 import threading
 import time
 import weakref
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -134,7 +156,11 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.launch.roofline import CollectiveStats
 from repro_torch.models.spec import TensorSpec
+from repro_torch.sharding.spmd import (CollectiveCounter, ShardedSpec,
+                                       count_replayed, local_tensor, rewrap,
+                                       settle, spec_of)
 
 # the wrappers whose launch counters a replay must keep true
 COUNTED = (paged_attention, ssd_scan, flash_attention)
@@ -197,8 +223,10 @@ def _obj_sig(v: Any, depth: int = 2) -> str:
     if inspect.ismodule(v):
         return f"mod:{v.__name__}"
     if _is_array(v):
-        return f"arr{tuple(v.shape)}:{v.dtype}:{_array_digest(v)}"
-    if isinstance(v, TensorSpec):
+        lay = spec_of(v)
+        return (f"arr{tuple(v.shape)}:{v.dtype}:{_array_digest(v)}"
+                + (f":{lay.layout!r}" if lay is not None else ""))
+    if isinstance(v, (TensorSpec, ShardedSpec)):
         return f"spec{tuple(v.shape)}:{v.dtype}"
     # containers: recurse over EVERY element so interior tensors get VALUE
     # digests (repr of a dict of weights truncates and would alias
@@ -248,10 +276,11 @@ def _array_digest(v: Any) -> str:
     over same-shaped but different-valued tensors compute different
     functions. Large ones are sampled (head + stride + tail) to bound the
     cost; a tensor on the card is sampled there and only the sample copied
-    back (outside any capture: fingerprints are taken in ``compile``)."""
+    back (outside any capture: fingerprints are taken in ``compile``). A
+    DTensor's digest is its shard's: no collective runs for a key."""
     try:
         if isinstance(v, torch.Tensor):
-            flat = v.detach().reshape(-1)
+            flat = local_tensor(v).detach().reshape(-1)
             if flat.numel() > 65536:
                 step = max(1, flat.numel() // 16384)
                 flat = torch.cat([flat[:16384], flat[::step][:16384],
@@ -357,8 +386,12 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 def abstractify(tree: Any) -> Any:
     """Concrete tree -> TensorSpec tree (identity on specs; numpy arrays
-    take torch's dtype; other leaves stay as they are)."""
+    take torch's dtype; a DTensor becomes its ``ShardedSpec``, which keeps
+    its layout; other leaves stay as they are)."""
     def leaf(x):
+        lay = spec_of(x)
+        if lay is not None:
+            return lay
         if isinstance(x, TensorSpec):
             return TensorSpec(tuple(x.shape), _torch_dtype(x.dtype))
         if _is_array(x):
@@ -388,8 +421,10 @@ def fingerprint(fn: Callable, abstract_args: tuple, extras: tuple = (),
                 device=None) -> str:
     """Content key for one (program, input signature, device) triple."""
     leaves, spec = pytree.tree_flatten(abstractify(tuple(abstract_args)))
-    avals = "|".join(f"{tuple(l.shape)}:{l.dtype}" if isinstance(
-        l, TensorSpec) else f"const:{l!r}" for l in leaves)
+    avals = "|".join(
+        f"{tuple(l.shape)}:{l.dtype}:{l.layout!r}" if isinstance(
+            l, ShardedSpec) else f"{tuple(l.shape)}:{l.dtype}" if isinstance(
+            l, TensorSpec) else f"const:{l!r}" for l in leaves)
     dev = (torch.device(device) if device is not None
            else _infer_device(abstract_args))
     blob = "\n".join([
@@ -405,28 +440,44 @@ def _jsonable(x: Any) -> Any:
     return json.loads(json.dumps(x, default=repr))
 
 
+def _leaf_record(x) -> Any:
+    if isinstance(x, ShardedSpec):
+        return [list(x.shape), str(x.dtype).replace("torch.", ""),
+                x.record()]
+    if isinstance(x, TensorSpec):
+        return [list(x.shape), str(x.dtype).replace("torch.", "")]
+    return {"const": _jsonable(x)}
+
+
+def _leaf_from_record(x) -> Any:
+    if not isinstance(x, list):
+        return x["const"]
+    if len(x) == 3:
+        return ShardedSpec.from_record(x[0], getattr(torch, x[1]), x[2])
+    return TensorSpec(tuple(x[0]), getattr(torch, x[1]))
+
+
 def signature_record(args: tuple) -> list:
     """The input signature of ``args`` for a record: per argument, its tree
     (``treespec_dumps``) and its leaves, ``[shape, dtype]`` for a tensor,
-    an array or a ``TensorSpec``, ``{"const": value}`` otherwise."""
+    an array or a ``TensorSpec``, ``[shape, dtype, layout]`` for a DTensor
+    or a ``ShardedSpec`` (the layout: the mesh's sizes and axis names, the
+    placements, the local shape), ``{"const": value}`` otherwise."""
     out = []
     for a in args:
         leaves, spec = pytree.tree_flatten(abstractify(a))
-        out.append({"tree": pytree.treespec_dumps(spec), "leaves": [
-            [list(x.shape), str(x.dtype).replace("torch.", "")]
-            if isinstance(x, TensorSpec) else {"const": _jsonable(x)}
-            for x in leaves]})
+        out.append({"tree": pytree.treespec_dumps(spec),
+                    "leaves": [_leaf_record(x) for x in leaves]})
     return out
 
 
 def record_args(record: dict) -> tuple:
-    """The abstract arguments (``TensorSpec`` trees) a record was made for:
-    what ``compile`` takes as ``example_args`` to rebuild its executable."""
+    """The abstract arguments (``TensorSpec`` and ``ShardedSpec`` trees) a
+    record was made for: what ``compile`` takes as ``example_args`` to
+    rebuild its executable."""
     args = []
     for a in record["signature"]:
-        leaves = [TensorSpec(tuple(x[0]), getattr(torch, x[1]))
-                  if isinstance(x, list) else x["const"]
-                  for x in a["leaves"]]
+        leaves = [_leaf_from_record(x) for x in a["leaves"]]
         args.append(pytree.tree_unflatten(leaves,
                                           pytree.treespec_loads(a["tree"])))
     return tuple(args)
@@ -436,16 +487,27 @@ def record_args(record: dict) -> tuple:
 # Executables
 # ----------------------------------------------------------------------
 
+def _aval(x) -> tuple:
+    """One leaf of a signature: (shape, dtype) of a tensor, an array or a
+    ``TensorSpec``; (shape, dtype, layout) of a DTensor or a
+    ``ShardedSpec``; ("const", value) otherwise."""
+    if not (_is_array(x) or isinstance(x, (TensorSpec, ShardedSpec))):
+        return ("const", x)
+    lay = spec_of(x)
+    if lay is not None:
+        return (tuple(x.shape), _torch_dtype(x.dtype), lay.layout)
+    return (tuple(x.shape), _torch_dtype(x.dtype))
+
+
 def _signature(args: tuple, flat: Optional[list] = None) -> tuple:
     """(per-argument tree specs, abstract leaves) of a call's arguments
-    (``flat``: their ``tree_flatten``s, when the caller has them)."""
+    (``flat``: their ``tree_flatten``s, when the caller has them). A
+    DTensor's leaf carries its layout: the same global shape laid out
+    otherwise is another signature."""
     if flat is None:
         flat = [pytree.tree_flatten(a) for a in args]
     specs = tuple(s for _, s in flat)
-    avals = tuple(
-        (tuple(x.shape), _torch_dtype(x.dtype)) if (
-            _is_array(x) or isinstance(x, TensorSpec)) else ("const", x)
-        for leaves, _ in flat for x in leaves)
+    avals = tuple(_aval(x) for leaves, _ in flat for x in leaves)
     return specs, avals
 
 
@@ -471,32 +533,51 @@ def _apply_counts(delta: List[tuple], sign: int = 1) -> None:
 class Executable:
     """The CPU executable: the function itself behind the compiled
     signature. A call whose inputs do not match it raises ``TypeError``,
-    as the reference's exact-signature AOT executable does."""
+    as the reference's exact-signature AOT executable does.
+
+    ``sharded``: the signature holds a DTensor (a step of a mesh of ranks).
+    ``collectives`` counts what the calls of a sharded executable issued,
+    by kind (count and operand bytes a rank)."""
 
     def __init__(self, fn: Callable, signature: tuple):
         self.fn = fn
         self.signature = signature
         self.calls = 0
+        self.sharded = any(len(a) == 3 for a in signature[1])
+        self.collectives = CollectiveStats()
 
     def _check(self, args: tuple, flat: Optional[list] = None) -> None:
         if _signature(args, flat) != self.signature:
             raise TypeError(f"{getattr(self.fn, '__qualname__', self.fn)}: "
                             "inputs do not match the compiled signature")
 
+    def _counter(self):
+        return CollectiveCounter() if self.sharded else nullcontext()
+
     def __call__(self, *args):
         self._check(args)
         self.calls += 1
-        return self.fn(*args)
+        with self._counter() as cc:
+            out = self.fn(*args)
+        if cc is not None:
+            self.collectives.merge(cc.stats)
+        return out
 
 
 def _view_key(x: torch.Tensor) -> tuple:
-    return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+    """Where a tensor's elements lie (a DTensor's: its shard's, and its
+    layout)."""
+    lt = local_tensor(x)
+    return (lt.data_ptr(), tuple(lt.shape), lt.stride(), lt.dtype,
+            spec_of(x))
 
 
 class _Graph:
     """One captured graph: its static input buffers (None where a leaf is
-    bound or not a tensor), its outputs, the counter changes a replay
-    adds, and the ``_Binding`` it captured over (None: it binds nothing).
+    bound or not a tensor; a DTensor's: its shard), its outputs, the
+    counter changes a replay adds (the kernels' launches; a sharded
+    graph's collectives, ``collectives``), and the ``_Binding`` it
+    captured over (None: it binds nothing).
 
     An output that IS one of the bound tensors (a train step returns its
     state) is not kept: holding it would keep the binding alive as long
@@ -504,10 +585,11 @@ class _Graph:
     returns the call's own bound tensor in its place (``outputs``)."""
 
     def __init__(self, graph, static_leaves, out, counts, bound=None,
-                 bound_leaves=()):
+                 bound_leaves=(), collectives=None):
         self.graph = graph
         self.static_leaves = static_leaves
         self.counts = counts
+        self.collectives = collectives
         self.bound = bound
         self.replays = 0
         where = {_view_key(x): k for k, x in enumerate(bound_leaves)
@@ -647,7 +729,7 @@ class GraphExecutable(Executable):
             for i in self.bind_argnums:
                 for x in per_arg[i][0]:
                     if isinstance(x, torch.Tensor):
-                        s = x.untyped_storage()
+                        s = local_tensor(x).untyped_storage()
                         storages[id(s)] = s
             b = self.pools[key] = _Binding(key, storages.values(),
                                            self.pools)
@@ -658,28 +740,35 @@ class GraphExecutable(Executable):
         per_arg = [pytree.tree_flatten(a) for a in args]
         self._check(args, per_arg)
         self.calls += 1
-        binding = tuple(x.data_ptr() for i in self.bind_argnums
+        binding = tuple(local_tensor(x).data_ptr() for i in self.bind_argnums
                         for x in per_arg[i][0] if isinstance(x, torch.Tensor))
         g = self.graphs.get(binding)
         if g is None:
             return self._capture(args, per_arg, binding)
         leaves = (x for xs, _ in per_arg for x in xs)
         for x, s in zip(leaves, g.static_leaves):
-            if s is not None and x is not s:
-                s.copy_(torch.as_tensor(x), non_blocking=True)
+            if s is not None:
+                x = (local_tensor(x) if isinstance(x, torch.Tensor)
+                     else torch.as_tensor(x))
+                if x is not s:
+                    s.copy_(x, non_blocking=True)
         g.graph.replay()
         g.replays += 1
         self.stats["replays"] = self.stats.get("replays", 0) + 1
         _apply_counts(g.counts)
+        if g.collectives is not None:
+            self.collectives.merge(g.collectives)
+            count_replayed(g.collectives)
         if not g.aliased:
             return g.out
         return g.outputs([x for i in self.bind_argnums
                           for x in per_arg[i][0]])
 
     def _buffer(self, x):
-        """A static input buffer on the card holding ``x`` (None for a
-        leaf that is not a tensor or an array)."""
+        """A static input buffer on the card holding ``x`` (a DTensor's
+        shard; None for a leaf that is not a tensor or an array)."""
         if isinstance(x, torch.Tensor):
+            x = local_tensor(x)
             return torch.empty_like(x, device=self.device).copy_(x)
         if isinstance(x, np.ndarray):
             return torch.from_numpy(x).to(self.device)
@@ -708,20 +797,23 @@ class GraphExecutable(Executable):
             own = [self._buffer(x) for x in leaves]
             static_leaves += own
             static_args.append(pytree.tree_unflatten(
-                [o if o is not None else x for o, x in zip(own, leaves)],
-                spec))
+                [x if o is None else rewrap(x, o) if spec_of(x) else o
+                 for o, x in zip(own, leaves)], spec))
         cur = torch.cuda.current_stream(self.device)
         side = self.stream or capture_stream(self.device)
         side.wait_stream(cur)
         # the warm-up: the call's real execution, outside the capture, so
         # every lazy set-up (kernel libraries, route plans, shared-memory
-        # opt-ins, library workspaces) is done before capture begins
-        with torch.cuda.stream(side):
-            out = self.fn(*static_args)
+        # opt-ins, library workspaces, a mesh's NCCL communicators) is
+        # done before capture begins
+        with torch.cuda.stream(side), self._counter() as cc:
+            out = settle(self.fn(*static_args))
+        if cc is not None:
+            self.collectives.merge(cc.stats)
         cur.wait_stream(side)
         for x in pytree.tree_leaves(out):
             if isinstance(x, torch.Tensor) and x.is_cuda:
-                x.record_stream(cur)
+                local_tensor(x).record_stream(cur)
         # the graph allocates from a graph pool, which cannot reuse the
         # blocks the warm-up left cached: release them first (a train
         # step's activations would otherwise be held twice)
@@ -735,7 +827,11 @@ class GraphExecutable(Executable):
             graph.capture_begin(pool=bound.pool if bound else None,
                                 capture_error_mode="thread_local")
             try:
-                g_out = self.fn(*static_args)
+                # a sharded step's collectives are recorded as they are
+                # captured, and each is waited inside the capture
+                with self._counter() as cc:
+                    g_out = settle(self.fn(*static_args))
+                graph.capture_end()
             except BaseException as err:
                 try:
                     graph.capture_end()
@@ -745,13 +841,15 @@ class GraphExecutable(Executable):
                     f"CUDA graph capture of "
                     f"{getattr(self.fn, '__qualname__', self.fn)} failed "
                     f"(no eager fallback): {err}") from err
-            graph.capture_end()
         delta = _count_delta(before, _counts())
         _apply_counts(delta, sign=-1)       # the capture launched nothing
+        if cc is not None:
+            count_replayed(cc.stats, sign=-1)   # nor moved a byte
         cur.wait_stream(side)
         self.graphs[binding] = _Graph(
             graph, static_leaves, g_out, delta, bound,
-            [x for i in self.bind_argnums for x in per_arg[i][0]])
+            [x for i in self.bind_argnums for x in per_arg[i][0]],
+            cc.stats if cc is not None else None)
         self.stats["captures"] = self.stats.get("captures", 0) + 1
         self.stats["t_capture_s"] = (self.stats.get("t_capture_s", 0.0)
                                      + time.perf_counter() - t0)

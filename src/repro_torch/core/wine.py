@@ -45,12 +45,21 @@ passed to ``load`` (a restored checkpoint). Its default backend is an
 ``ArrayBackend`` over the same mesh.
 
 On a mesh of ranks (``sharding.spmd.spmd_mesh``: one process a card, every
-rank running the same apps) each rank holds its shard of the state —
-params and caches laid out as ``param_sharding`` / ``cache_sharding`` lay
-them out for the app's mode, each batch as ``batch_sharding`` — and the
-apps run eagerly (``load_report["compile_source"] == "eager"``): a sharded
-step is not captured as a CUDA graph. Outputs are DTensors
-(``.full_tensor()`` gathers one).
+rank running the same apps, loaded in the same order) each rank holds its
+shard of the state — params and caches laid out as ``param_sharding`` /
+``cache_sharding`` lay them out for the app's mode, a train state as
+``reshard_state`` lays it out; a state passed to ``load`` is laid out the
+same way — and ``load`` compiles every app through ``backend.compile``
+with that state bound, as the reference compiles a sharded app: on the
+card each rank captures the step as one CUDA graph (its NCCL collectives
+and SSD launches inside) on its first call and replays it afterwards; on
+the CPU the executable is the function itself. The executable takes the
+batch WHOLE (host or device tensors, as on one device) and lays it out
+inside the step (``batch_sharding``, then ``place``): a replay copies the
+whole batch into the rank's static buffers on its card (the only bytes
+that cross from the host: B x S int32 tokens), and the graph cuts this
+rank's rows there (a view where the cut is the leading dim, a copy kernel
+otherwise). Outputs are DTensors (``.full_tensor()`` gathers one).
 """
 from __future__ import annotations
 
@@ -152,11 +161,20 @@ class WineAdapter:
         self.device = backend.device
 
     # -- translation layer ------------------------------------------------
+    def _laid_out(self, inputs: Any, mode: str) -> Any:
+        """A whole batch laid out on a mesh of ranks (each rank keeps its
+        rows; nothing is sent); ``inputs`` itself elsewhere."""
+        if not self._spmd:
+            return inputs
+        return pytree.tree_map(place, inputs,
+                               batch_sharding(inputs, self.mesh, mode))
+
     def _build_train(self, app: WineApp, cfg: ModelConfig):
         step = make_train_step(cfg, AdamWConfig(),
                                microbatches=app.microbatches)
 
         def traced(state, batch):
+            batch = self._laid_out(batch, "train")
             with sharding_ctx(self.mesh, "train"):
                 return step(state, batch)
         return traced
@@ -164,6 +182,7 @@ class WineAdapter:
     def _build_decode(self, app: WineApp, cfg: ModelConfig):
         def traced(state, inputs):
             params, caches = state
+            inputs = self._laid_out(inputs, "serve")
             with sharding_ctx(self.mesh, "serve"):
                 logits, caches = lm_mod.decode_step(
                     params, caches, inputs["tokens"], inputs["positions"],
@@ -173,6 +192,7 @@ class WineAdapter:
 
     def _build_prefill(self, app: WineApp, cfg: ModelConfig):
         def traced(params, inputs):
+            inputs = self._laid_out(inputs, "prefill")
             with sharding_ctx(self.mesh, "prefill"):
                 enc = None
                 if cfg.encoder is not None:
@@ -199,18 +219,11 @@ class WineAdapter:
 
         if state is None:
             state = self._init_state(app, cfg, 0 if key is None else key)
-        elif app.mode == "train" and self.mesh is not None:
-            state = reshard_state(state, self.mesh)
+        else:
+            state = self._laid_out_state(app, state)
         t_stage = time.perf_counter() - t0
 
         specs = input_specs(cfg, self._cell(app))
-        if self._spmd:
-            return Instance(app, cfg, self._eager(app, fn), state,
-                            {"t_stage": t_stage, "t_compile": 0.0,
-                             "compile_source": "eager",
-                             "compile_cached": False, "capture_ahead": False,
-                             "captured_ahead": False},
-                            raw_fn=fn, device=self.device)
         compiled, source = self.backend.compile(
             fn, (state, specs), bind_argnums=(0,),
             extras=("wine", app.arch, app.mode, app.shape, app.smoke,
@@ -235,39 +248,38 @@ class WineAdapter:
     def _spmd(self) -> bool:
         return self.mesh is not None and self.mesh.is_spmd
 
-    def _eager(self, app: WineApp, fn: Callable) -> Callable:
-        """A step on a mesh of ranks: each batch laid out as
-        ``batch_sharding`` lays it out, the step run eagerly."""
-        mode = "serve" if app.mode == "decode" else app.mode
+    def _laid_out_state(self, app: WineApp, state: Any) -> Any:
+        """An app's state laid out on the adapter's mesh: a train state
+        on any mesh (``reshard_state``); params and caches on a mesh of
+        ranks (``param_sharding`` / ``cache_sharding`` for the app's
+        mode); ``state`` itself elsewhere."""
+        if app.mode == "train":
+            return (reshard_state(state, self.mesh) if self.mesh is not None
+                    else state)
+        if not self._spmd:
+            return state
+        mode = "serve" if app.mode == "decode" else "prefill"
 
-        def step(state, inputs):
-            inputs = pytree.tree_map(
-                place, inputs, batch_sharding(inputs, self.mesh, mode))
-            return fn(state, inputs)
-        return step
+        def put(tree, shardings):
+            return pytree.tree_map(place, tree,
+                                   shardings(tree, self.mesh, mode))
+        if app.mode == "decode":
+            params, caches = state
+            return (put(params, param_sharding), put(caches, cache_sharding))
+        return put(state, param_sharding)
 
     def _init_state(self, app: WineApp, cfg: ModelConfig, seed: int):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         if app.mode == "train":
             state = init_state(gen, cfg, self.device)
-            if self.mesh is not None:
-                state = reshard_state(state, self.mesh)
-            return state
-        params = lm_mod.lm_init(gen, cfg, self.device)
-        mode = "serve" if app.mode == "decode" else "prefill"
-        if self._spmd:
-            params = pytree.tree_map(
-                place, params, param_sharding(params, self.mesh, mode=mode))
-        if app.mode == "decode":
-            cell = self._cell(app)
-            caches = lm_mod.cache_init(cfg, cell.global_batch, cell.seq_len,
-                                       self.device)
-            if self._spmd:
-                caches = pytree.tree_map(
-                    place, caches, cache_sharding(caches, self.mesh, mode))
-            return (params, caches)
-        return params
+        else:
+            state = lm_mod.lm_init(gen, cfg, self.device)
+            if app.mode == "decode":
+                cell = self._cell(app)
+                state = (state, lm_mod.cache_init(
+                    cfg, cell.global_batch, cell.seq_len, self.device))
+        return self._laid_out_state(app, state)
 
     def input_specs(self, app: WineApp) -> dict:
         cfg = get_config(app.arch, smoke=app.smoke)

@@ -49,6 +49,18 @@ class CollectiveStats:
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + nbytes
         self.count_by_kind[kind] = self.count_by_kind.get(kind, 0) + 1
 
+    def merge(self, other: "CollectiveStats", sign: int = 1):
+        """Add (``sign=-1``: take out) ``other``'s collectives; a kind
+        that falls to none leaves the table."""
+        for k, v in other.bytes_by_kind.items():
+            n = self.count_by_kind.get(k, 0) + sign * other.count_by_kind[k]
+            if n:
+                self.count_by_kind[k] = n
+                self.bytes_by_kind[k] = self.bytes_by_kind.get(k, 0) + sign * v
+            else:
+                self.count_by_kind.pop(k, None)
+                self.bytes_by_kind.pop(k, None)
+
     def table(self) -> dict:
         """``{kind: [count, bytes]}``, the dry run row's ``collectives``."""
         return {k: [self.count_by_kind[k], int(v)]

@@ -20,6 +20,11 @@ here, ``constrain`` redistributes to the resolved spec and ``place`` is
                             as the reference's ``parse_collectives`` counts
                             them: the operand bytes a rank;
   spawn(fn, n)              n ranks, a process each;
+  local_tensor, rewrap, settle, spec_of / ShardedSpec, count_replayed
+                            what ``core.compile_cache`` needs to capture a
+                            sharded step: a DTensor's shard, its layout as
+                            a signature entry, its pending collectives
+                            waited, and a replay's collectives counted;
   einsum, matmul, embedding, gather, softmax, reshape, write_rows, like
                             the ops whose DTensor rules the model cannot
                             use, each the plain op on plain tensors (so a
@@ -36,7 +41,8 @@ import os
 import sys
 import tempfile
 from contextlib import contextmanager
-from typing import Iterator, Optional, Sequence
+from dataclasses import dataclass
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -223,6 +229,137 @@ class CollectiveCounter(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
+def count_replayed(stats, sign: int = 1) -> None:
+    """Add ``stats`` (the collectives a captured call recorded) to every
+    ``CollectiveCounter`` open in this thread. A CUDA graph's replay
+    dispatches nothing, so ``core.compile_cache`` adds its capture's record
+    on every replay, and takes it back out after the capture (``sign=-1``:
+    a capture moves nothing)."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in _get_current_dispatch_mode_stack():
+        if isinstance(mode, CollectiveCounter):
+            mode.stats.merge(stats, sign)
+
+
+# ---------------------------------------------------------------------------
+# DTensors as the compile cache sees them
+# ---------------------------------------------------------------------------
+#
+# A captured graph reads and writes raw addresses, so ``core.compile_cache``
+# binds, buffers and copies a DTensor through its local tensor (its shard on
+# this rank), and keys it by its layout: the mesh's sizes and axis names,
+# the placements, and the local shape beside the global one.
+
+_DTENSOR = None
+
+
+def _dtensor_type():
+    global _DTENSOR
+    if _DTENSOR is None:
+        from torch.distributed.tensor import DTensor
+        _DTENSOR = DTensor
+    return _DTENSOR
+
+
+def local_tensor(x):
+    """``x``'s local tensor where ``x`` is a DTensor (its shard on this rank;
+    a collective still pending on it waited), else ``x`` itself."""
+    if not isinstance(x, _dtensor_type()):
+        return x
+    lt = x._local_tensor
+    if hasattr(lt, "trigger_wait"):             # an AsyncCollectiveTensor
+        lt = lt.wait()
+    return lt
+
+
+def rewrap(x, local):
+    """A DTensor laid out as the DTensor ``x`` (mesh, placements, global
+    shape and stride) over ``local``, this rank's shard."""
+    return _dtensor_type().from_local(local, x.device_mesh, x.placements,
+                                      run_check=False, shape=x.shape,
+                                      stride=x.stride())
+
+
+def settle(tree):
+    """``tree`` with every collective its leaves wait on done: a DTensor
+    over a pending collective's result rewrapped over the waited tensor, a
+    pending result waited. A captured graph's outputs are settled inside
+    the capture, so every NCCL stream joins the capture's stream before it
+    ends."""
+    from torch.utils import _pytree as pytree
+
+    def one(x):
+        if isinstance(x, _dtensor_type()):
+            lt = local_tensor(x)
+            return x if lt is x._local_tensor else rewrap(x, lt)
+        return x.wait() if hasattr(x, "trigger_wait") else x
+    return pytree.tree_map(one, tree)
+
+
+def _placement_record(p) -> list:
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if type(p) is Shard:
+        return ["S", p.dim]
+    if type(p) is Replicate:
+        return ["R"]
+    if type(p) is Partial:
+        return ["P", p.reduce_op]
+    raise ValueError(f"no record form for the placement {p!r}")
+
+
+def _placement(rec: list):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return {"S": lambda: Shard(rec[1]), "R": Replicate,
+            "P": lambda: Partial(rec[1])}[rec[0]]()
+
+
+@dataclass(frozen=True)
+class ShardedSpec:
+    """A stand-in for a DTensor that is not allocated: its global shape and
+    dtype (as ``TensorSpec``'s), the mesh's sizes and axis names, its
+    placements and this rank's local shape. ``core.compile_cache`` keys a
+    DTensor argument on these, and a disk record keeps them
+    (``record`` / ``from_record``)."""
+    shape: Tuple[int, ...]
+    dtype: object
+    mesh_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    placements: tuple
+    local_shape: Tuple[int, ...]
+
+    @property
+    def layout(self) -> tuple:
+        """What a signature holds beyond the shape and dtype."""
+        return (self.mesh_sizes, self.axis_names, self.placements,
+                self.local_shape)
+
+    def record(self) -> dict:
+        return {"mesh": list(self.mesh_sizes), "axes": list(self.axis_names),
+                "placements": [_placement_record(p)
+                               for p in self.placements],
+                "local": list(self.local_shape)}
+
+    @classmethod
+    def from_record(cls, shape, dtype, rec: dict) -> "ShardedSpec":
+        return cls(tuple(shape), dtype, tuple(rec["mesh"]),
+                   tuple(rec["axes"]),
+                   tuple(_placement(p) for p in rec["placements"]),
+                   tuple(rec["local"]))
+
+
+def spec_of(x) -> Optional[ShardedSpec]:
+    """``x``'s ``ShardedSpec`` where ``x`` is a DTensor (or is one already),
+    else None."""
+    if isinstance(x, ShardedSpec):
+        return x
+    if not isinstance(x, _dtensor_type()):
+        return None
+    mesh = x.device_mesh
+    return ShardedSpec(tuple(x.shape), x.dtype, tuple(mesh.shape),
+                       tuple(mesh.mesh_dim_names or ()),
+                       tuple(x.placements), tuple(x._local_tensor.shape))
+
+
 # ---------------------------------------------------------------------------
 # Ops whose DTensor rules the model cannot use
 # ---------------------------------------------------------------------------
@@ -236,8 +373,7 @@ class CollectiveCounter(TorchDispatchMode):
 
 def is_sharded(x) -> bool:
     """Whether ``x`` is a DTensor (a tensor of the SPMD runtime)."""
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
+    return isinstance(x, _dtensor_type())
 
 
 def as_sharded(x, like):

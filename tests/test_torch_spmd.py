@@ -483,8 +483,10 @@ def test_recompute_runs_under_the_forward_sharding_context():
                                         ("decode", "decode_32k")])
 def test_wine_apps_on_a_mesh_of_one_rank(mode, shape):
     """``WineAdapter(mesh=spmd_mesh(...))``: the app's state laid out on the
-    mesh, run eagerly ("eager" source), its outputs bit-equal to the same
-    app's on the CPU without a mesh (mamba2-1.3b, smoke width)."""
+    mesh, compiled through the compile cache ("compiled" source: on the
+    CPU the executable is the step itself behind its signature, which
+    holds the state's layout), its outputs bit-equal to the same app's on
+    the CPU without a mesh (mamba2-1.3b, smoke width)."""
     from repro_torch.core.compile_cache import CompileCache
     from repro_torch.core.wine import WineAdapter, WineApp
     from repro_torch.sharding.spmd import shutdown, spmd_mesh
@@ -505,7 +507,8 @@ def test_wine_apps_on_a_mesh_of_one_rank(mode, shape):
                               cache=CompileCache(persistent=False))
         inst = adapter.load(app)
         got = inst.run(batch(adapter))
-        assert inst.load_report["compile_source"] == "eager"
+        assert inst.load_report["compile_source"] == "compiled"
+        assert inst.step_fn.sharded and inst.step_fn.calls == 1
         leaves = pytree.tree_leaves(got)
         assert leaves and all(
             torch.equal(g.full_tensor() if hasattr(g, "full_tensor") else g,
