@@ -14,17 +14,19 @@ non-zero:
             flash_attention.cu; all three include hopper.cuh), compiled
             from the sources here, one nvcc each, all at once; registers,
             shared memory and spills of each kernel function (fails if a
-            bf16 flash kernel, a split, combine or tile paged kernel or a tc
-            SSD kernel spills), and, where cuobjdump is on the machine, the
-            HGMMA (wgmma) instructions of the bf16 flash, the tile paged and
-            the tc SSD kernels (fails on an instantiation without).
+            bf16 flash kernel, a split, combine, tile or mla paged kernel or
+            a tc SSD kernel spills), and, where cuobjdump is on the machine,
+            the HGMMA (wgmma) instructions of the bf16 flash, the tile and
+            mla paged and the tc SSD kernels (fails on an instantiation
+            without).
 3. kernels  each kernel against its plain PyTorch version on the card.
             paged_attention: the reference test grid (page sizes 2/4/8/16,
             MHA/GQA/MQA, window + softcap, the MLA q2/k2 form, ragged padded
             prefill, fragmented tables with dead pages, a full pool, and two
-            prefills with S*G >= 64) in f32 (atol 2e-5) and bf16 (atol
-            2e-2, rtol 1e-2), each case's route printed (split, tile and
-            general each run); then qwen3-14b's decode (split) and prefill
+            prefills with S*G >= 64, and an MLA prefill with v the tensor
+            k) in f32 (atol 2e-5) and bf16 (atol 2e-2, rtol 1e-2), each
+            case's route printed (split, tile, mla and general each run in
+            bf16); then qwen3-14b's decode (split) and prefill
             (tile) shapes and a long-context decode (4 x 4,096 rows, 67 MB
             of K/V), each bf16 output held within one bf16 rounding of the
             f32 answer, with a control that must fail that limit (slot 0's
@@ -38,12 +40,13 @@ non-zero:
             shapes), and the bf16 call timed; then deepseek-v2's absorbed
             MLA shapes (H 128 over one latent head, Dk 512 + Dk2 64, Dv
             512; decode over 9 pages, a 128-row prefill over 8, a decode
-            over 256), every call on the general route, f32 within 2e-5,
-            bf16 within one bf16 rounding of the f32 answer against two
-            controls that must fail it (the q2.k2 term dropped; the
+            over 256), f32 on the general route within 2e-5, bf16 on the
+            mla route within one bf16 rounding of the f32 answer against
+            two controls that must fail it (the q2.k2 term dropped; the
             kernel's default scale 1/sqrt(576) for MLA's 1/sqrt(192)),
-            timed beside SDPA on the gathered view with the backend that
-            took it. ssd_scan: the
+            timed beside the general kernel on the same bf16 inputs and
+            SDPA on the gathered view with the backend that took it.
+            ssd_scan: the
             reference sweep (tests/test_kernels.py, and a ragged tc shape)
             in f32 on its
             planned route (relative error 3e-4) and in bf16 on every route
@@ -302,7 +305,7 @@ non-zero:
             experts of 1,536 top-6 and 2 shared; vocab 102,400), depth cut
             to the dense first layer and 4 of the 59 MoE layers (34.5 GB):
             5 paged launches a prefill dispatch and a decode step, all on
-            the general route (the absorbed form, q2/k2).
+            the mla route (the absorbed form, q2/k2, v the ckv pool).
 17. lockstep-mla  as 6 with that model.
 18. profile-mla  as 7, with the MoE layers' device time a step beside the
             least time that reading every expert's weights takes.
@@ -494,6 +497,7 @@ def device_ms(fn, names, reps=30, warmup=3):
 # kernel function names of each paged-attention route, as the profiler shows
 PAGED_KERNELS = {"split": ("paged_split_kernel", "paged_combine_kernel"),
                  "tile": ("paged_tile_kernel",),
+                 "mla": ("paged_mla_kernel", "paged_combine_kernel"),
                  "general": ("paged_attention_kernel",)}
 
 
@@ -628,8 +632,21 @@ def small_cases():
               ("mla_prefill",
                lambda d: problem(10, d, S=32, H=4, K=1, P=40, ps=4, npps=24,
                                  filled=[20, 18], q2dim=8, q_from_zero=True),
-               dict(scale=1.0 / math.sqrt(16 + 8)))]
+               dict(scale=1.0 / math.sqrt(16 + 8))),
+              # ... with v the tensor k and Dk 64 + Dk2 16, 8-row pages: the
+              # mla route in bf16 (two row tiles, five key tiles, a
+              # part-filled table), general in f32
+              ("mla_shared_kv", shared_kv, dict(scale=0.125))]
     return cases
+
+
+def shared_kv(dtype):
+    """An MLA prefill whose values are its keys (one ckv pool, as the model
+    passes it): G = 64 heads over one latent head."""
+    a = problem(12, dtype, S=2, H=64, K=1, Dk=64, Dv=64, P=40, ps=8,
+                npps=20, filled=[20, 13], q2dim=16, q_from_zero=True)
+    a["v"] = a["k"]
+    return a
 
 
 def route_of(paged_attention, fn):
@@ -877,7 +894,7 @@ def phase_family_kernels(paged_attention, paged_attention_ref, card):
 # deepseek-v2's absorbed MLA at full head counts: 4 slots, 128 query heads
 # over one latent head, q.ckv (Dk 512) + q_rope.kr (Dk2 64), values the
 # same ckv pool (Dv 512), 16-row pages; R = S * 128 >= 64 rows and q2/k2
-# leave split and tile out, so every shape takes the general route
+# leave split and tile out: bf16 takes the mla route, f32 the general one
 MLA_SCALE = 1.0 / math.sqrt(128 + 64)           # 1/sqrt(dn + dr)
 MLA_SHAPES = [
     ("decode", dict(S=1, filled=[9] * 4, P=128, npps=32)),
@@ -915,12 +932,15 @@ def sdpa_backend_ms(q, k, v, mask):
     return None, None
 
 
-def mla_measure(paged_attention, paged_attention_ref, a):
-    """Times of one MLA paged call (device, call), its plain version and
-    SDPA on the gathered view (q and k as [q_abs | q_rope] and [ckv | kr],
-    576 columns, v the 512 ckv columns), and the bound: the live ckv and kr
-    rows read once (k = v is one tensor), kpos, tables, q, q2, q_pos and
-    the output, against 2 * pairs * H * (Dk + Dk2 + Dv) flops."""
+def mla_measure(paged_attention, paged_attention_ref, a, route):
+    """Times of one MLA paged call (device, call) on ``route``, the general
+    kernel's device time on the same inputs (the route forced for that
+    loop alone), its plain version and SDPA on the gathered view (q and k
+    as [q_abs | q_rope] and [ckv | kr], 576 columns, v the 512 ckv
+    columns), and the bound: the live ckv and kr rows read once (k = v is
+    one tensor), kpos, tables, q, q2, q_pos and the output, against 2 *
+    pairs * H * (Dk + Dk2 + Dv) flops."""
+    from repro_torch.kernels import paged_attention as pa
     q, q2, k, k2, kpos, tables, q_pos = (a[n] for n in (
         "q", "q2", "k", "k2", "kpos", "tables", "q_pos"))
     B, S, H, Dk = q.shape
@@ -941,11 +961,24 @@ def mla_measure(paged_attention, paged_attention_ref, a):
     kh = kd[:, None].expand(B, H, *kd.shape[1:])
     vh = kd[:, None, :, :Dk].expand(B, H, kd.shape[1], Dk)
     backend, sdpa_ms = sdpa_backend_ms(qh, kh, vh, vis[:, None])
+    names = PAGED_KERNELS[route]
+    if route == "mla" and pa._plan(
+            pa._shape(q, k, a["v"], q2, tables),
+            pa._n_sm(q.device.index or 0), pa._library_smem())[1] == 1:
+        names = names[:1]                 # unsplit: no combine kernel
     dev, parts = device_ms(lambda: call(paged_attention, a, scale=MLA_SCALE),
-                           PAGED_KERNELS["general"])
+                           names)
+    plan = pa._plan
+    pa._plan = lambda *args: ("general", 0, 0, 0)
+    try:
+        general, _ = device_ms(
+            lambda: call(paged_attention, a, scale=MLA_SCALE),
+            PAGED_KERNELS["general"], reps=5 if a["q"].shape[1] > 1 else 30)
+    finally:
+        pa._plan = plan
     return dict(
         ms=time_ms(lambda: call(paged_attention, a, scale=MLA_SCALE)),
-        device_ms=dev, device_parts=parts,
+        device_ms=dev, device_parts=parts, general_device_ms=general,
         plain_ms=time_ms(lambda: call(paged_attention_ref, a,
                                       scale=MLA_SCALE), reps=10),
         sdpa_ms=sdpa_ms, sdpa_backend=backend,
@@ -958,8 +991,9 @@ def phase_mla_kernels(paged_attention, paged_attention_ref, card):
     """deepseek-v2's paged shapes (``MLA_SHAPES``) against the plain
     version: f32 within 2e-5; bf16 within one bf16 rounding of the f32
     answer, where two controls must fail that limit: the q2.k2 term dropped
-    and the kernel's default scale 1/sqrt(Dk + Dk2) = 1/sqrt(576). Every
-    call on the general route; the bf16 call timed."""
+    and the kernel's default scale 1/sqrt(Dk + Dk2) = 1/sqrt(576). f32 on
+    the general route, bf16 on the mla route; the bf16 call timed, beside
+    the general kernel on the same inputs."""
     print("[kernels] paged_attention at deepseek-v2's absorbed MLA shapes "
           "(H 128, K 1, Dk 512 + Dk2 64, Dv 512, 16-row pages)")
     rec = {}
@@ -977,7 +1011,7 @@ def phase_mla_kernels(paged_attention, paged_attention_ref, card):
         b = mla_problem(torch.bfloat16, **kw)
         out, route = route_of(paged_attention, lambda: call(
             paged_attention, b, scale=MLA_SCALE))
-        check(route == "general", f"mla {name} bf16: route {route}")
+        check(route == "mla", f"mla {name} bf16: route {route}")
         torch.cuda.synchronize()
         # the exact answer for the bf16 inputs: the plain version in f32
         f32 = {n: (x.float() if x is not None and x.is_floating_point()
@@ -1004,12 +1038,14 @@ def phase_mla_kernels(paged_attention, paged_attention_ref, card):
         r = rec[name] = dict(route=route, max_abs_err=err32,
                              max_abs_err_f32=err, control_off=offs,
                              **mla_measure(paged_attention,
-                                           paged_attention_ref, b))
+                                           paged_attention_ref, b, route))
         del b
         torch.cuda.empty_cache()
         ctl = ", ".join(f"{n}: {c}" for n, c in offs.items())
         sdpa = (f"{r['sdpa_ms']:.4f}ms ({r['sdpa_backend']})"
                 if r["sdpa_ms"] is not None else "null (refused)")
+        dev = " + ".join(f"{n} {ms:.4f}"
+                         for n, ms in r["device_parts"].items())
         print(f"[kernels] mla {name}: B=4 S={kw['S']} H=128 K=1 Dk=512+64 "
               f"Dv=512 ps=16 npps={kw['npps']} live pages/slot="
               f"{kw['filled'][0]} route={route}: f32 max_abs_err="
@@ -1017,8 +1053,9 @@ def phase_mla_kernels(paged_attention, paged_attention_ref, card):
               f"against its f32 answer (limit {FLASH_ATOL:g} + "
               f"{FLASH_RTOL:g}|ref|: one bf16 rounding); controls over the "
               f"limit ({ctl}), fail as they must; device="
-              f"{r['device_ms']:.4f}ms call={r['ms']:.4f}ms (wrapper + "
-              f"kernel) plain={r['plain_ms']:.4f}ms bound="
+              f"{r['device_ms']:.4f}ms ({dev}) call={r['ms']:.4f}ms (wrapper"
+              f" + kernel) general_device={r['general_device_ms']:.4f}ms "
+              f"plain={r['plain_ms']:.4f}ms bound="
               f"{r['bound_ms']:.4f}ms ({r['bound_by']}: {r['mbytes']:.1f} "
               f"MB) x{r['device_ms'] / r['bound_ms']:.1f} "
               f"sdpa_on_gathered_view={sdpa} (yardstick only)")
@@ -5410,7 +5447,8 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f}s (set-up)")
     new_spills = {f: n for kname, parts in (
         ("flash_attention", ("flash_attention_bf16",)),
-        ("paged_attention", ("paged_split", "paged_combine", "paged_tile")),
+        ("paged_attention", ("paged_split", "paged_combine", "paged_tile",
+                             "paged_mla")),
         ("ssd_scan", ("ssd_scan_tc",)))
         for f, n in spills.get(kname, {}).items()
         if any(part in f for part in parts)}
@@ -5418,6 +5456,7 @@ def main() -> int:
           f"a tensor-core or split kernel spills: {new_spills}")
     for kname, part in (("flash_attention", "flash_attention_bf16"),
                         ("paged_attention", "paged_tile_kernel"),
+                        ("paged_attention", "paged_mla_kernel"),
                         ("ssd_scan", "ssd_scan_tc_kernel")):
         hgmma = sass_count(_build.library_path(kname), "HGMMA", part)
         if hgmma is None:
@@ -5445,7 +5484,11 @@ def main() -> int:
           f"split), tile {tile(128, 128, 32, 16):,} bytes (32 table "
           f"entries); the general kernel sizes its own per launch")
     limit = libs["paged_attention"].paged_attention_max_smem_bytes
-    limit.restype = ctypes.c_longlong
+    mla_smem = libs["paged_attention"].paged_attention_mla_smem_bytes
+    limit.restype = mla_smem.restype = ctypes.c_longlong
+    print(f"[build]   paged_attention: mla blocks at deepseek-v2's Dk 512 "
+          f"(16-row pages): {mla_smem(512, 32, 16):,} bytes at 32 table "
+          f"entries, {mla_smem(512, 256, 16):,} at 256")
     print(f"[build]   paged_attention: tile blocks of the new families: "
           f"{tile(128, 128, 288, 16):,} bytes at gemma2-27b's D=128 and 288 "
           f"table entries, {tile(256, 256, 94, 16):,} at gemma3-12b's D=256 "
@@ -5600,7 +5643,7 @@ def main() -> int:
     params = draw(cfg, init_params, "serve-mla", note=" (depth cut from "
                   "60: the dense layer + 4 of 59 MoE layers)")
     mla = phase_serve(cfg, params, paged_attention, card, tag="serve-mla",
-                      routes=("general", "general"))
+                      routes=("mla", "mla"))
     print(f"[serve-mla] phase wall {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     mla["lockstep"] = phase_lockstep(cfg, params, tag="lockstep-mla")
@@ -5692,6 +5735,27 @@ def main() -> int:
                      for n, r in rec_family.items()},
         "mla": {n: {k: r[k] for k in (*keep, "sdpa_backend") if k in r}
                 for n, r in rec_mla.items()},
+    }, {
+        "name": "paged_attention (mla route)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:107",
+        "launches": mla["routes"]["mla"],
+        "launches_in_replays": mla["step"]["launches_in_replays"][
+            "paged_attention"],
+        "max_abs_err": max(r["max_abs_err_f32"] for r in rec_mla.values()),
+        **{k: rec_mla["decode"][k] for k in (
+            "ms", "device_ms", "general_device_ms", "plain_ms", "bound_ms",
+            "bound_by")},
+        "library_ms": None,
+        "shape": "deepseek-v2 decode B=4 S=1 H=128 K=1 Dk=512 + Dk2=64, "
+                 "Dv=512 (v is k) ps=16 npps=32, 9 live pages/slot, bf16; "
+                 "max_abs_err against the f32 answer on the same bf16 "
+                 "inputs (limit: one bf16 rounding)",
+        "sdpa_dense_view_ms": rec_mla["decode"]["sdpa_ms"],
+        **{shape: {k: rec_mla[shape][k] for k in (
+            "ms", "device_ms", "general_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "sdpa_ms", "max_abs_err_f32")}
+           for shape in ("prefill", "long_decode")},
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -136,6 +136,7 @@ among them) run without a card.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import inspect
 import json
@@ -823,6 +824,12 @@ class GraphExecutable(Executable):
             bound.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         before = _counts()
+        # no graph may be destroyed in the capturing thread (a destroy there
+        # invalidates the capture): the cyclic collector, which frees a
+        # dropped fabric's or engine's graphs in whatever thread it runs,
+        # waits until the capture ends
+        collect = gc.isenabled()
+        gc.disable()
         with torch.cuda.stream(side):
             graph.capture_begin(pool=bound.pool if bound else None,
                                 capture_error_mode="thread_local")
@@ -841,6 +848,9 @@ class GraphExecutable(Executable):
                     f"CUDA graph capture of "
                     f"{getattr(self.fn, '__qualname__', self.fn)} failed "
                     f"(no eager fallback): {err}") from err
+            finally:
+                if collect:
+                    gc.enable()
         delta = _count_delta(before, _counts())
         _apply_counts(delta, sign=-1)       # the capture launched nothing
         if cc is not None:

@@ -8,7 +8,7 @@
 // q_pos, an optional second score term q2.k2 serves MLA's absorbed form, and
 // a pad query row or an all-dead slot comes out as exact zeros.
 //
-// Three routes, chosen by the wrapper from shapes alone (never from the
+// Four routes, chosen by the wrapper from shapes alone (never from the
 // contents of tables, kpos or q_pos, so a call stays capturable in a CUDA
 // graph). A block's rows are (query i, group g) pairs of one (slot b, kv head
 // kh), flattened as i*G + g, so the G query heads of a kv head share every
@@ -50,8 +50,59 @@
 //   entry is never loaded; a dead entry's rows are never loaded and are
 //   masked (the v ring starts at zeros, so p = 0 never meets a NaN).
 //
-// general (everything else: f32 prefill, MLA's q2/k2 prefill, Dk > 256, odd
-//   page sizes): the first design, below. One block per (row
+// mla (S*G >= 64, bf16, q2/k2 present, v the same tensor as k, Dk a
+//   multiple of 64 up to 512, Dk2 a multiple of 8 up to 64, pages of a
+//   power of two >= 8 rows: deepseek-v2's absorbed form, H 128 over one
+//   latent head, [q_abs | q_rope] . [ckv | kr] with Dk 512 + Dk2 64 and
+//   values the same ckv). What bounds it: every key is 1,152 bytes shared
+//   by 128 query heads, so a 64-row block does ~100 flops a staged byte
+//   (S and P_hi/P_lo @ V on wgmma): the tensor cores at long decode, the
+//   bytes of q and the output at prefill. One 384-thread block per (64-row
+//   tile, split, slot x kv head): three warpgroups, registers moved from
+//   the producer warpgroup to the consumers by setmaxnreg (40 and 232 a
+//   thread; an SM allots registers to warps in fours, so 288 threads would
+//   cap them at 168 and spill). One producer warp assembles 32-key tiles of
+//   [ckv | kr] (8 + 1 boxes of 64 columns, 128-byte swizzled) from the
+//   slot's pages by TMA, one box a page piece, into a 3-stage ring with
+//   mbarriers; [q | q2] (64 x 576, 73,728 B) lands once, by TMA where the
+//   64 rows are 64 heads of one query (G a multiple of 64: deepseek-v2's
+//   128), else by the consumers' cp.async. The staged ckv boxes are both
+//   the K operand of S = [q|q2] [ckv|kr]^T (K-major, 36 k16 steps) and the
+//   V operand of P @ V (MN-major, the transpose bit): V is never staged on
+//   its own (the design of DeepSeek's public FlashMLA for this card). Two
+//   consumer warpgroups each own half of the value columns (64 x 256 f32,
+//   128 registers a thread; one m64n256k16 a k16 step and term). Warpgroup
+//   0 computes S and the online softmax (keys_softmax, the tile route's
+//   masks, the keys' kpos and table entries read before the products are
+//   issued) and hands P, split in two bf16 terms (the output keeps one
+//   bf16 rounding), and the row rescale alpha to warpgroup 1 through two
+//   shared-memory buffers (64 * BK * 4 bytes and an mbarrier pair each)
+//   rather than both computing S: that would repeat its 576-deep product
+//   (36% more tensor-core work a tile), where the hand-off costs 18 KB and
+//   lets warpgroup 0 run S(i + 1) while warpgroup 1 runs P(i) @ V. Shared
+//   memory at Dk 512: 1,024 (alignment) + q 73,728 + 3 stages x 32 keys x
+//   1,152 = 110,592 + P buffers 18,432 + l 1,024 + kpos 384 + barriers 112
+//   + the table and live-tile list (~206 KB at 256 entries of 16 rows, one
+//   block an SM; 32-key tiles with 3 stages: 64 keys with 2 stages would
+//   need 237,568 bytes). Before the loop the block marks the entries of its
+//   range live or dead (dead, empty, after its last query position, out of
+//   the window; a warp an entry); a tile with no live entry is never
+//   loaded, a dead entry's rows are masked and its ring rows start at
+//   zeros. At decode (S = 1: 2 row tiles a slot) each slot's table is cut
+//   into ranges of whole key tiles, enough for about one block an SM; each
+//   writes (m, l, acc) in f32 to the split route's workspace and
+//   paged_combine_kernel joins them, so the output is rounded once. A
+//   prefill (many row tiles) runs unsplit. A block's 64 output rows (bf16,
+//   or a split's f32 partial) are staged in shared memory and written out
+//   whole, 16 bytes a lane. Left for later (a tile takes ~3,200 cycles
+//   against ~1,600 of tensor-core work): S is 36 m64n32k16 products that
+//   re-read the q tile every 32 keys; warpgroup 0's softmax and hand-off
+//   leave the tensor cores idle between S(i + 1) and S(i + 2) (a second S
+//   accumulator would overlap them); a decode's split partials (R x 512
+//   f32 each) and their combine cost more than its keys.
+//
+// general (everything else: f32 prefill, Dk > 256 without the mla route's
+//   shape, odd page sizes): the first design, below. One block per (row
 //   chunk, kv head, slot) walks the table in order; per live page it stages
 //   K (and K2), V and kpos in f32, one thread per (row, key) computes the
 //   score, one thread per row the online-softmax update (p re-masked after
@@ -846,15 +897,35 @@ __host__ __device__ inline size_t tile_smem_bytes(int ndk, int ndv, int npps,
          align16((size_t)n_all * 4);
 }
 
-// Scale, softcap and the mask on the S fragment of key tile `tile`, then the
+// This thread's fragment columns of a key tile (8*j + cq and + 1, key0 its
+// first key): their kpos and their table entry (a page id, -1 dead), read
+// from shared memory; the mla route reads them before it issues the scores'
+// products, so that no load waits behind the tensor cores.
+template <int BK>
+struct TileKeys {
+  int kp[BK / 8][2], t[BK / 8];
+};
+template <int BK>
+__device__ __forceinline__ void tile_keys(TileKeys<BK>& k, const Params& p,
+                                          const int* kp, const int* tab,
+                                          int key0, int lgps, int cq) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const int col = 8 * j + cq, ent = (key0 + col) >> lgps;
+    k.t[j] = ent < p.npps ? tab[ent] : -1;
+    k.kp[j][0] = kp[col];
+    k.kp[j][1] = kp[col + 1];
+  }
+}
+
+// Scale, softcap and the mask on the S fragment of a key tile, then the
 // online softmax (as flash_attention.cu's): p (f32) replaces s, m and l move
 // on, alpha is what the accumulator is to be scaled by. A key is visible
 // when its table entry is live and kpos passes `visible`.
 template <int BK>
-__device__ __forceinline__ void tile_softmax(
-    float (&sc)[BK / 2], const Params& p, const int* kp, const int* tab,
-    int key0, int lgps, const int (&qp)[2], int cq, float (&m)[2],
-    float (&l)[2], float (&alpha)[2]) {
+__device__ __forceinline__ void keys_softmax(
+    float (&sc)[BK / 2], const Params& p, const TileKeys<BK>& k,
+    const int (&qp)[2], float (&m)[2], float (&l)[2], float (&alpha)[2]) {
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) sc[e] *= p.scale;
   if (p.has_cap) {
@@ -864,9 +935,8 @@ __device__ __forceinline__ void tile_softmax(
   uint32_t vis = 0;
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
-    const int col = 8 * j + cq, ent = (key0 + col) >> lgps;
-    const bool live = ent < p.npps && tab[ent] >= 0;
-    const int kp0 = live ? kp[col] : -1, kp1 = live ? kp[col + 1] : -1;
+    const bool live = k.t[j] >= 0;
+    const int kp0 = live ? k.kp[j][0] : -1, kp1 = live ? k.kp[j][1] : -1;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (visible(e & 1 ? kp1 : kp0, qp[e >> 1], p))
@@ -898,6 +968,17 @@ __device__ __forceinline__ void tile_softmax(
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// keys_softmax on key tile `key0`'s keys, read here (the tile route).
+template <int BK>
+__device__ __forceinline__ void tile_softmax(
+    float (&sc)[BK / 2], const Params& p, const int* kp, const int* tab,
+    int key0, int lgps, const int (&qp)[2], int cq, float (&m)[2],
+    float (&l)[2], float (&alpha)[2]) {
+  TileKeys<BK> k;
+  tile_keys<BK>(k, p, kp, tab, key0, lgps, cq);
+  keys_softmax<BK>(sc, p, k, qp, m, l, alpha);
 }
 
 // Rows [0, BK) of one k or v tile by cp.async (pages of fewer than 8
@@ -1279,6 +1360,705 @@ cudaError_t dispatch_tile(const Params& p, cudaStream_t stream) {
   return rows[boxes(p.Dk) - 1][boxes(p.Dv) - 1](p, stream);
 }
 
+// ---------------------------------------------------------------------------
+// mla route: MLA's absorbed form on wgmma, one staged ckv tile as K and V
+// ---------------------------------------------------------------------------
+
+constexpr int kMlaBK = 32;              // keys a tile
+constexpr int kMlaStages = 3;           // [ckv | kr] ring
+// two consumer warpgroups and a producer warpgroup (one warp of it copies):
+// registers are set a warpgroup at a time (setmaxnreg), and an SM allots
+// them to warps in groups of four
+constexpr int kMlaThreads = 3 * 128;
+constexpr int kMlaNW = kMlaBK / 16;     // k16 steps of P @ V a tile
+// registers a thread: 168 at launch (384 x 168 = 64,512 of an SM's 65,536;
+// one block an SM, as its shared memory allows no second), then 40 in the
+// producer warpgroup and 232 in the consumers (128 x 40 + 256 x 232 =
+// 64,512): 211 at Dk 512, no spill
+constexpr int kMlaProducerRegs = 40, kMlaConsumerRegs = 232;
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// the P buffers: per buffer and thread, NW uint4 of P_hi then NW of P_lo
+constexpr size_t kMlaPBytes = 2 * (size_t)2 * kMlaNW * 128 * 16;
+constexpr size_t kMlaAlphaBytes = 2 * 128 * 8;   // alpha, per buffer
+constexpr size_t kMlaLBytes = 128 * 8;           // the final l
+// barriers: q landed; per stage tile landed / tile used; per P buffer
+// full / free (11 x 8 bytes), then 16 bytes of block-wide values
+constexpr int kMlaBars = 96;
+
+// Shared memory of an mla block: 1 KB to align the swizzled tiles, the
+// [q | q2] tile, the [ckv | kr] ring, the P buffers, l, the kpos ring, the
+// barriers and block-wide values, the table and the list of live tiles.
+__host__ __device__ inline size_t mla_smem_bytes(int ndk, int npps, int ps) {
+  const int n_all = (int)(((long long)npps * ps + kMlaBK - 1) / kMlaBK);
+  return 1024 + (size_t)kRows * (ndk + 1) * kRowBytes +
+         (size_t)kMlaStages * kMlaBK * (ndk + 1) * kRowBytes + kMlaPBytes +
+         kMlaAlphaBytes + kMlaLBytes + (size_t)kMlaStages * kMlaBK * 4 +
+         kMlaBars + 16 + align16((size_t)npps * 4) +
+         align16((size_t)n_all * 4);
+}
+
+// The live pieces of key tile n of [ckv | kr] by TMA: piece j is `rows` =
+// min(ps, BK) consecutive rows of one page, NDK boxes of ckv and one of kr
+// (columns past Dk2 arrive as zeros) at row j * rows of each box. Called by
+// one lane; the barrier expects the bytes of the pieces that are loaded.
+template <int NDK>
+__device__ __forceinline__ void tma_mla_tile(uint32_t dst,
+                                             const CUtensorMap* tk,
+                                             const CUtensorMap* tk2,
+                                             uint32_t bar, const Params& p,
+                                             const int* tab, int n, int lgps,
+                                             int kh) {
+  constexpr int BK = kMlaBK;
+  const int rows = min(p.ps, BK);
+  int live = 0;
+  for (int j = 0; j < BK / rows; ++j) {
+    const int ent = (n * BK + j * rows) >> lgps;
+    live += ent < p.npps && tab[ent] >= 0;
+  }
+  mbar_expect_tx(bar, live * (NDK + 1) * rows * kRowBytes);
+  for (int j = 0; j < BK / rows; ++j) {
+    const int key = n * BK + j * rows, ent = key >> lgps;
+    const int t = ent < p.npps ? tab[ent] : -1;
+    if (t < 0) continue;
+    const int row = t * p.ps + (key & (p.ps - 1));
+#pragma unroll
+    for (int c = 0; c < NDK; ++c)
+      tma_load(dst + (c * BK + j * rows) * kRowBytes, tk, c * kBox, kh, row,
+               bar);
+    tma_load(dst + (NDK * BK + j * rows) * kRowBytes, tk2, 0, kh, row, bar);
+  }
+}
+
+// d (64 x 64*NV, f32; NV boxes of 64 columns, box c in d[c]) += a (64 x 16,
+// bf16 fragment in registers) @ b (16 x 64*NV, bf16 in shared memory,
+// MN-major: the transpose bit; `b`'s leading offset steps from one box of
+// 64 columns to the next): one wgmma for all of a warpgroup's value
+// columns (NV = 1 is hopper.cuh's mma_rs).
+template <int NV>
+__device__ __forceinline__ void mma_rs_wide(float (&d)[NV][32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b);
+template <>
+__device__ __forceinline__ void mma_rs_wide<2>(float (&d)[2][32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
+      "%67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+        "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+        "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]),
+        "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+        "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]),
+        "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+        "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs_wide<3>(float (&d)[3][32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+        "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+        "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]),
+        "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+        "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]),
+        "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+        "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[2][4]), "+f"(d[2][5]), "+f"(d[2][6]), "+f"(d[2][7]),
+        "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]), "+f"(d[2][11]),
+        "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]),
+        "+f"(d[2][16]), "+f"(d[2][17]), "+f"(d[2][18]), "+f"(d[2][19]),
+        "+f"(d[2][20]), "+f"(d[2][21]), "+f"(d[2][22]), "+f"(d[2][23]),
+        "+f"(d[2][24]), "+f"(d[2][25]), "+f"(d[2][26]), "+f"(d[2][27]),
+        "+f"(d[2][28]), "+f"(d[2][29]), "+f"(d[2][30]), "+f"(d[2][31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs_wide<4>(float (&d)[4][32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+        "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+        "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]),
+        "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+        "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]),
+        "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+        "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[2][4]), "+f"(d[2][5]), "+f"(d[2][6]), "+f"(d[2][7]),
+        "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]), "+f"(d[2][11]),
+        "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]),
+        "+f"(d[2][16]), "+f"(d[2][17]), "+f"(d[2][18]), "+f"(d[2][19]),
+        "+f"(d[2][20]), "+f"(d[2][21]), "+f"(d[2][22]), "+f"(d[2][23]),
+        "+f"(d[2][24]), "+f"(d[2][25]), "+f"(d[2][26]), "+f"(d[2][27]),
+        "+f"(d[2][28]), "+f"(d[2][29]), "+f"(d[2][30]), "+f"(d[2][31]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[3][4]), "+f"(d[3][5]), "+f"(d[3][6]), "+f"(d[3][7]),
+        "+f"(d[3][8]), "+f"(d[3][9]), "+f"(d[3][10]), "+f"(d[3][11]),
+        "+f"(d[3][12]), "+f"(d[3][13]), "+f"(d[3][14]), "+f"(d[3][15]),
+        "+f"(d[3][16]), "+f"(d[3][17]), "+f"(d[3][18]), "+f"(d[3][19]),
+        "+f"(d[3][20]), "+f"(d[3][21]), "+f"(d[3][22]), "+f"(d[3][23]),
+        "+f"(d[3][24]), "+f"(d[3][25]), "+f"(d[3][26]), "+f"(d[3][27]),
+        "+f"(d[3][28]), "+f"(d[3][29]), "+f"(d[3][30]), "+f"(d[3][31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// acc += P_hi @ v + P_lo @ v for one key tile, started and committed, on a
+// warpgroup's NV boxes of value columns at vb (boxes BK rows apart): one
+// wgmma a k16 step and term (start_pv issues one a box).
+template <int NV, int BK>
+__device__ __forceinline__ void start_pv_wide(float (&acc)[NV][32],
+                                              const uint32_t (&ph)[BK / 16][4],
+                                              const uint32_t (&pl)[BK / 16][4],
+                                              uint32_t vb) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t dv =
+        (desc(vb + kk * 16 * kRowBytes) & ~((uint64_t)0x3FFF << 16)) |
+        ((uint64_t)((BK * kRowBytes) >> 4) << 16);   // leading offset: a box
+    if constexpr (NV == 1) {
+      mma_rs(acc[0], ph[kk], dv);
+      mma_rs(acc[0], pl[kk], dv);
+    } else {
+      mma_rs_wide<NV>(acc, ph[kk], dv);
+      mma_rs_wide<NV>(acc, pl[kk], dv);
+    }
+  }
+  wg_commit();
+}
+
+// Warpgroup 0's hand-over of tile i: P_hi, P_lo (A fragments, thread tw's
+// registers) and alpha into buffer i % 2, once warpgroup 1 has taken tile
+// i - 2 from it; then its arrival on the buffer's full barrier.
+__device__ __forceinline__ void mla_publish(
+    uint4* sP, float2* sA, uint32_t p_full, uint32_t p_free, int i, int tw,
+    const uint32_t (&ph)[kMlaNW][4], const uint32_t (&pl)[kMlaNW][4],
+    const float (&alpha)[2]) {
+  const int buf = i & 1;
+  if (i >= 2) mbar_wait(p_free + 8 * buf, (i / 2 - 1) & 1);
+  uint4* const P = sP + buf * 2 * kMlaNW * 128;
+#pragma unroll
+  for (int kk = 0; kk < kMlaNW; ++kk) {
+    P[kk * 128 + tw] = make_uint4(ph[kk][0], ph[kk][1], ph[kk][2], ph[kk][3]);
+    P[(kMlaNW + kk) * 128 + tw] =
+        make_uint4(pl[kk][0], pl[kk][1], pl[kk][2], pl[kk][3]);
+  }
+  sA[buf * 128 + tw] = make_float2(alpha[0], alpha[1]);
+  mbar_arrive(p_full + 8 * buf);
+}
+
+// NDK: 64-column boxes of Dk (= Dv). Warpgroup w owns value boxes [w * NV,
+// w * NV + NV); where NDK is odd, warpgroup 1's last box is the kr box,
+// whose product is never stored. Fragments as in the tile route: thread t
+// of a warpgroup holds rows 16*(t/32) + (t%32)/4 and that + 8.
+template <int NDK>
+__global__ void __launch_bounds__(kMlaThreads, 1)
+paged_mla_kernel(const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tk2,
+                 const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tq2,
+                 const __grid_constant__ Params p, float* __restrict__ ws,
+                 int splits, int per) {
+  constexpr int ND = NDK + 1;             // boxes of [q | q2] and [ckv | kr]
+  constexpr int NV = (NDK + 1) / 2;       // value boxes of a warpgroup
+  constexpr int BK = kMlaBK, NW = kMlaNW;
+  extern __shared__ __align__(1024) unsigned char mla_smem[];
+  const uint32_t q_s = (smem_u32(mla_smem) + 1023) & ~1023u;
+  unsigned char* const base = mla_smem + (q_s - smem_u32(mla_smem));
+  const uint32_t k_s = q_s + kRows * ND * kRowBytes;
+  const uint32_t p_s = k_s + kMlaStages * BK * ND * kRowBytes;
+  const uint32_t a_s = p_s + (uint32_t)kMlaPBytes;
+  const uint32_t l_s = a_s + (uint32_t)kMlaAlphaBytes;
+  const uint32_t kp_s = l_s + (uint32_t)kMlaLBytes;
+  const uint32_t q_full = kp_s + kMlaStages * BK * 4;
+  const uint32_t k_full = q_full + 8, k_free = k_full + 8 * kMlaStages;
+  const uint32_t p_full = k_free + 8 * kMlaStages, p_free = p_full + 16;
+  int* const sKP = reinterpret_cast<int*>(base + (kp_s - q_s));
+  int* const sMisc = reinterpret_cast<int*>(base + (q_full + kMlaBars - q_s));
+  int* const sTab = sMisc + 4;            // the table: live entries, else -1
+  int* const sTiles = sTab + align16((size_t)p.npps * 4) / 4;
+
+  const int b = blockIdx.z / p.K, kh = blockIdx.z % p.K, sp = blockIdx.y;
+  // row tiles last-first: the longest causal rows start in the first wave
+  const int G = p.H / p.K, Rt = p.S * G;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int R = min(kRows, Rt - r0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lgps = __ffs(p.ps) - 1;
+  const int n_all = (p.npps * p.ps + BK - 1) / BK;
+  // where G is a multiple of 64 the tile's rows are 64 heads of one query:
+  // q and q2 by TMA, else by cp.async
+  const bool q_tma = G % kRows == 0;
+  // this block's key tiles and the table entries they span
+  const int t0 = sp * per, t1 = min(n_all, t0 + per);
+  const int e0 = min(p.npps, (t0 * BK) >> lgps);
+  const int e1 = t1 > t0 ? min(p.npps, ((t1 * BK - 1) >> lgps) + 1) : e0;
+
+  if (threadIdx.x == 256) {               // the producer's lane 0
+    // arrivals: q's arrive.expect_tx (TMA) or the 256 consumer threads
+    // after their q copies; per stage the producer's 32 lanes after the
+    // kpos copies + lane 0's arrive.expect_tx, and one per consumer warp
+    // when a tile is used; per P buffer warpgroup 0's 128 threads (full),
+    // warpgroup 1's (free)
+    mbar_init(q_full, q_tma ? 1 : 256);
+    for (int s = 0; s < kMlaStages; ++s) {
+      mbar_init(k_full + 8 * s, 33);
+      mbar_init(k_free + 8 * s, 8);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(p_full + 8 * s, 128);
+      mbar_init(p_free + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (q_tma) {                          // [q | q2] at once
+      const int qh = kh * G + r0 % G, qr = b * p.S + r0 / G;
+      mbar_expect_tx(q_full, ND * kRows * kRowBytes);
+#pragma unroll
+      for (int c = 0; c < NDK; ++c)
+        tma_load(q_s + c * kRows * kRowBytes, &tq, c * kBox, qh, qr, q_full);
+      tma_load(q_s + NDK * kRows * kRowBytes, &tq2, 0, qh, qr, q_full);
+    }
+  }
+  {
+    // TMA leaves a dead entry's rows as they were: start the ring at zeros
+    // so that p = 0 never meets a NaN left in shared memory
+    uint4* const ring = reinterpret_cast<uint4*>(base + (k_s - q_s));
+    for (int i = threadIdx.x; i < kMlaStages * BK * ND * 8; i += kMlaThreads)
+      ring[i] = make_uint4(0u, 0u, 0u, 0u);
+    fence_proxy_async();
+  }
+  {
+    // in every warp, the tile's first and last query positions (pad rows
+    // included); then each entry of the range, a warp an entry and a lane
+    // a row: its page id where some row of it is visible to some row of
+    // the tile, else -1
+    int q_lo = INT_MAX, q_hi = INT_MIN;
+    for (int r = lane; r < R; r += 32) {
+      const int qp = p.q_pos[b * p.S + (r0 + r) / G];
+      q_lo = min(q_lo, qp);
+      q_hi = max(q_hi, qp);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      q_lo = min(q_lo, __shfl_xor_sync(0xffffffffu, q_lo, off));
+      q_hi = max(q_hi, __shfl_xor_sync(0xffffffffu, q_hi, off));
+    }
+    for (int j = e0 + warp; j < e1; j += kMlaThreads / 32) {
+      int t = p.tables[b * p.npps + j];
+      t = (t >= 0 && t < p.P) ? t : -1;
+      int k_lo = INT_MAX, k_hi = -1;
+      for (int r = lane; t >= 0 && r < p.ps; r += 32) {
+        const int kp = p.kpos[(size_t)t * p.ps + r];
+        if (kp >= 0) {
+          k_lo = min(k_lo, kp);
+          k_hi = max(k_hi, kp);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        k_lo = min(k_lo, __shfl_xor_sync(0xffffffffu, k_lo, off));
+        k_hi = max(k_hi, __shfl_xor_sync(0xffffffffu, k_hi, off));
+      }
+      if (k_hi < 0 || (p.causal && k_lo > q_hi) ||
+          (p.has_window && (long long)q_lo - k_hi >= p.window))
+        t = -1;
+      if (lane == 0) sTab[j] = t;
+    }
+  }
+  __syncthreads();
+
+  if (!q_tma && warp < 8) {               // [q | q2] by the consumer threads
+    const __nv_bfloat16* const q = static_cast<const __nv_bfloat16*>(p.q);
+    const __nv_bfloat16* const q2 = static_cast<const __nv_bfloat16*>(p.q2);
+    for (int idx = threadIdx.x; idx < kRows * ND * 8; idx += 256) {
+      const int r = idx / (ND * 8), c = idx % (ND * 8);
+      const int box = c / 8, cc = c % 8, row = r0 + r;
+      const __nv_bfloat16* src = q;
+      bool ok = r < R;
+      if (ok) {
+        const size_t qi =
+            (size_t)(b * p.S + row / G) * p.H + kh * G + row % G;
+        if (box < NDK) {
+          src = q + qi * p.Dk + c * 8;
+        } else {
+          ok = cc * 8 < p.Dk2;
+          src = q2 + qi * p.Dk2 + (ok ? cc * 8 : 0);
+        }
+      }
+      cp_async16(q_s + (box * kRows + r) * kRowBytes + ((cc ^ (r % 8)) * 16),
+                 src, ok ? 16 : 0);
+    }
+    cp_async_arrive(q_full);
+  }
+
+  // the key tiles of the range that hold a live entry, in order
+  if (warp == 0) {
+    int count = 0;
+    for (int n0 = t0; n0 < t1; n0 += 32) {
+      const int n = n0 + lane;
+      bool live = false;
+      if (n < t1) {
+        const int ea = (n * BK) >> lgps;
+        const int eb = min(((n + 1) * BK - 1) >> lgps, p.npps - 1);
+        for (int e = ea; e <= eb; ++e) live |= sTab[e] >= 0;
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) sTiles[count + __popc(mask & ((1u << lane) - 1))] = n;
+      count += __popc(mask);
+    }
+    if (lane == 0) sMisc[0] = count;
+  }
+  __syncthreads();
+  const int n_tiles = sMisc[0];
+
+  if (warp >= 8) {                        // the producer warpgroup
+    reg_dealloc<kMlaProducerRegs>();
+    if (warp > 8) return;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kMlaStages, n = sTiles[i];
+      if (i >= kMlaStages) mbar_wait(k_free + 8 * s, (i / kMlaStages - 1) & 1);
+      for (int kr = lane; kr < BK; kr += 32) {
+        const int key = n * BK + kr, ent = key >> lgps;
+        const int t = ent < p.npps ? sTab[ent] : -1;
+        cp_async4(kp_s + (s * BK + kr) * 4,
+                  p.kpos + (t >= 0 ? (size_t)t * p.ps + (key & (p.ps - 1))
+                                   : 0),
+                  t >= 0 ? 4 : 0);
+      }
+      if (lane == 0)
+        tma_mla_tile<NDK>(k_s + s * ND * BK * kRowBytes, &tk, &tk2,
+                          k_full + 8 * s, p, sTab, n, lgps, kh);
+      cp_async_arrive(k_full + 8 * s);
+    }
+    cp_async_wait<0>();                   // exit with no copy in flight
+    return;
+  }
+  reg_alloc<kMlaConsumerRegs>();
+
+  const int wg = warp / 4, tw = threadIdx.x % 128;
+  const int row = (warp % 4) * 16 + lane / 4;       // and row + 8
+  const int cq = 2 * (lane % 4);
+  const uint32_t v_off = wg * NV * BK * kRowBytes;  // this warpgroup's boxes
+  uint4* const sP = reinterpret_cast<uint4*>(base + (p_s - q_s));
+  float2* const sA = reinterpret_cast<float2*>(base + (a_s - q_s));
+  float2* const sL = reinterpret_cast<float2*>(base + (l_s - q_s));
+  float acc[NV][32];
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+  uint32_t ph[NW][4], pl[NW][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  if (wg == 0) {
+    // Scores, softmax and this half of P @ V; tile i + 1's S runs on the
+    // tensor cores while tile i's P @ V does, and P(i + 1) is handed over
+    // once P(i) @ V is in (ph / pl are its operands until then).
+    int qp[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      qp[r] = row + 8 * r < R ? p.q_pos[b * p.S + (r0 + row + 8 * r) / G]
+                              : -1;
+    float alpha[2], sc[BK / 2];
+    mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      mbar_wait(k_full, 0);
+      fence_proxy_async();                // q's cp.async before wgmma reads
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+      pin(sc);
+      wg_fence();
+      start_qk<ND, BK>(sc, q_s, k_s);
+      wg_wait<0>();
+      pin(sc);
+      tile_softmax<BK>(sc, p, sKP, sTab, sTiles[0] * BK, lgps, qp, cq, m, l,
+                       alpha);
+      split<BK>(sc, ph, pl);              // acc is zero: alpha needs no use
+      mla_publish(sP, sA, p_full, p_free, 0, tw, ph, pl, alpha);
+    }
+    for (int i = 0; i + 1 < n_tiles; ++i) {
+      const int s = i % kMlaStages, t = (i + 1) % kMlaStages;
+      mbar_wait(k_full + 8 * t, ((i + 1) / kMlaStages) & 1);
+      TileKeys<BK> keys;                  // read while the products run
+      tile_keys<BK>(keys, p, sKP + t * BK, sTab, sTiles[i + 1] * BK, lgps,
+                    cq);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+      pin(sc);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) pin(acc[c]);
+      pin(ph);
+      pin(pl);
+      wg_fence();
+      start_qk<ND, BK>(sc, q_s, k_s + t * ND * BK * kRowBytes);
+      start_pv_wide<NV, BK>(acc, ph, pl,
+                            k_s + s * ND * BK * kRowBytes + v_off);
+      wg_wait<1>();                       // tile i + 1's scores are in
+      pin(sc);
+      keys_softmax<BK>(sc, p, keys, qp, m, l, alpha);
+      wg_wait<0>();                       // tile i's P @ V is in
+#pragma unroll
+      for (int c = 0; c < NV; ++c) pin(acc[c]);
+      pin(ph);
+      pin(pl);
+      if (lane == 0) mbar_arrive(k_free + 8 * s);
+      split<BK>(sc, ph, pl);              // P(i + 1) first: warpgroup 1 waits
+      mla_publish(sP, sA, p_full, p_free, i + 1, tw, ph, pl, alpha);
+#pragma unroll
+      for (int c = 0; c < NV; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[c][e] *= alpha[(e >> 1) & 1];
+    }
+    if (n_tiles > 0) {                    // the last tile's P @ V
+      const int s = (n_tiles - 1) % kMlaStages;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) pin(acc[c]);
+      pin(ph);
+      pin(pl);
+      wg_fence();
+      start_pv_wide<NV, BK>(acc, ph, pl,
+                            k_s + s * ND * BK * kRowBytes + v_off);
+      wg_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NV; ++c) pin(acc[c]);
+      if (lane == 0) mbar_arrive(k_free + 8 * s);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    sL[tw] = make_float2(l[0], l[1]);
+  } else {
+    // The other half of P @ V, on P and alpha from warpgroup 0.
+    for (int i = 0; i < n_tiles; ++i) {
+      const int buf = i & 1, s = i % kMlaStages;
+      mbar_wait(p_full + 8 * buf, (i / 2) & 1);
+      const uint4* const P = sP + buf * 2 * NW * 128;
+#pragma unroll
+      for (int kk = 0; kk < NW; ++kk) {
+        const uint4 h = P[kk * 128 + tw], lo = P[(NW + kk) * 128 + tw];
+        ph[kk][0] = h.x, ph[kk][1] = h.y, ph[kk][2] = h.z, ph[kk][3] = h.w;
+        pl[kk][0] = lo.x, pl[kk][1] = lo.y, pl[kk][2] = lo.z,
+        pl[kk][3] = lo.w;
+      }
+      const float2 al = sA[buf * 128 + tw];
+      const float alpha[2] = {al.x, al.y};
+      mbar_arrive(p_free + 8 * buf);
+#pragma unroll
+      for (int c = 0; c < NV; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[c][e] *= alpha[(e >> 1) & 1];
+      mbar_wait(k_full + 8 * s, (i / kMlaStages) & 1);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) pin(acc[c]);
+      pin(ph);
+      pin(pl);
+      wg_fence();
+      start_pv_wide<NV, BK>(acc, ph, pl,
+                            k_s + s * ND * BK * kRowBytes + v_off);
+      wg_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NV; ++c) pin(acc[c]);
+      if (lane == 0) mbar_arrive(k_free + 8 * s);
+    }
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");   // l is in sL
+  {
+    const float2 lf = sL[tw];
+    l[0] = lf.x;
+    l[1] = lf.y;
+  }
+
+  // The block's 64 output rows are staged in shared memory over q and the
+  // ring (free now), then written out whole, 16 bytes a lane: unsplit, the
+  // output in bf16; a split, acc in f32 to the workspace in the split
+  // route's layout (partial (b * K + kh) * splits + sp) with m and l, and
+  // no acc for a row without a visible key (paged_combine_kernel reads
+  // none of such a row).
+  const bool part = splits > 1;
+  const int row_bytes = p.Dv * (part ? 4 : 2), stride = row_bytes + 16;
+  float* const sRowL = reinterpret_cast<float*>(sA);   // free now
+  const size_t pidx = (size_t)blockIdx.z * splits + sp;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    const float inv = 1.f / (l[r] > 0.f ? l[r] : 1.f);
+    unsigned char* const dst = base + rr * stride;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = (wg * NV + c) * kBox + 8 * j + cq;
+        if (col >= p.Dv) continue;
+        const float x0 = acc[c][4 * j + 2 * r], x1 = acc[c][4 * j + 2 * r + 1];
+        if (part)
+          *reinterpret_cast<float2*>(dst + col * 4) = make_float2(x0, x1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(dst + col * 2) =
+              __floats2bfloat162_rn(x0 * inv, x1 * inv);
+      }
+    if (part && wg == 0 && lane % 4 == 0 && rr < R) {
+      float* const w_ml = ws + (size_t)p.B * p.K * splits * Rt * p.Dv +
+                          pidx * 2 * Rt;
+      w_ml[r0 + rr] = m[r];
+      w_ml[Rt + r0 + rr] = l[r];
+      sRowL[rr] = l[r];
+    }
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int cpr = row_bytes / 16;
+  for (int idx = threadIdx.x; idx < R * cpr; idx += 256) {
+    const int rr = idx / cpr, c = idx % cpr, orow = r0 + rr;
+    unsigned char* dst;
+    if (part) {
+      if (!(sRowL[rr] > 0.f)) continue;
+      dst = reinterpret_cast<unsigned char*>(ws + (pidx * Rt + orow) * p.Dv);
+    } else {
+      dst = static_cast<unsigned char*>(p.out) +
+            ((size_t)(b * p.S + orow / G) * p.H + kh * G + orow % G) *
+                row_bytes;
+    }
+    *reinterpret_cast<uint4*>(dst + c * 16) =
+        *reinterpret_cast<const uint4*>(base + rr * stride + c * 16);
+  }
+}
+
+template <int NDK>
+cudaError_t launch_mla(const Params& p, float* ws, int splits, int per,
+                       cudaStream_t stream) {
+  const size_t smem = mla_smem_bytes(NDK, p.npps, p.ps);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  // the ckv and kr pools as (D, K, P*ps) tensors, in boxes of 64 columns x
+  // 1 head x min(ps, BK) rows
+  CUtensorMap tk{}, tk2{}, tq{}, tq2{};
+  const cuuint64_t rows = (cuuint64_t)p.P * p.ps;
+  const cuuint32_t box_rows = (cuuint32_t)(p.ps < kMlaBK ? p.ps : kMlaBK);
+  if (!tensor_map_3d(&tk, p.k, {(cuuint64_t)p.Dk, (cuuint64_t)p.K, rows},
+                     {(cuuint64_t)p.Dk * 2, (cuuint64_t)p.K * p.Dk * 2},
+                     {kBox, 1, box_rows}) ||
+      !tensor_map_3d(&tk2, p.k2, {(cuuint64_t)p.Dk2, (cuuint64_t)p.K, rows},
+                     {(cuuint64_t)p.Dk2 * 2, (cuuint64_t)p.K * p.Dk2 * 2},
+                     {kBox, 1, box_rows}))
+    return cudaErrorInvalidValue;
+  // q and q2 as (D, H, B*S) tensors in boxes of 64 columns x 64 heads, where
+  // a block's 64 rows are 64 heads of one query (G a multiple of 64)
+  const cuuint64_t qrows = (cuuint64_t)p.B * p.S;
+  if ((p.H / p.K) % kRows == 0 &&
+      (!tensor_map_3d(&tq, p.q, {(cuuint64_t)p.Dk, (cuuint64_t)p.H, qrows},
+                      {(cuuint64_t)p.Dk * 2, (cuuint64_t)p.H * p.Dk * 2},
+                      {kBox, kRows, 1}) ||
+       !tensor_map_3d(&tq2, p.q2, {(cuuint64_t)p.Dk2, (cuuint64_t)p.H, qrows},
+                      {(cuuint64_t)p.Dk2 * 2, (cuuint64_t)p.H * p.Dk2 * 2},
+                      {kBox, kRows, 1})))
+    return cudaErrorInvalidValue;
+  auto kern = paged_mla_kernel<NDK>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int Rt = p.S * (p.H / p.K);
+  const dim3 grid((Rt + kRows - 1) / kRows, splits, p.B * p.K);
+  kern<<<grid, kMlaThreads, smem, stream>>>(tk, tk2, tq, tq2, p, ws, splits,
+                                            per);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const size_t wbytes = (size_t)splits * 4;
+  if (wbytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (wbytes > 48 * 1024) {
+    e = cudaFuncSetAttribute(paged_combine_kernel<__nv_bfloat16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wbytes);
+    if (e != cudaSuccess) return e;
+  }
+  paged_combine_kernel<__nv_bfloat16>
+      <<<dim3(Rt, p.K, p.B), kThreads, wbytes, stream>>>(p, ws, splits);
+  return cudaGetLastError();
+}
+
+using MlaLaunch = cudaError_t (*)(const Params&, float*, int, int,
+                                  cudaStream_t);
+constexpr MlaLaunch kMlaLaunch[8] = {launch_mla<1>, launch_mla<2>,
+                                     launch_mla<3>, launch_mla<4>,
+                                     launch_mla<5>, launch_mla<6>,
+                                     launch_mla<7>, launch_mla<8>};
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
@@ -1351,6 +2131,29 @@ extern "C" int paged_attention_tile_launch(
   return (int)dispatch_tile(p, static_cast<cudaStream_t>(stream));
 }
 
+// The mla route (bf16; v the same tensor as k): Dk a multiple of 64 in [64,
+// 512], Dk2 a multiple of 8 in [8, 64], ps a power of two >= 8, every
+// pointer 16-byte aligned. `splits` ranges of `per` 32-key tiles a slot;
+// with splits > 1, `ws` holds B*K*splits*S*(H/K)*(Dk + 2) floats and
+// paged_combine_kernel writes the output.
+extern "C" int paged_attention_mla_launch(
+    const void* q, const void* kv, const int* kpos, const int* tables,
+    const int* q_pos, const void* q2, const void* k2, void* out, void* ws,
+    int B, int S, int H, int K, int Dk, int Dk2, int P, int ps, int npps,
+    int splits, int per, float scale, int causal, int has_window, int window,
+    int has_cap, float cap, void* stream) {
+  if (B == 0 || S == 0) return (int)cudaSuccess;
+  if (Dk < 64 || Dk > 512 || Dk % 64 || Dk2 < 8 || Dk2 > 64 || Dk2 % 8 ||
+      ps < 8 || (ps & (ps - 1)) || splits < 1 || per < 1 || !q2 || !k2 ||
+      (splits > 1 && !ws))
+    return (int)cudaErrorInvalidValue;
+  const Params p{q, kv, kv, kpos, tables, q_pos, q2, k2, out,
+                 B, S, H, K, Dk, Dk2, Dk, P, ps, npps, 0,
+                 scale, causal, has_window, window, has_cap, cap};
+  return (int)kMlaLaunch[Dk / 64 - 1](p, static_cast<float*>(ws), splits,
+                                       per, static_cast<cudaStream_t>(stream));
+}
+
 // Dynamic shared memory of one block of each route, in bytes, and the most
 // a block may take: the wrapper chooses a route only where its block fits.
 extern "C" long long paged_attention_split_smem_bytes(int R, int ps, int Dt,
@@ -1361,6 +2164,10 @@ extern "C" long long paged_attention_split_smem_bytes(int R, int ps, int Dt,
 extern "C" long long paged_attention_tile_smem_bytes(int Dk, int Dv,
                                                      int npps, int ps) {
   return (long long)tile_smem_bytes(boxes(Dk), boxes(Dv), npps, ps);
+}
+extern "C" long long paged_attention_mla_smem_bytes(int Dk, int npps,
+                                                    int ps) {
+  return (long long)mla_smem_bytes(boxes(Dk), npps, ps);
 }
 extern "C" long long paged_attention_max_smem_bytes() {
   return (long long)kMaxSmem;

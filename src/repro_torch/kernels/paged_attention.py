@@ -8,13 +8,17 @@ each slot owns an ordered page list (its page table, -1 = unallocated).
 page is read once per (slot, kv head, block) and shared by the G query
 heads of that kv head.
 
-Three routes, chosen by ``_route`` from shapes, dtype, the SM count and
+Four routes, chosen by ``_route`` from shapes, dtype, the SM count and
 the routes' shared memory alone (never from the contents of ``tables``,
 ``kpos`` or ``q_pos``, so no host sync; worked out once a shape by
 ``_plan``): ``split`` (S*G < 64: decode; the table split across blocks,
 then a combine kernel), ``tile`` (bf16 prefill: tensor-core tiles gathered
-from pages) and ``general`` (the rest). A route is never a fallback: a
-failed launch raises.
+from pages), ``mla`` (bf16, S*G >= 64, MLA's absorbed form with ``v`` the
+same tensor as ``k``: deepseek-v2's 128 heads over one latent head; one
+staged [ckv | kr] tile is both K and V of wgmma products, and a decode's
+table is split across blocks and joined by the split route's combine
+kernel) and ``general`` (the rest). A route is never a fallback: a failed
+launch raises.
 
 ``paged_attention_ref`` is the plain PyTorch version of the same function,
 line for line the reference oracle (``repro.kernels.ref``): gather each
@@ -116,15 +120,16 @@ def _check(q, k, v, kpos, tables, q_pos, q2, k2):
         raise ValueError("paged_attention: q2 (B,S,H,Dk2), k2 (P,ps,K,Dk2)")
 
 
-ROUTES = ("split", "tile", "general")
-TILE_ROWS = 64                   # (query, group) rows of a tile block
+ROUTES = ("split", "tile", "mla", "general")
+TILE_ROWS = 64                   # (query, group) rows of a tile or mla block
+MLA_KEYS = 32                    # keys a tile of the mla route (kMlaBK)
 
 # A route's shared memory a block, as the CUDA source lays it out:
-# ``split(R, ps, Dt, Dv, elem, per)`` and ``tile(Dk, Dv, npps, ps)`` in
-# bytes, and the most a block may take. On the card these are the
-# library's own functions (``_library_smem``), so the layout is known in
-# one place only.
-Smem = collections.namedtuple("Smem", "split tile limit")
+# ``split(R, ps, Dt, Dv, elem, per)``, ``tile(Dk, Dv, npps, ps)`` and
+# ``mla(Dk, npps, ps)`` in bytes, and the most a block may take. On the
+# card these are the library's own functions (``_library_smem``), so the
+# layout is known in one place only.
+Smem = collections.namedtuple("Smem", "split tile mla limit")
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,11 +137,15 @@ def _library_smem() -> Smem:
     lib = _build.load("paged_attention")
     split = lib.paged_attention_split_smem_bytes
     tile = lib.paged_attention_tile_smem_bytes
+    mla = lib.paged_attention_mla_smem_bytes
     limit = lib.paged_attention_max_smem_bytes
     split.argtypes, tile.argtypes = [ctypes.c_int] * 6, [ctypes.c_int] * 4
-    split.restype = tile.restype = limit.restype = ctypes.c_longlong
+    mla.argtypes = [ctypes.c_int] * 3
+    for fn in (split, tile, mla, limit):
+        fn.restype = ctypes.c_longlong
     # ctypes functions do not hash; ``_plan``'s cache key needs them to
-    return Smem(lambda *a: split(*a), lambda *a: tile(*a), limit())
+    return Smem(lambda *a: split(*a), lambda *a: tile(*a),
+                lambda *a: mla(*a), limit())
 
 
 def _splits(B: int, K: int, npps: int, n_sm: int) -> int:
@@ -148,17 +157,36 @@ def _splits(B: int, K: int, npps: int, n_sm: int) -> int:
     return max(1, -(-npps // per))
 
 
+def _shared(k, v) -> bool:
+    """``v`` is ``k``: one tensor for keys and values (MLA's ckv pool). A
+    fact about the arguments (their storage and shape), not their
+    contents."""
+    return (v.data_ptr() == k.data_ptr() and v.shape == k.shape
+            and v.dtype == k.dtype)
+
+
+def _mla_splits(blocks: int, tiles: int, n_sm: int) -> int:
+    """How many ranges of whole key tiles the mla route cuts each slot's
+    table into: about one block an SM over ``blocks`` unsplit blocks (one
+    block an SM fits its shared memory), none empty; 1 where the row tiles
+    alone fill the card."""
+    want = max(1, min(tiles, -(-n_sm // max(1, blocks))))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
 def _shape(q, k, v, q2, tables) -> tuple:
     """All that a route depends on: shapes and dtype, never contents."""
     return (*q.shape, *k.shape[1:3], v.shape[-1],
-            q2.shape[-1] if q2 is not None else 0, tables.shape[1], q.dtype)
+            q2.shape[-1] if q2 is not None else 0, tables.shape[1], q.dtype,
+            _shared(k, v))
 
 
 @functools.lru_cache(maxsize=4096)
 def _plan(shape: tuple, n_sm: int, smem: Smem):
     """``(route, splits, per, workspace floats)`` for one ``_shape``:
     worked out once a shape, so a call's host work stays a lookup."""
-    B, S, H, Dk, ps, K, Dv, Dk2, npps, dtype = shape
+    B, S, H, Dk, ps, K, Dv, Dk2, npps, dtype, shared = shape
     R, elem = S * (H // K), 2 if dtype == torch.bfloat16 else 4
     if R < TILE_ROWS:
         splits = _splits(B, K, npps, n_sm)
@@ -167,6 +195,15 @@ def _plan(shape: tuple, n_sm: int, smem: Smem):
                 and smem.split(R, ps, Dk + Dk2, Dv, elem, per) <= smem.limit):
             return "split", splits, per, B * K * splits * R * (Dv + 2)
         return "general", 0, 0, 0
+    if (dtype == torch.bfloat16 and shared and 0 < Dk2 <= 64
+            and Dk2 % 8 == 0 and Dk % 64 == 0 and Dk <= 512
+            and ps >= 8 and ps & (ps - 1) == 0
+            and smem.mla(Dk, npps, ps) <= smem.limit):
+        tiles = -(-npps * ps // MLA_KEYS)
+        splits = _mla_splits(B * K * -(-R // TILE_ROWS), tiles, n_sm)
+        per = -(-tiles // splits)
+        ws = B * K * splits * R * (Dv + 2) if splits > 1 else 0
+        return "mla", splits, per, ws
     if (dtype == torch.bfloat16 and Dk2 == 0
             and all(d % 8 == 0 and 8 <= d <= 256 for d in (Dk, Dv))
             and 64 % ps == 0 and smem.tile(Dk, Dv, npps, ps) <= smem.limit):
@@ -175,8 +212,8 @@ def _plan(shape: tuple, n_sm: int, smem: Smem):
 
 
 def _route(q, k, v, q2, tables, n_sm: int, smem: Smem) -> str:
-    """``"split"``, ``"tile"`` or ``"general"``, from shapes, dtype, the SM
-    count and the routes' shared memory alone."""
+    """``"split"``, ``"tile"``, ``"mla"`` or ``"general"``, from shapes,
+    dtype, the SM count and the routes' shared memory alone."""
     return _plan(_shape(q, k, v, q2, tables), n_sm, smem)[0]
 
 
@@ -195,6 +232,9 @@ def _launcher(route: str):
     elif route == "split":
         fn = lib.paged_attention_split_launch
         fn.argtypes = [p] * 10 + [i] * 12 + [f, i, i, i, i, f, i, p]
+    elif route == "mla":
+        fn = lib.paged_attention_mla_launch
+        fn.argtypes = [p] * 9 + [i] * 11 + [f, i, i, i, i, f, p]
     else:
         fn = lib.paged_attention_tile_launch
         fn.argtypes = [p] * 7 + [i] * 9 + [f, i, i, i, i, f, p]
@@ -229,8 +269,8 @@ def paged_attention(q, k, v, kpos, tables, q_pos, *, q2=None, k2=None,
     contiguous and on one device. Returns (B, S, H, Dv) in v.dtype. A slot
     whose table is all -1 (or a pad query row) gets exact zeros. CPU (and
     ``meta``) tensors take ``paged_attention_ref``; CUDA tensors launch the kernels of the
-    route ``_route`` picks (the split and tile routes take 16-byte aligned
-    tensors and raise on others).
+    route ``_route`` picks (the split, tile and mla routes take 16-byte
+    aligned tensors and raise on others).
     """
     _refuse_sharded(q, k, v, kpos, tables, q_pos, q2, k2)
     _check(q, k, v, kpos, tables, q_pos, q2, k2)
@@ -242,7 +282,7 @@ def paged_attention(q, k, v, kpos, tables, q_pos, *, q2=None, k2=None,
         raise ValueError(f"paged_attention runs on cpu, meta or cuda, not "
                          f"{q.device}")
     shape = _shape(q, k, v, q2, tables)
-    B, S, H, Dk, ps, K, Dv, Dk2, npps, _ = shape
+    B, S, H, Dk, ps, K, Dv, Dk2, npps = shape[:9]
     P = k.shape[0]
     if scale is None:
         scale = 1.0 / math.sqrt(Dk + Dk2)
@@ -267,6 +307,14 @@ def paged_attention(q, k, v, kpos, tables, q_pos, *, q2=None, k2=None,
         err = _launcher(route)(*ptr, *opt, out.data_ptr(), ws.data_ptr(),
                                B, S, H, K, Dk, Dk2, Dv, P, ps, npps, splits,
                                per, *mask, bf16, stream)
+    elif route == "mla":
+        ws = (torch.empty(ws_floats, dtype=torch.float32, device=q.device)
+              if splits > 1 else None)
+        err = _launcher(route)(ptr[0], ptr[1], *ptr[3:], *opt,
+                               out.data_ptr(),
+                               ws.data_ptr() if ws is not None else None,
+                               B, S, H, K, Dk, Dk2, P, ps, npps, splits, per,
+                               *mask, stream)
     elif route == "tile":
         err = _launcher(route)(*ptr, out.data_ptr(), B, S, H, K, Dk, Dv, P,
                                ps, npps, *mask, stream)

@@ -25,8 +25,9 @@ reference's, on the CPU at smoke width, and its paged kernel on the card.
   clean pool.
 
 The ``cuda`` test holds the paged kernel at deepseek-v2's full head counts
-(H 128 over one latent head, Dk 512 + Dk2 64, Dv 512, 16-row pages) on the
-``general`` route within one bf16 rounding of the f32 answer. JAX is
+(H 128 over one latent head, Dk 512 + Dk2 64, Dv 512, 16-row pages): bf16
+on the ``mla`` route within one bf16 rounding of the f32 answer, f32 on
+the ``general`` route within 2e-5 of the plain version. JAX is
 imported in the functions that need it, so that the file also runs where
 JAX is absent: ``python -m pytest --noconftest -m cuda
 tests/test_torch_mla.py``.
@@ -385,19 +386,23 @@ FULL_MLA = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,kw", FULL_MLA, ids=[c[0] for c in FULL_MLA])
-def test_cuda_mla_full_head_counts_on_general_route(cuda_device, name, kw):
-    """Every MLA shape takes the general route (R = S * 128 >= 64 rows
-    and q2/k2 leave split and tile out); f32 within 2e-5 of the plain
-    version, bf16 within one bf16 rounding of the f32 answer."""
+def test_cuda_mla_full_head_counts_mla_route_in_bf16_general_in_f32(
+        cuda_device, name, kw):
+    """Every MLA shape takes its route by dtype (R = S * 128 >= 64 rows
+    and q2/k2 leave split and tile out): bf16 the mla route, within one
+    bf16 rounding of the f32 answer; f32 the general route, within 2e-5 of
+    the plain version."""
     scale = 1.0 / math.sqrt(128 + 64)
     a = _mla_problem(19, **kw)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, route in ((torch.float32, "general"),
+                         (torch.bfloat16, "mla")):
         t = _torch_args(a, cuda_device, dtype)
         t["v"] = t["k"]
         routes = dict(paged_attention.routes)
         out = _call(paged_attention, t, scale=scale)
         torch.cuda.synchronize()
-        assert paged_attention.routes["general"] == routes["general"] + 1
+        assert paged_attention.routes == {**routes,
+                                          route: routes[route] + 1}
         if dtype == torch.float32:
             ref = _call(paged_attention_ref, t, scale=scale)
             torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)

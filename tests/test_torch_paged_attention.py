@@ -7,8 +7,10 @@ reference's own tests run it) and with the reference oracle
 ``tests/test_paged_attention.py``. Tolerance: f32 atol = rtol = 2e-5, the
 reference's own contract — the same math, summed in another order.
 
-The kernels take one of three routes, chosen from shapes alone
-(``_route``): ``split`` (S*G < 64), ``tile`` (bf16 prefill) and ``general``.
+The kernels take one of four routes, chosen from shapes alone
+(``_route``): ``split`` (S*G < 64), ``tile`` (bf16 prefill), ``mla`` (bf16
+MLA with v the tensor k: ``tests/test_torch_paged_mla.py``) and
+``general``.
 ``_emulate_split`` repeats the split route's arithmetic in plain PyTorch
 (partials over ranges of table entries, then the combine) and must hold the
 oracle's f32 contract for every split count; ``_emulate_tile`` repeats the
@@ -43,7 +45,8 @@ ONE_ROUNDING = dict(atol=1e-5, rtol=2.0 ** -8)
 N_SM = 132                                   # an H100's SMs
 # shared memory that every route's block fits in: the routing rules alone
 # (on the card, ``_library_smem`` gives the CUDA source's own sizes)
-ALL_FIT = Smem(split=lambda *a: 0, tile=lambda *a: 0, limit=232448)
+ALL_FIT = Smem(split=lambda *a: 0, tile=lambda *a: 0, mla=lambda *a: 0,
+               limit=232448)
 
 
 def _mk(seed, B=2, S=1, H=4, K=2, Dk=16, Dv=16, P=12, ps=4, npps=4,
@@ -387,8 +390,9 @@ def test_route_goes_by_shapes_alone(name, make, kw):
 
 def test_route_at_the_serving_shapes():
     """qwen3-14b's (H 40, K 8, D 128, 16-row pages, 32 table entries):
-    decode splits, a prefill of 128 tokens takes tiles, f32 prefill and an
-    MLA prefill with q2/k2 the general kernel, odd pages and D > 256 too."""
+    decode splits, a prefill of 128 tokens takes tiles, f32 prefill the
+    general kernel, odd pages and D > 256 too; a bf16 prefill with q2/k2
+    and v the tensor k is MLA's absorbed form: the mla route."""
     def route(S, dtype=torch.bfloat16, D=128, ps=16, q2=None):
         q = torch.empty((4, S, 40, D), dtype=dtype)
         k = torch.empty((128, ps, 8, D), dtype=dtype)
@@ -399,7 +403,7 @@ def test_route_at_the_serving_shapes():
     assert route(13) == route(128) == "tile"
     assert route(128, torch.float32) == "general"
     assert route(128, q2=torch.empty((4, 128, 40, 64),
-                                     dtype=torch.bfloat16)) == "general"
+                                     dtype=torch.bfloat16)) == "mla"
     assert route(128, ps=12) == "general" and route(128, D=288) == "general"
     assert route(1, D=4) == "general"            # 8 bytes a bf16 row
 
@@ -419,8 +423,9 @@ def test_splits_cover_the_table(B, K, npps):
 
 
 def test_route_takes_general_where_a_block_does_not_fit():
-    """A split or tile block that would not fit in shared memory sends the
-    call to the general kernel; the sizes asked for are the block's."""
+    """A split, tile or mla block that would not fit in shared memory
+    sends the call to the general kernel; the sizes asked for are the
+    block's."""
     asked = []
 
     def size(route, n):
@@ -433,14 +438,23 @@ def test_route_takes_general_where_a_block_does_not_fit():
     k = torch.empty((128, 16, 8, 128), dtype=torch.bfloat16)
     qp = torch.empty((4, 128, 40, 128), dtype=torch.bfloat16)
     tab = torch.empty((4, 32), dtype=torch.int32)
-    for n, split, tile in [(100, "split", "tile"), (101, "general",
-                                                     "general")]:
-        smem = Smem(size("split", n), size("tile", n), 100)
+    # deepseek-v2's absorbed prefill: 128 heads over one latent head of
+    # 512 + 64 columns, v the tensor k
+    mq = torch.empty((4, 128, 128, 512), dtype=torch.bfloat16)
+    mk = torch.empty((128, 16, 1, 512), dtype=torch.bfloat16)
+    mq2 = torch.empty((4, 128, 128, 64), dtype=torch.bfloat16)
+    mk2 = torch.empty((128, 16, 1, 64), dtype=torch.bfloat16)
+    for n, split, tile, mla in [(100, "split", "tile", "mla"),
+                                (101, "general", "general", "general")]:
+        smem = Smem(size("split", n), size("tile", n), size("mla", n), 100)
         assert _route(q, k, k, None, tab, N_SM, smem) == split
         assert _route(qp, k, k, None, tab, N_SM, smem) == tile
-    # G = 5 rows, 16-row pages, 128 + 128 columns, 2 bytes, 2 entries a range
+        assert _route(mq, mk, mk, mq2, tab, N_SM, smem) == mla
+    # G = 5 rows, 16-row pages, 128 + 128 columns, 2 bytes, 2 entries a
+    # range; the mla block: Dk 512, 32 entries of 16 rows
     assert asked == [("split", (5, 16, 128, 128, 2, 2)),
-                     ("tile", (128, 128, 32, 16))] * 2
+                     ("tile", (128, 128, 32, 16)),
+                     ("mla", (512, 32, 16))] * 2
 
 
 def test_library_smem_serves_the_plan_cache(monkeypatch):
@@ -454,6 +468,7 @@ def test_library_smem_serves_the_plan_cache(monkeypatch):
     class Lib:
         paged_attention_split_smem_bytes = libc.labs
         paged_attention_tile_smem_bytes = libc.labs
+        paged_attention_mla_smem_bytes = libc.labs
         paged_attention_max_smem_bytes = libc.getpid
 
     monkeypatch.setattr(pa._build, "load", lambda name: Lib)
