@@ -133,6 +133,11 @@ launch none of the counted kernels).
 On the CPU the executable is the function itself behind the same
 signature check and bookkeeping, so the cache's tests (the disk tier's
 among them) run without a card.
+
+While ``obs.trace.TRACER`` is enabled every call of an executable is an
+``exe.call`` span (``core.spans``; ``source``: ``"replay"``, ``"capture"``,
+or ``"eager"`` on the CPU), the ``graph.replay()`` inside it an
+``exe.replay`` span and a warm-up with its capture an ``exe.capture`` span.
 """
 from __future__ import annotations
 
@@ -153,12 +158,14 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import spans
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.launch.roofline import CollectiveStats
 from repro_torch.models.spec import TensorSpec
+from repro_torch.obs.trace import TRACER
 from repro_torch.sharding.spmd import (CollectiveCounter, ShardedSpec,
                                        count_replayed, local_tensor, rewrap,
                                        settle, spec_of)
@@ -555,6 +562,11 @@ class Executable:
     def _counter(self):
         return CollectiveCounter() if self.sharded else nullcontext()
 
+    #: how the latest call ran: ``"eager"`` here; a graph executable's
+    #: ``"capture"`` or ``"replay"`` (``exe.call``'s attribute)
+    source = "eager"
+
+    @spans.traced("exe.call", lambda self, _: {"source": self.source})
     def __call__(self, *args):
         self._check(args)
         self.calls += 1
@@ -737,6 +749,7 @@ class GraphExecutable(Executable):
         b.holders.add(self)
         return b
 
+    @spans.traced("exe.call", lambda self, _: {"source": self.source})
     def __call__(self, *args):
         per_arg = [pytree.tree_flatten(a) for a in args]
         self._check(args, per_arg)
@@ -745,7 +758,9 @@ class GraphExecutable(Executable):
                         for x in per_arg[i][0] if isinstance(x, torch.Tensor))
         g = self.graphs.get(binding)
         if g is None:
+            self.source = "capture"
             return self._capture(args, per_arg, binding)
+        self.source = "replay"
         leaves = (x for xs, _ in per_arg for x in xs)
         for x, s in zip(leaves, g.static_leaves):
             if s is not None:
@@ -753,7 +768,12 @@ class GraphExecutable(Executable):
                      else torch.as_tensor(x))
                 if x is not s:
                     s.copy_(x, non_blocking=True)
-        g.graph.replay()
+        if TRACER.enabled:
+            rp = spans.begin("exe.replay")
+            g.graph.replay()
+            spans.end(rp)
+        else:
+            g.graph.replay()
         g.replays += 1
         self.stats["replays"] = self.stats.get("replays", 0) + 1
         _apply_counts(g.counts)
@@ -775,6 +795,7 @@ class GraphExecutable(Executable):
             return torch.from_numpy(x).to(self.device)
         return None
 
+    @spans.traced("exe.capture")
     def _capture(self, args, per_arg, binding):
         global _capturing
         with _CAPTURE_LOCK:

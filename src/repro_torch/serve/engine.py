@@ -97,6 +97,15 @@ under an SLO the ``serve.slo_attainment`` series; attainment below
 ``obs.flight.RECORDER.slo_min`` triggers the flight recorder's
 ``slo_breach`` bundle. The hooks are host code around the step, never
 inside a captured graph.
+
+While ``obs.trace.TRACER`` is enabled the engine records spans on the
+profiler's clock (``core.spans``): each step is a ``serve.step`` (``live``:
+the slots that advanced); the paged engine's admission a ``serve.admit``
+(``placed``), each of its prefill dispatches, from its host arrays to its
+first tokens read back, a ``serve.prefill`` (``B``, ``S``, ``rows``: real
+prompt rows, ``requests``, ``warm``), and its page growth a
+``serve.pre_step`` (``stalled``). The executables' ``exe.*`` spans nest
+inside them.
 """
 from __future__ import annotations
 
@@ -109,6 +118,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import spans
 from repro_torch.core.backend import ArrayBackend
 from repro_torch.core.compile_cache import record_args
 from repro_torch.core.telemetry import (RequestRecord, class_summary,
@@ -120,6 +130,7 @@ from repro_torch.models.lm import (cache_init, decode_step, paged_cache_init,
 from repro_torch.models.spec import ModelConfig, TensorSpec
 from repro_torch.obs import flight as _flight
 from repro_torch.obs import metrics as _obs
+from repro_torch.obs.trace import TRACER
 from repro_torch.serve.kv_pool import PagePool
 from repro_torch.serve.scheduler import AdmissionScheduler, bucket_len
 
@@ -332,20 +343,25 @@ class _EngineBase:
             _obs.REGISTRY.series_append("serve.tpot_s", now, rec.tpot_s)
         self._release_slot(i)
 
-    def step(self) -> None:
-        """One batched decode step across all slots."""
+    @spans.traced("serve.step", lambda self, n: {"live": n})
+    def step(self) -> int:
+        """One batched decode step across all slots -> the number of slots
+        that advanced."""
         nxt = self._step_executable()
         now = time.perf_counter()
         self.stats["steps"] += 1
+        n = 0
         for i, req in enumerate(self.active):
             if req is None or i in self._stalled:
                 continue
             req.out.append(int(nxt[i]))
-            self.stats["decoded"] += 1
+            n += 1
             if req.t_first is None:
                 req.t_first = now
             if len(req.out) >= req.budget:
                 self._finish(i)
+        self.stats["decoded"] += n
+        return n
 
     def run(self, requests: List[Request], max_steps: int = 10_000) -> dict:
         t0 = time.perf_counter()
@@ -852,6 +868,7 @@ class PagedServeEngine(_EngineBase):
             return n                          # exact-length groups (SSM)
         return min(bucket_len(n), self.pool.vcap)
 
+    @spans.traced("serve.admit", lambda self, n: {"placed": n})
     def _admit(self) -> int:
         if self._stalled:
             # page-starved: admitting more work would steal the pages the
@@ -945,6 +962,7 @@ class PagedServeEngine(_EngineBase):
             return False
         S_suf = S - suffix_start
         S_pad = min(bucket_len(S_suf), self.pool.vcap)
+        sp = spans.begin("serve.prefill") if TRACER.enabled else None
         toks = np.zeros((1, S_pad), np.int32)
         toks[0, :S_suf] = req.prompt[suffix_start:]
         logits = self._warm_exec(S_pad)(
@@ -958,6 +976,8 @@ class PagedServeEngine(_EngineBase):
         if _obs.REGISTRY.enabled:
             self._m_phit.inc()
         tok = int(torch.argmax(logits[0, -1]))
+        if sp is not None:
+            spans.end(sp, B=1, S=S_pad, rows=S_suf, requests=1, warm=True)
         req.out.append(tok)
         req.t_first = time.perf_counter()
         self.tokens[slot, 0] = tok
@@ -983,6 +1003,7 @@ class PagedServeEngine(_EngineBase):
         else:
             S = len(placed[0][1].prompt)     # exact shape, no padding
             B = 1
+        sp = spans.begin("serve.prefill") if TRACER.enabled else None
         toks = np.zeros((B, S), np.int32)
         lens = np.zeros((B,), np.int32)
         trows = np.full((B, self.pool.pages_per_slot), -1, np.int32)
@@ -1000,6 +1021,9 @@ class PagedServeEngine(_EngineBase):
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_rows"] += int(lens.sum())
         first = torch.argmax(logits[:, -1], -1).cpu().numpy()
+        if sp is not None:
+            spans.end(sp, B=B, S=S, rows=int(lens.sum()),
+                      requests=len(placed), warm=False)
         now = time.perf_counter()
         for r, (slot, req) in enumerate(placed):
             tok = int(first[r])
@@ -1021,6 +1045,8 @@ class PagedServeEngine(_EngineBase):
         self._tables_dirty = True
 
     # -- decode-time page growth ------------------------------------------
+    @spans.traced("serve.pre_step",
+                  lambda self, _: {"stalled": len(self._stalled)})
     def _pre_step(self) -> None:
         """Before each step, make sure every active slot owns the page its
         next KV write lands in. A slot that can't get one (no free page,
