@@ -11,11 +11,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from benchkit import checks, serve, specs, traffic, weights
+from benchkit import checks, serve, spans, specs, traffic, weights
 from benchkit.profiling import Trace
 
 PEAK_FLOPS = 989e12          # H100 SXM, dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 (data sheet)
+#: the program tracer's ring over a traced window: room for every span of
+#: it (a 51-s window of ``mamba2-chat`` records ~4,200)
+SPAN_CAPACITY = 1 << 16
 
 
 def run(bench, cell: dict, seed: int, seconds: float, trace: bool,
@@ -62,6 +65,12 @@ def run(bench, cell: dict, seed: int, seconds: float, trace: bool,
             torch.profiler.ProfilerActivity.CUDA])
         span = min(mix.get("trace_span_s", 2.0), seconds)
         t_from = ws + (seconds - span) / 2
+        # the program's own spans over the window: the (B, S) and real
+        # rows of each prefill it dispatched
+        from repro_torch.obs.trace import TRACER
+        TRACER.clear()
+        TRACER.enable(SPAN_CAPACITY)
+        w0 = time.time_ns()
     we = loop.run_until(ws + seconds, prof,
                         t_from if trace else None,
                         t_from + span if trace else None)
@@ -69,21 +78,26 @@ def run(bench, cell: dict, seed: int, seconds: float, trace: bool,
         loop.stop_trace(prof)
     tok1, stats1 = loop.tokens(), dict(eng.stats)
     queue1 = eng.scheduler.pending()
-    if trace and loop.trace_ns is not None:
-        tr = Trace.from_profiler(prof, *loop.trace_ns)
+    sp = None
+    if trace:
+        TRACER.disable()
+        sp = spans.window(w0, time.time_ns())
+        TRACER.clear()
+        if sp is None:
+            raise RuntimeError("the program's tracer filled its ring of "
+                               f"{SPAN_CAPACITY} spans over the window")
+        if loop.trace_ns is not None:
+            tr = Trace.from_profiler(prof, *loop.trace_ns)
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else 0)
 
-    # every request due in the window, enqueued or not (a loop that falls
-    # behind enqueues late, and the wait counts)
     t_loop0 = loop.rec.t_loop0
-    due = [r for r in reqs if ws <= t_loop0 + r.due < we]
-    for r in due:
-        r.t_due = t_loop0 + r.due
-    failed = [r for r in due if rejected(r)]
+    offered = due_in(reqs, t_loop0, t_loop0, we)
+    failed = [r for r in offered if rejected(r)]
     run = SimpleNamespace(window=(ws, we), seconds=we - ws, rec=loop.rec,
-                          due=due, counts=fam.Counts(cfg), trace=tr,
-                          stats0=stats0, stats1=stats1,
+                          due=due_in(reqs, t_loop0, ws, we),
+                          offered=offered, counts=fam.Counts(cfg),
+                          trace=tr, spans=sp, stats0=stats0, stats1=stats1,
                           tokens=tok1 - tok0, peak_flops=PEAK_FLOPS,
                           peak_bytes=PEAK_BYTES)
     ttft = ttft_s(run)
@@ -111,10 +125,14 @@ def run(bench, cell: dict, seed: int, seconds: float, trace: bool,
     compared = {k: (got[k], v["limit"])
                 for k, v in bench.limits(cell["name"]).items()}
     ok = bool(picked) and all(v <= lim for v, lim in compared.values())
-    return {"correct": ok, "attempted": len(due), "failed": len(failed),
+    return {"correct": ok, "attempted": len(offered),
+            "failed": len(failed),
             "metrics": metrics, "peak": peak, "trace": tr,
             "checks": compared,
             "notes": {"tokens_compared": got["tokens"],
+                      "window_tokens_per_s": run.tokens / run.seconds,
+                      "window_goodput_tokens_per_s":
+                      goodput_tokens(run.due) / run.seconds,
                       "top1_share": got["top1_share"],
                       "logit_gap": got["logit_gap"],
                       "mean_logit_gap": got.get("mean_logit_gap"),
@@ -133,6 +151,16 @@ def run(bench, cell: dict, seed: int, seconds: float, trace: bool,
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def due_in(reqs, t_loop0: float, t0: float, t1: float) -> list:
+    """Every request due in [t0, t1), stamped with its due time, enqueued
+    or not (a loop that falls behind enqueues late, and the wait
+    counts)."""
+    due = [r for r in reqs if t0 <= t_loop0 + r.due < t1]
+    for r in due:
+        r.t_due = t_loop0 + r.due
+    return due
 
 
 def rejected(r) -> bool:
@@ -154,6 +182,25 @@ def ttft_s(run) -> list:
     return out
 
 
+def goodput_tokens(reqs) -> int:
+    """Output tokens (first tokens and decoded ones) that ``reqs`` had
+    received when the window closed; read once the loop has stopped, so
+    each request's output is as it was at the close. A request refused,
+    or never placed, adds what it received (0)."""
+    return sum(len(r.engine_req.out) for r in reqs
+               if r.engine_req is not None)
+
+
+def goodput_tokens_per_s(run) -> float:
+    """The output tokens of every request due from the loop's start to the
+    window's close, as received by the close, over that time. The loop
+    starts empty, so no request is cut at the start, and one dropped,
+    starved or cut short in the traffic warm-up reads as surely as one in
+    the window; at the close a faster program has served more of the late
+    arrivals."""
+    return goodput_tokens(run.offered) / (run.window[1] - run.rec.t_loop0)
+
+
 def e2e(run, setup_s: float) -> dict:
     """The end-to-end metrics of a window."""
     ws, we = run.window
@@ -165,7 +212,7 @@ def e2e(run, setup_s: float) -> dict:
                 and ws <= q.t_done <= we and len(q.out) > 1):
             tpot.append((q.t_done - q.t_first) / (len(q.out) - 1))
     out = {"setup_s": setup_s,
-           "tokens_per_s": run.tokens / run.seconds}
+           "goodput_tokens_per_s": goodput_tokens_per_s(run)}
     if ttft:
         out["ttft_p90_ms"] = 1e3 * float(np.percentile(ttft, 90))
     if tpot:

@@ -7,9 +7,10 @@ while a slot is busy, grow pages (``_pre_step``) and step. Each request is
 enqueued when it falls due, stamped with its due time (so a stall shows in
 the wait of every request behind it), and the loop keeps its own record of
 every admission that dispatched a prefill and of every decode step: their
-host-clock walls, the real prompt lengths of a dispatch with its padded
-(B, S), and each live slot's context length at a step. The per-layer
-metrics and the kernels' bounds are worked out from these records.
+host-clock walls, the real prompt lengths of a dispatch, and each live
+slot's context length at a step. The per-layer metrics and the kernels'
+bounds are worked out from these records; the padded (B, S) a dispatch
+ran at is the program's to report (its ``serve.prefill`` span).
 """
 from __future__ import annotations
 
@@ -27,8 +28,6 @@ from benchkit.traffic import Req
 class Dispatch:
     t0: float
     t1: float
-    B: int
-    S: int
     lengths: List[int]
     traced: bool = False
 
@@ -146,10 +145,8 @@ class OpenLoop:
                     r.t_placed = t0
         if eng.stats["prefill_dispatches"] > n_disp:
             lengths = [len(r.prompt) for r in placed if r.engine_req.out]
-            S = eng._bucket(max(lengths))
             self.rec.dispatches.append(Dispatch(
-                t0, t1, eng.slots, S, lengths,
-                self._tracing))
+                t0, t1, lengths, self._tracing))
         if any(a is not None for a in eng.active):
             t2 = time.perf_counter()
             with _span("bench.step"):

@@ -5,11 +5,13 @@ The port records spans of its serving path through its tracer,
 (``repro_torch.core.spans``): ``serve.admit``, ``serve.prefill``,
 ``serve.pre_step``, ``serve.step``, ``exe.call``, ``exe.replay``,
 ``exe.capture`` and ``py.gc``, each starting on the clock ``torch.profiler``
-stamps device events with (Unix-epoch time). ``window`` reads a window's
-spans; the readers below make per-layer numbers of them. Each returns None
-where the window has none of what it reads or the tracer's ring was full
-(it may have overwritten one of the window's spans), and a reader against
-the device also where there is no trace or it holds no device operation.
+stamps device events with (Unix-epoch time). A ``--trace 1`` run enables
+the tracer over its window and fails where the ring fills. ``window``
+reads a window's spans; the readers below make per-layer numbers of them.
+Each returns None where the window has none of what it reads or the
+tracer's ring was full (it may have overwritten one of the window's
+spans), and a reader against the device also where there is no trace or
+it holds no device operation.
 
 A decode cycle runs from the end of one ``serve.step`` to the end of the
 next, when no ``serve.prefill`` starts inside it: the step's graph and

@@ -8,8 +8,12 @@ that runs a cell with them (``trace_spans.py``), on the CPU.
   own breakdown names them (``Trace.idle_gaps``).
 * A tracer whose ring was full makes every reader return None.
 * A smoke cell run by the tool, tracer on, reads an executable call and
-  a group size above 0 (no device numbers on the CPU); the benchmark's
-  own runs never enable the tracer, so they leave no span.
+  a group size above 0 (no device numbers on the CPU).
+* The benchmark's ``--trace 0`` runs never enable the tracer; its
+  ``--trace 1`` runs enable it over the window alone, read
+  ``prefill_useful_share`` from the window's ``serve.prefill`` spans,
+  leave the tracer disabled and empty, and fail where the spans do not
+  cover the window.
 """
 import time
 
@@ -141,7 +145,68 @@ def test_tool_on_a_smoke_cell(smoke_root, mode):
 def test_benchmark_runs_record_no_span(smoke_root):
     TRACER.clear()
     bench = specs.Bench(str(smoke_root))
-    res = R.run_cell(bench, bench.cell("ssm-smoke"), 2**31 + 5, 1.0, True,
+    res = R.run_cell(bench, bench.cell("ssm-smoke"), 2**31 + 5, 1.0, False,
                      "cpu", time.perf_counter())
     assert res["attempted"] > 0
     assert TRACER.spans() == []
+
+
+@pytest.mark.parametrize("cell", ["ssm-smoke", "mla-smoke"])
+def test_traced_run_reads_prefill_shapes_from_spans(smoke_root,
+                                                    monkeypatch, cell):
+    """A ``--trace 1`` run reads ``prefill_useful_share`` from the
+    program's ``serve.prefill`` spans over its window, one a dispatch:
+    these engines pad every prefill to all slots, and to a length that
+    holds the group's longest prompt (SSM groups: exactly)."""
+    seen = []
+    window = S.window
+
+    def spy(t0, t1, tracer=None):
+        sp = window(t0, t1, tracer)
+        seen.append(sp)
+        return sp
+
+    monkeypatch.setattr(S, "window", spy)
+    bench = specs.Bench(str(smoke_root))
+    w = bench.cell(cell)
+    res = R.run_cell(bench, w, 2**31 + 6, 1.0, True, "cpu",
+                     time.perf_counter())
+    [sp] = seen
+    pre = sp.named("serve.prefill")
+    assert pre
+    slots = bench.traffic(w["traffic"])["engine"]["slots"]
+    for s in pre:
+        B, S_, rows, n = (s.attrs[k] for k in ("B", "S", "rows", "requests"))
+        assert B == slots and S_ * n >= rows > 0
+        if cell == "ssm-smoke":
+            assert rows == S_ * n
+    assert res["metrics"]["prefill_useful_share"][0] == pytest.approx(
+        100 * sum(s.attrs["rows"] for s in pre)
+        / sum(s.attrs["B"] * s.attrs["S"] for s in pre))
+    assert not TRACER.enabled and TRACER.spans() == []
+
+
+def test_traced_run_fails_where_spans_are_missing(smoke_root, monkeypatch):
+    """A traced run whose spans do not cover its window fails, and does
+    not print a share read from part of it: a ring too small to hold the
+    window, or prefill spans fewer than the engine's dispatches."""
+    from benchkit.loops import open_loop as OL
+    bench = specs.Bench(str(smoke_root))
+    cell = bench.cell("ssm-smoke")
+    monkeypatch.setattr(OL, "SPAN_CAPACITY", 8)
+    with pytest.raises(RuntimeError, match="ring"):
+        R.run_cell(bench, cell, 2**31 + 8, 1.0, True, "cpu",
+                   time.perf_counter())
+    monkeypatch.undo()
+    window = S.window
+
+    def drop_one(t0, t1, tracer=None):
+        sp = window(t0, t1, tracer)
+        first = sp.named("serve.prefill")[0]
+        return S.Spans([s for s in sp.items if s is not first])
+
+    monkeypatch.setattr(S, "window", drop_one)
+    with pytest.raises(RuntimeError, match="serve.prefill spans"):
+        R.run_cell(bench, cell, 2**31 + 8, 1.0, True, "cpu",
+                   time.perf_counter())
+    assert not TRACER.enabled and TRACER.spans() == []

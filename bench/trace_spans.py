@@ -15,12 +15,13 @@ and ``torch.profiler`` over the middle ``trace_span_s`` of the window, as
 a ``--trace 1`` run places it; ``replay``, no traffic: the decode step's
 executable alone, its host call and the card's time, without and with
 the profiler (``replay_costs``). A run prints one JSON line, appended to
-``--out``: the window's end-to-end numbers and ``decode_step_ms``, the
-span readers of ``benchkit.spans``, the host wall of each span name, and,
-traced, the card's idle time by the innermost span over it, the longest
-idle gaps by name, the mean decode cycle, and how many replayed decode
-steps had every kernel of their graph inside the ``serve.step`` that
-launched them.
+``--out``: the window's end-to-end numbers, its output tokens a second
+whichever request they belong to (``tokens_per_s``) and
+``decode_step_ms``, the span readers of ``benchkit.spans``, the host wall
+of each span name, and, traced, the card's idle time by the innermost
+span over it, the longest idle gaps by name, the mean decode cycle, and
+how many replayed decode steps had every kernel of their graph inside
+the ``serve.step`` that launched them.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ def measure(bench, cell: dict, seed: int, seconds: float, mode: str,
     import torch
 
     from benchkit import serve, specs, traffic, weights
-    from benchkit.loops.open_loop import PEAK_BYTES, PEAK_FLOPS, e2e
+    from benchkit.loops.open_loop import PEAK_BYTES, PEAK_FLOPS, due_in, e2e
     from benchkit.profiling import Trace
     from repro_torch.models.lm import lm_init
     from repro_torch.obs.trace import TRACER
@@ -97,16 +98,16 @@ def measure(bench, cell: dict, seed: int, seconds: float, mode: str,
           if prof is not None and loop.trace_ns is not None else None)
 
     t_loop0 = loop.rec.t_loop0
-    due = [r for r in reqs if ws <= t_loop0 + r.due < we]
-    for r in due:
-        r.t_due = t_loop0 + r.due
     run = SimpleNamespace(window=(ws, we), seconds=we - ws, rec=loop.rec,
-                          due=due, counts=fam.Counts(cfg), trace=tr,
+                          due=due_in(reqs, t_loop0, ws, we),
+                          offered=due_in(reqs, t_loop0, t_loop0, we),
+                          counts=fam.Counts(cfg), trace=tr,
                           stats0=stats0, stats1=stats1,
                           tokens=tok1 - tok0, peak_flops=PEAK_FLOPS,
                           peak_bytes=PEAK_BYTES)
     row = {"workload": cell["name"], "seed": seed, "mode": mode,
-           **e2e(run, ws - t_start)}
+           **e2e(run, ws - t_start),
+           "tokens_per_s": run.tokens / run.seconds}
     for name in ("decode_step_ms", "prefill_dispatch_ms"):
         row[name] = bench.reader(name)(run)
     sp = S.window(w0, w1) if mode != "off" else None
